@@ -1,0 +1,107 @@
+"""Generic building blocks, channels-last (counterpart of ogc_tpu/nn/layers.py).
+
+Reference utils/nn_util.py: a kernel-size-1 Conv1d/Conv2d is a per-point
+linear map over the trailing channel axis; SharedMLP stacks conv + GroupNorm
++ ReLU.  Parameter names follow the reference state_dict
+(``layer{j}.conv.weight``, ``layer{j}.normlayer.gn.weight``), and conv
+weights keep the reference's (C_out, C_in, 1[, 1]) shape, so reference
+checkpoints load unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the trailing channel axis of a (B, ..., C) tensor:
+    statistics per sample and group over every position (flax nn.GroupNorm
+    layout; the reference normalizes the same elements channels-first)."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels in {num_groups} groups")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[0], x.shape[-1]
+        xg = x.reshape(B, -1, self.num_groups, C // self.num_groups)
+        var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return y * self.weight + self.bias
+
+
+class Conv1x1(nn.Module):
+    """Kernel-size-1 convolution applied channels-last: (..., C_in) -> (..., C_out).
+
+    :param conv_dims: 1 or 2 -- the weight keeps the reference Conv1d/Conv2d
+        shape (C_out, C_in, 1[, 1]).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool,
+                 conv_dims: int = 2):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty((out_channels, in_channels) + (1,) * conv_dims))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        nn.init.kaiming_normal_(self.weight, mode="fan_in", nonlinearity="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.flatten(1), self.bias)
+
+
+class PointwiseConv(nn.Module):
+    """Conv1x1 + optional GroupNorm + optional ReLU; bias only without a norm
+    (reference utils/nn_util.py:45-107)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_groups: Optional[int] = None, act: bool = True,
+                 conv_dims: int = 2):
+        super().__init__()
+        self.conv = Conv1x1(in_channels, out_channels, bias=num_groups is None,
+                            conv_dims=conv_dims)
+        self.normlayer = (
+            nn.ModuleDict({"gn": GroupNorm(num_groups, out_channels)})
+            if num_groups is not None else None)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.normlayer is not None:
+            x = self.normlayer["gn"](x)
+        return F.relu(x) if self.act else x
+
+
+class SharedMLP(nn.Module):
+    """Stack of PointwiseConv + GroupNorm + ReLU (utils/nn_util.py:151-168).
+
+    :param channels: output channels per layer (the reference's mlp[1:]).
+    """
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 num_groups: Optional[int] = None):
+        super().__init__()
+        self.n_layers = len(channels)
+        for j, c in enumerate(channels):
+            self.add_module(f"layer{j}",
+                            PointwiseConv(in_channels, c, num_groups))
+            in_channels = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.n_layers):
+            x = getattr(self, f"layer{j}")(x)
+        return x
+
+
+def MLP(in_dim: int, hidden_dim: int, out_dim: int) -> nn.Sequential:
+    """Linear -> ReLU -> Linear (utils/transformer_util.py:24-28, 79-83)."""
+    return nn.Sequential(nn.Linear(in_dim, hidden_dim), nn.ReLU(),
+                         nn.Linear(hidden_dim, out_dim))
