@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (ogc_tpu_torch/csrc/*.cu).
 
-At first use, nvcc compiles every source into one shared library with a
-plain C interface, ``ogc_tpu_torch/_build/libogc_kernels-<hash>.so``, keyed
-by a hash of the sources, and ctypes loads it.  No PyTorch headers are
-included, so a build takes seconds.  There is no fallback: a failed build
-raises.
+At first use, one nvcc process per source compiles it to an object, all
+of them started together, and a last nvcc links the objects into one shared
+library with a plain C interface,
+``ogc_tpu_torch/_build/libogc_kernels-<hash>.so``, keyed by a hash of the
+sources; ctypes loads it.  No PyTorch headers are included, so a build takes
+seconds.  There is no fallback: a failed build raises.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` (``sqrtf`` stays
 correctly rounded), and ``-fmad=false`` on top of the ``__fmul_rn`` /
@@ -30,16 +31,18 @@ BUILD_DIR = osp.join(_PKG, "_build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 _SIGNATURES = {
     "ogc_fps": [_P, _I, _I, _I, _P, _P],
     "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "ogc_scatter_add_rows": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -76,13 +79,37 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, out)
+    objs, procs = [], []
+    try:
+        for src in _sources():
+            obj = f"{tmp}.{osp.basename(src)}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        # On a failed compile the other nvcc processes are stopped too.
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):
+            if osp.exists(path):
+                os.remove(path)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -7,12 +7,17 @@ features are (B, N, C) and groups (B, M, S, C), as in the JAX package.
   index (ops/fps.py; reference pointnet2/src/sampling_gpu.cu:93-253).
 * ``knn`` -- exact neighbours, ascending distance, ties to the lower index,
   sqrt distances (ops/knn.py; reference src/interpolate_gpu.cu:9-57).
+* ``ball_query`` -- the nsample lowest in-radius indices (strict d2 < r^2),
+  ascending, an under-full ball filled with its first index, an empty ball
+  all zeros (ops/ball.py; reference src/ball_query_gpu.cu:9-45).
 * ``query_and_group`` -- KNN with the radius clamp: neighbours farther than
   the radius are replaced by the nearest one (pointnet2/pointnet2.py:281-301).
 
-``gather`` and ``group`` are plain indexing, as the JAX package leaves them
-to XLA on this path.  Approximate neighbour search is not ported yet
-(ROADMAP queue B): ``set_exact_neighbors(False)`` raises.
+``gather`` and ``group`` are a row gather whose backward is the
+deterministic scatter-add of ops/scatter.py (ascending source order, no
+atomics); ``three_interpolate`` and ``group_with_idx`` go through them.
+Approximate neighbour search is not ported yet (ROADMAP queue B):
+``set_exact_neighbors(False)`` raises.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ogc_tpu_torch.ops.ball import ball_query_exact
 from ogc_tpu_torch.ops.fps import fps
 from ogc_tpu_torch.ops.knn import knn_exact
+from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
 
 def set_exact_neighbors(exact: bool) -> None:
@@ -42,11 +49,30 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return fps(xyz.float(), npoint)
 
 
+class _Gather(torch.autograd.Function):
+    """Row gather (B, N, C) x (B, R) -> (B, R, C); its backward is the
+    deterministic scatter-add kernel, never ``index_add_`` or the atomic
+    backward of advanced indexing."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_dest = points.shape[1]
+        rows = torch.arange(points.shape[0], device=points.device)[:, None]
+        return points[rows, idx.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        d = scatter_add_rows(idx, grad.float().contiguous(), ctx.n_dest)
+        return d.to(grad.dtype), None
+
+
 def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) x (B, M) -> (B, M, C)."""
-    B = points.shape[0]
-    rows = torch.arange(B, device=points.device)[:, None]
-    return points[rows, idx.long()]
+    return _Gather.apply(points, idx)
 
 
 def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,6 +125,14 @@ def upsample_feat(pc: torch.Tensor, pc_sub: torch.Tensor,
     """Features of ``pc_sub`` interpolated onto ``pc`` (utils/data_util.py:21-38)."""
     idx, weight = interpolate_weights(pc, pc_sub)
     return three_interpolate(feat_sub, idx, weight)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
+               new_xyz: torch.Tensor) -> torch.Tensor:
+    """Fixed-size in-radius neighbour lists of the centres ``new_xyz``
+    (B, M, 3) among ``xyz`` (B, N, 3): (B, M, nsample) int32
+    (ogc_tpu/ops/core.py::ball_query in exact mode, with _fill_balls)."""
+    return ball_query_exact(xyz.float(), new_xyz.float(), radius, nsample)
 
 
 def query_and_group(radius: Optional[float], nsample: int, xyz: torch.Tensor,

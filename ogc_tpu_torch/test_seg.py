@@ -21,25 +21,25 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ogc_tpu.data.base import DataLoader
-from ogc_tpu.metrics.seg import (
+from ogc_tpu_torch import ops
+from ogc_tpu_torch.data.base import DataLoader
+from ogc_tpu_torch.metrics.seg import (
     accumulate_eval_results,
     calculate_AP,
     calculate_PQ_F1,
     clustering_metrics,
 )
-from ogc_tpu.utils.meters import AverageMeter
-from ogc_tpu_torch import ops
 from ogc_tpu_torch.models.segnet import MaskFormer3D
 from ogc_tpu_torch.utils.checkpoint import load_model_state, weight_path
 from ogc_tpu_torch.utils.config import load_config_into_args
+from ogc_tpu_torch.utils.meters import AverageMeter
 
 
 def build_test_dataset(args):
     """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py."""
     data_root = args.data["root"]
     if args.dataset == "sapien":
-        from ogc_tpu.data.sapien import SapienDataset
+        from ogc_tpu_torch.data.sapien import SapienDataset
 
         data_root = osp.join(
             data_root, "mbs-sapien" if args.split == "test" else "mbs-shapepart")
@@ -49,7 +49,7 @@ def build_test_dataset(args):
             decentralize=args.data["decentralize"])
         return test_set, len(view_sels), 0, data_root
     if args.dataset == "kittisf":
-        from ogc_tpu.data.kittisf import KITTISceneFlowDataset
+        from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
 
         mapping_path = ("data_prepare/kittisf/splits/val.txt"
                         if args.split == "val"

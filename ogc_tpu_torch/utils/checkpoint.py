@@ -1,11 +1,18 @@
-"""Model checkpoints in the reference format: ``{"model_state": state_dict}``
-written with ``torch.save`` to ``<name>.pth.tar`` (reference
-utils/pytorch_util.py:84-99)."""
+"""Checkpoints written with ``torch.save`` to ``<name>.pth.tar``.
+
+Evaluation reads ``{"model_state": state_dict}``, the reference format
+(utils/pytorch_util.py:84-99).  Training writes the full train state --
+``model_state``, ``optimizer_state`` and ``epoch`` -- to
+``<save_path>_R<round>/current`` and copies it to ``best`` when the
+validation loss improves, so a run can resume and the evaluation reads the
+same file.
+"""
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+import shutil
 from typing import Dict
 
 import torch
@@ -30,7 +37,26 @@ def save_model_state(state_dict: Dict[str, torch.Tensor], path: str) -> str:
 
 def load_model_state(path: str) -> Dict[str, torch.Tensor]:
     """Read the state_dict saved at ``path`` or ``path + ".pth.tar"``."""
+    raw = load_train_state(path)
+    return raw["model_state"] if "model_state" in raw else raw
+
+
+def save_train_state(state: dict, is_best: bool, filename: str,
+                     bestname: str) -> str:
+    """Write ``state`` to ``filename + ".pth.tar"``; copy it to
+    ``bestname + ".pth.tar"`` when ``is_best``."""
+    out = filename + SUFFIX
+    os.makedirs(osp.dirname(out) or ".", exist_ok=True)
+    torch.save(state, out + ".tmp")
+    os.replace(out + ".tmp", out)
+    if is_best:
+        shutil.copyfile(out, bestname + SUFFIX)
+    return out
+
+
+def load_train_state(path: str) -> dict:
+    """Read what ``torch.save`` wrote at ``path`` or ``path + ".pth.tar"``
+    (a full train state saved by ``save_train_state``)."""
     if not osp.exists(path) and osp.exists(path + SUFFIX):
         path = path + SUFFIX
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    return raw["model_state"] if "model_state" in raw else raw
+    return torch.load(path, map_location="cpu", weights_only=True)

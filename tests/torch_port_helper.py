@@ -7,8 +7,8 @@ runs the torch side here in a subprocess, and reads the outputs back:
 
     python -m tests.torch_port_helper <case> <in.npz> <out.npz> [<case> ...]
 
-Every case also reports the kernel launch counters, which must stay at 0 on
-CPU tensors.
+Every case also reports the kernel launch counters (FPS, exact KNN, ball
+query, scatter-add), which must stay at 0 on CPU tensors.
 """
 
 from __future__ import annotations
@@ -176,10 +176,110 @@ def _case_save_ckpt(x, cfg, state):
 
 def _case_imports(x, cfg, state):
     import ogc_tpu_torch.test_seg  # noqa: F401
+    import ogc_tpu_torch.train_seg  # noqa: F401
 
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ogc_tpu"))
     return {"leaked": np.array(json.dumps(leaked))}
+
+
+def _case_ball_scatter(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = {}
+    for name, (radius, nsample) in cfg["ball"].items():
+        out[name] = ops.ball_query(radius, nsample, t[name + "/xyz"],
+                                   t[name + "/centres"]).numpy()
+    for name, n_dest in cfg["scatter"].items():
+        out[name] = scatter_add_rows(t[name + "/idx"], t[name + "/g"],
+                                     n_dest).numpy()
+    points = t["group/points"].clone().requires_grad_(True)
+    (ops.group(points, t["group/idx"]) * t["group/w"]).sum().backward()
+    out["group/grad"] = points.grad.numpy()
+    return out
+
+
+def _case_lap(x, cfg, state):
+    from ogc_tpu_torch.utils.lap import linear_sum_assignment
+
+    return {"col_ind": linear_sum_assignment(x["iou"], maximize=True)}
+
+
+def _segnet(cfg, state):
+    import torch
+
+    from ogc_tpu_torch.models.segnet import MaskFormer3D
+
+    m = MaskFormer3D(**cfg["segnet"])
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return m
+
+
+def _case_ogc_loss(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, ogc_loss
+
+    model = _segnet(cfg, state)
+    pcs, flows = torch.from_numpy(x["pcs"]), torch.from_numpy(x["flows"])
+    B, T, N, _ = pcs.shape
+    flat = pcs.reshape(B * T, N, 3)
+    masks = model(flat, flat).reshape(B, T, N, -1)
+    loss, ld = ogc_loss([pcs[:, t] for t in range(T)],
+                        [masks[:, t] for t in range(T)],
+                        [flows[:, t] for t in range(T)],
+                        OGCLossConfig.from_dict(cfg["loss"]),
+                        aug_transform=cfg["aug"])
+    loss.backward()
+    out = {"ld/" + k: v.detach().numpy() for k, v in ld.items()}
+    out["masks"] = masks.detach().numpy()
+    for k, p in model.named_parameters():
+        out["g/" + k] = p.grad.numpy()
+    return out
+
+
+def _case_train_steps(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
+    from ogc_tpu_torch.train.seg import Adam, SegTrainer, make_lr_schedule
+
+    model = _segnet(cfg, state)
+    opt = Adam(dict(model.named_parameters()),
+               make_lr_schedule(**cfg["lr"]))
+    trainer = SegTrainer(model, OGCLossConfig.from_dict(cfg["loss"]), opt,
+                         aug_transform_epoch=0, ignore_npoint_thresh=0,
+                         exp_base=cfg["exp_base"], device=torch.device("cpu"))
+    sums = []
+    for it in range(x["pcs"].shape[0]):
+        batch = (x["pcs"][it], x["segms"][it], x["flows"][it], None)
+        ld, _, _ = trainer.train_it(it, batch, aug_transform=True)
+        sums.append([ld[k] for k in ("sum", "dynamic", "smooth",
+                                     "invariance")])
+    return {"ld": np.array(sums)}
+
+
+def _case_adam(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+
+    params = {k: torch.nn.Parameter(torch.from_numpy(v))
+              for k, v in state.items()}
+    opt = Adam(params, make_lr_schedule(**cfg["lr"]), cfg["weight_decay"])
+    out = {}
+    for s in range(cfg["steps"]):
+        for k, p in params.items():
+            p.grad = torch.from_numpy(x[f"g{s}/{k}"])
+        opt.step()
+        out.update({f"p{s}/{k}": p.detach().numpy().copy()
+                    for k, p in params.items()})
+    out["count"] = np.array(opt.count)
+    return out
 
 
 CASES = {
@@ -191,6 +291,11 @@ CASES = {
     "segnet": _case_segnet,
     "save_ckpt": _case_save_ckpt,
     "imports": _case_imports,
+    "ball_scatter": _case_ball_scatter,
+    "lap": _case_lap,
+    "ogc_loss": _case_ogc_loss,
+    "train_steps": _case_train_steps,
+    "adam": _case_adam,
 }
 
 
@@ -205,10 +310,14 @@ def main(argv: List[str]) -> None:
         case, in_path, out_path = argv[i:i + 3]
         x, cfg, state = _load(in_path)
         out = CASES[case](x, cfg, state)
+        from ogc_tpu_torch.ops.ball import ball_query_exact
         from ogc_tpu_torch.ops.fps import fps
         from ogc_tpu_torch.ops.knn import knn_exact
+        from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
-        out["launches"] = np.array([fps.launches, knn_exact.launches])
+        out["launches"] = np.array([fps.launches, knn_exact.launches,
+                                    ball_query_exact.launches,
+                                    scatter_add_rows.launches])
         np.savez(out_path, **out)
 
 
