@@ -5,16 +5,23 @@
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
-   card at every shape the two paths give it, on grid-quantized clouds
+   card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
    bit-equal.  Eval path (B=8 x 8192): 3 FPS and 6 KNN shapes.  Train path
    (B=4 items x 4 frames = 16 clouds of 8192): the same FPS and model KNN
    shapes at batch 16, the smooth KnnLoss KNN (4 x 8192 x 8192, k=32), the
    smooth BallQLoss ball query (4 x 8192 x 8192, ns 64, r 2), and the
    scatter-add of every grouping backward (5 model groups + 8 smooth-loss
-   groups).  Prints median CUDA-event times of kernel and plain version,
-   the bound of each call, and for the scatter-add the time of
-   ``index_add_`` (deterministic mode) on the same inputs.
+   groups).  SAPIEN path (B=32 items x 2 or 4 frames x 512, 1/64 grid):
+   the small-source gather at SA0's two scales (C 6, 256 x 64 rows) and at
+   the smooth KNN and ball groups (C 8, 4096 / 8192 rows), and the
+   small-source scatter at the smooth groups, also bit-equal to #11.
+   Prints median CUDA-event times of kernel and plain version, the bound
+   of each call, the library call on the same inputs (``index_add_`` in
+   deterministic mode for a scatter, ``torch.gather`` for the small-source
+   gather) and, for the small-source kernels, the general route
+   ``ops.group`` would take without them (advanced indexing; #11 with its
+   sort prologue).
 4. Train phase (the main path): writes a synthetic KITTI-SF root (the
    write_kittisf layout plus flow_preds/flowstep3d/<id>/flow{1,2}.npy),
    train/val mappings of 40 and 20 ids, and a copy of
@@ -34,6 +41,23 @@
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
    finite metrics, and card masks within 2e-4 of the CPU run.
+7. KITTI-SF OA-ICP: ogc_tpu_torch.oa_icp.main on the val ids with that
+   checkpoint (10 batches of 20, 8192 points: the blockwise streaming
+   path); asserts the derived launches and finite flow reports.
+8. SAPIEN round alternation (a main path of its own, at full width: 512
+   points, 8 slots, embed 128, 2 layers, B=32) on the protocol's synthetic
+   scenes (ogc_tpu_torch/tools/synth.py, 120 train/val + 24 test), each
+   stage through its CLI's main with the counts set to 0 before it and
+   read after it: train_seg woinv R1 (1 epoch), oa_icp train and val R1
+   --save, train_seg full R2 (1 epoch, augmented views and invariance
+   from the first epoch), test_seg R2, vote R2 --use_gt_flow.  Asserts
+   the derived launches of every stage and finite losses and metrics;
+   then, on the
+   full config past every start step, two bit-equal seeded 2-step runs,
+   one step card vs CPU (the tolerances of phase 4), OA-ICP flows and
+   voted masks card vs CPU (REFINE_TOL, VOTE_TOL; the voting also against
+   float64 on the CPU, VOTE_F64_TOL, VOTE_MASK_TOL), and a profile as in
+   phase 5.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -83,11 +107,67 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 #   scatter_add 13  the backward of every group whose source needs a
 #     gradient: SA1 and SA2 (SA0 groups the input cloud, no gradient), the
 #     3 FP interpolations, and the KNN and ball smooth groups of 4 frames.
+#   gather_onehot, scatter_onehot 0: no KITTI-SF group has a source of at
+#     most 1024 points with at most 16 channels (ops/onehot.py's gate).
 # And of one val batch (8 clouds forward, loss on 2 frames, no backward).
-STEP_LAUNCHES = {"fps": 3, "knn_exact": 10, "ball_query": 4,
-                 "scatter_add": 13}
-VAL_LAUNCHES = {"fps": 3, "knn_exact": 8, "ball_query": 2, "scatter_add": 0}
+KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
+           "scatter_onehot")
+
+
+def launch_counts(**kw):
+    return {k: kw.get(k, 0) for k in KERNELS}
+
+
+STEP_LAUNCHES = launch_counts(fps=3, knn_exact=10, ball_query=4,
+                              scatter_add=13)
+VAL_LAUNCHES = launch_counts(fps=3, knn_exact=8, ball_query=2)
+EVAL_LAUNCHES = launch_counts(fps=3, knn_exact=6)
 N_TRAIN_IDS, N_VAL_IDS = 40, 20
+# KITTI-SF OA-ICP (the blockwise path at 8192): per batch two forwards and
+# the k=1 KNN of the mask interpolation.
+KITTI_ICP_BATCH = 20
+KITTI_ICP_LAUNCHES = launch_counts(fps=6, knn_exact=13)
+# SAPIEN (config/seg/sapien/sapien_unsup*.yaml, the protocol's data: 120
+# train/val scenes, 24 test scenes): B=32 items of 512 points, 8 slots;
+# SA0 (256 centres x 64, radii 0.1/0.2) groups [xyz, pc], C 6; smooth KNN
+# k 8 r 0.1, ball ns 16 r 0.2 over the 8-slot masks.
+SAP_B, SAP_N, SAP_K = 32, 512, 8
+SA0_NPOINT, SA0_NS, SA0_RADII = 256, 64, (0.1, 0.2)
+SAP_KNN_K, SAP_KNN_R, SAP_BALL_NS, SAP_BALL_R = 8, 0.1, 16, 0.2
+SAP_SCENES, SAP_TEST_SCENES = 120, 24
+# Derived launches of one SAPIEN train step (all 2 or 4 frames of the B
+# items in one forward, the loss per frame):
+#   fps 2         SA0 and SA1;
+#   knn_exact     SA0 (one table for both scales), SA1, 2 FP, and 1 smooth
+#                 KnnLoss per frame: 6 (2 frames) or 8 (4 frames);
+#   ball_query    1 smooth BallQLoss per frame;
+#   scatter_add 3 the #11 backwards: SA1 (C 195) and the 2 FP groups;
+#   gather_onehot the #7 groups: SA0's 2 scales, and the KNN and ball
+#                 smooth groups per frame: 6 or 10;
+#   scatter_onehot #8, the backward of the smooth groups (SA0's source, the
+#                 input cloud, needs no gradient): 4 or 8.
+# A val batch (2 frames, no backward), a test_seg or vote forward, and an
+# OA-ICP batch (two forwards plus the k=1 KNN of the mask interpolation,
+# whose 512 rows per cloud are below the #7 gate).
+SAP_WOINV_STEP = launch_counts(fps=2, knn_exact=6, ball_query=2,
+                               scatter_add=3, gather_onehot=6,
+                               scatter_onehot=4)
+SAP_FULL_STEP = launch_counts(fps=2, knn_exact=8, ball_query=4,
+                              scatter_add=3, gather_onehot=10,
+                              scatter_onehot=8)
+SAP_VAL = launch_counts(fps=2, knn_exact=6, ball_query=2, gather_onehot=6)
+SAP_FWD = launch_counts(fps=2, knn_exact=4, gather_onehot=2)
+SAP_ICP = launch_counts(fps=4, knn_exact=9, gather_onehot=4)
+SAP_ICP_BATCH, SAP_VOTE_BATCH = 48, 12
+# Card against CPU for OA-ICP flows and voted masks, and each device's
+# float32 voting against a float64 one on the CPU from the same masks:
+# absolute, unit-scale scenes (see check_refine_card_vs_cpu).
+REFINE_TOL, VOTE_TOL, VOTE_F64_TOL, VOTE_ARGMAX = 1e-4, 5e-3, 2.5e-3, 0.999
+# float64 voting from the card's masks against that from the CPU's masks.
+# Read on an H100: float32 against float64 6.5e-4 (card) and 1.47e-3 (CPU),
+# float64 against float64 8.9e-7; VOTE_F64_TOL and VOTE_MASK_TOL leave
+# about 1.7x and 11x room, and VOTE_TOL = 2 * VOTE_F64_TOL.
+VOTE_MASK_TOL = 1e-5
 
 
 def log(*a):
@@ -161,10 +241,11 @@ class Report:
                 "library_ms": r["lib"]}
 
 
-def grid_cloud(gen, b, n, extent=30.0):
-    """Coordinates on a 1/8 grid: direct-form d2 is exact, ties are common."""
+def grid_cloud(gen, b, n, extent=30.0, step=1 / 8):
+    """Coordinates on a grid of ``step`` (1/8 or 1/64): direct-form d2 is
+    exact, ties are common."""
     x = torch.rand((b, n, 3), generator=gen, device="cuda") * extent
-    return torch.round(x * 8) / 8
+    return torch.round(x / step) * step
 
 
 def scene_cloud(rng, n):
@@ -305,6 +386,104 @@ def check_scatter(report, gen):
             f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
+def sapien_tables(gen, clouds):
+    """A grid cloud of SAPIEN scale (unit extent, 1/64 grid) and the index
+    tables of its three grouping sites: SA0's KNN (256 FPS centres, k 64)
+    clamped at each scale's radius, the smooth KNN (k 8, r 0.1) and the
+    smooth ball (ns 16, r 0.2)."""
+    from ogc_tpu_torch import ops
+
+    x = grid_cloud(gen, clouds, SAP_N, 1.2, 1 / 64)
+    centres = ops.gather(x, ops.furthest_point_sample(x, SA0_NPOINT))
+    d, i = ops.knn(SA0_NS, centres, x)
+    sa0 = [torch.where(d > r, i[..., :1], i) for r in SA0_RADII]
+    d, i = ops.knn(SAP_KNN_K, x, x)
+    knn = torch.where(d > SAP_KNN_R, i[..., :1], i)
+    ball = ops.ball_query(SAP_BALL_R, SAP_BALL_NS, x, x)
+    return x, sa0, knn, ball
+
+
+def check_onehot(reports, gen):
+    """#7 and #8 at every SAPIEN shape, bit-equal to their plain versions,
+    timed beside the plain version, the general route (advanced indexing
+    for the gather, #11 with its sort prologue for the scatter), the
+    library call (torch.gather; deterministic index_add_) and the bytes
+    bound.  ``reports`` maps a config to (Report, frames): each call is
+    weighted by its calls per step of that config."""
+    from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                          gather_rows_onehot_plain,
+                                          scatter_add_rows_onehot)
+    from ogc_tpu_torch.ops.scatter import (scatter_add_rows,
+                                           scatter_add_rows_plain)
+
+    # (name, idx (clouds, M, S), source (clouds, N, C), scatter too,
+    #  {config: calls per step})
+    cases = []
+    for frames in (2, 4):
+        x, sa0, knn, ball = sapien_tables(gen, SAP_B * frames)
+        src = torch.cat([x, x], -1)  # SA0 groups [xyz, pc]: C 6
+        cfg = "woinv" if frames == 2 else "full"
+        for r, idx in zip(SA0_RADII, sa0):
+            cases.append((f"SA0 r{r} {frames} frames", idx, src, False,
+                          {cfg: 1}))
+    masks = torch.softmax(torch.randn((SAP_B, SAP_N, SAP_K), generator=gen,
+                                      device="cuda") * 4, -1)
+    calls = {cfg: frames for cfg, (_, frames) in reports.items()}
+    cases.append(("smooth knn", knn[:SAP_B], masks, True, calls))
+    cases.append(("smooth ball", ball[:SAP_B], masks, True, calls))
+    for name, idx, src, scatter, per_step in cases:
+        b, n, C = src.shape
+        flat = idx.reshape(b, -1)
+        E = flat.shape[1]
+        got, want = gather_rows_onehot(src, flat), gather_rows_onehot_plain(
+            src, flat)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather {name}: kernel != plain at "
+                                 f"{(got != want).sum().item()} elements")
+        ms = cuda_ms(lambda: gather_rows_onehot(src, flat), 20)
+        pms = cuda_ms(lambda: gather_rows_onehot_plain(src, flat), 20)
+        lidx = flat.long()[..., None].expand(b, E, C)
+        lib = cuda_ms(lambda: torch.gather(src, 1, lidx), 20)
+        bnd, by = bound_ms(b * (n * C * 4 + E * 4 + E * C * 4), 0)
+        for cfg, k in per_step.items():
+            reports[cfg][0].add("gather_onehot", 0, ms, pms, bnd, by, lib,
+                                per_step=k)
+        log(f"gather_onehot {name} ({b},{n},C={C}) x {E} rows x{per_step}/"
+            f"step: bit-equal; kernel {ms:.4f} ms, plain = general route "
+            f"(advanced indexing) {pms:.4f} ms, torch.gather {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
+        if not scatter:
+            continue
+        g = torch.randn((b, E, C), generator=gen, device="cuda")
+        got = scatter_add_rows_onehot(flat, g, n)
+        want = scatter_add_rows_plain(flat, g, n)
+        general = scatter_add_rows(flat, g, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, general)):
+            raise AssertionError(
+                f"scatter {name}: kernel != plain or #11, max diff "
+                f"{(got - want).abs().max().item()}")
+        ms = cuda_ms(lambda: scatter_add_rows_onehot(flat, g, n), 20)
+        pms = cuda_ms(lambda: scatter_add_rows_plain(flat, g, n), 5)
+        gms = cuda_ms(lambda: scatter_add_rows(flat, g, n), 20)
+        key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n
+               ).reshape(-1)
+        rows = g.reshape(-1, C)
+        acc = torch.zeros((b * n, C), device="cuda")
+        lib = cuda_ms(lambda: acc.zero_().index_add_(0, key, rows), 20)
+        bnd, by = bound_ms(b * (E * 4 + E * C * 4 + n * C * 4), b * E * C)
+        for cfg, k in per_step.items():
+            reports[cfg][0].add("scatter_onehot", 0, ms, pms, bnd, by, lib,
+                                per_step=k)
+            reports[cfg][0].add("scatter_general", 0, gms, pms, bnd, by, lib,
+                                per_step=k)
+        log(f"scatter_onehot {name} ({b},{E} rows,C={C})->{n} x{per_step}/"
+            f"step: bit-equal to plain and to #11; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, general route (#11 + sort) {gms:.4f} ms, "
+            f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+
 def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     eval_report, train_report = Report(), Report()
@@ -332,12 +511,21 @@ def check_kernels():
         e = eval_report.entry(name)
         log(f"per eval forward: {name} kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms")
-    for name in STEP_LAUNCHES:
+    for name in ("fps", "knn_exact", "ball_query", "scatter_add"):
         e = train_report.entry(name)
         log(f"per train step: {name} kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library {e['library_ms']}")
-    return train_report
+    log(f"-- SAPIEN path shapes (B={SAP_B} items x 2 or 4 frames x {SAP_N})")
+    sapien = {"woinv": (Report(), 2), "full": (Report(), 4)}
+    check_onehot(sapien, gen)
+    for cfg, (rep, _) in sapien.items():
+        for name in ("gather_onehot", "scatter_onehot", "scatter_general"):
+            e = rep.entry(name)
+            log(f"per SAPIEN {cfg} train step: {name} {e['ms']:.4f} ms, "
+                f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
+    return train_report, sapien["full"][0]
 
 
 def write_kittisf(root, ids, seed):
@@ -385,10 +573,14 @@ def counters():
     from ogc_tpu_torch.ops.ball import ball_query_exact
     from ogc_tpu_torch.ops.fps import fps
     from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                          scatter_add_rows_onehot)
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
     return {"fps": fps, "knn_exact": knn_exact,
-            "ball_query": ball_query_exact, "scatter_add": scatter_add_rows}
+            "ball_query": ball_query_exact, "scatter_add": scatter_add_rows,
+            "gather_onehot": gather_rows_onehot,
+            "scatter_onehot": scatter_add_rows_onehot}
 
 
 def reset_counts():
@@ -455,15 +647,24 @@ def make_trainer(cfg, model, device, exp_base):
 
 
 def fixed_batch(cfg, n_items):
-    """One augmented batch (4 frames per item) drawn with a fixed seed."""
-    from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
-
+    """One augmented batch (4 frames per item) of the train set, drawn with
+    a fixed seed."""
     d = cfg["data"]
-    ds = KITTISceneFlowDataset(
-        data_root=d["root"], mapping_path=d["train_mapping"],
-        downsampled=True, view_sels=[[0, 1]],
-        predflow_path=cfg["predflow_path"], decentralize=d["decentralize"],
-        aug_transform=True, aug_transform_args=d["aug_transform_args"])
+    common = dict(predflow_path=cfg["predflow_path"],
+                  decentralize=d["decentralize"], aug_transform=True,
+                  aug_transform_args=d["aug_transform_args"])
+    if cfg["dataset"] == "sapien":
+        from ogc_tpu_torch.data.sapien import SapienDataset
+
+        ds = SapienDataset(data_root=osp.join(d["root"], "mbs-shapepart"),
+                           split="train", view_sels=[[0, 1], [1, 2], [2, 3]],
+                           **common)
+    else:
+        from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
+
+        ds = KITTISceneFlowDataset(
+            data_root=d["root"], mapping_path=d["train_mapping"],
+            downsampled=True, view_sels=[[0, 1]], **common)
     np.random.seed(SEED)
     items = [ds[i] for i in range(n_items)]
     return tuple(np.stack(f, 0) for f in zip(*items))
@@ -483,7 +684,7 @@ def run_train(tmp):
     steps = len(trainer.step_seconds)
     n_val = -(-N_VAL_IDS // TRAIN_B)
     want = {k: steps * STEP_LAUNCHES[k] + n_val * VAL_LAUNCHES[k]
-            for k in STEP_LAUNCHES}
+            for k in KERNELS}
     log(f"train main path: {steps} steps of B={TRAIN_B} x {TRAIN_T} frames x "
         f"{N_POINT}, val epoch of {n_val} batches; launches {launches}, "
         f"derived {want} (per step {STEP_LAUNCHES}, per val batch "
@@ -509,22 +710,21 @@ def run_train(tmp):
         f"{wall:.4f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     log(f"last step's terms: {last}; best val loss {res['best_loss']}")
-    check_determinism(cfg, tmp)
-    check_card_vs_cpu(cfg, tmp)
+    check_determinism(cfg, tmp, fixed_batch(cfg, TRAIN_B))
+    check_card_vs_cpu(cfg, tmp, fixed_batch(cfg, 1))
     return cfg, cfg_path, launches
 
 
-def first_it_all_terms(cfg):
+def first_it_all_terms(cfg, n_items):
     """The first step whose samples seen pass every start step, so that
     every loss term (and every scatter-add) carries a gradient."""
-    return -(-max(cfg["loss"]["start_steps"]) // TRAIN_B)
+    return -(-max(cfg["loss"]["start_steps"]) // n_items)
 
 
-def check_determinism(cfg, tmp):
+def check_determinism(cfg, tmp, batch):
     """Two 2-step runs from one seed on one batch, all loss terms on:
     bit-equal parameters."""
-    batch = fixed_batch(cfg, TRAIN_B)
-    it0 = first_it_all_terms(cfg)
+    it0 = first_it_all_terms(cfg, batch[0].shape[0])
     params = []
     for run in range(2):
         model = make_model(cfg, DEVICE)
@@ -542,11 +742,11 @@ def check_determinism(cfg, tmp):
         f"terms on) give bit-equal parameters ({len(params[0])} tensors)")
 
 
-def check_card_vs_cpu(cfg, tmp):
+def check_card_vs_cpu(cfg, tmp, batch):
     """One train step (all terms on: the samples seen pass every start
     step) on the card and on the CPU with the plain versions."""
-    batch = fixed_batch(cfg, 1)
     it_samples = max(cfg["loss"]["start_steps"])
+    shape = "x".join(map(str, batch[0].shape[:3]))
     out = {}
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
@@ -559,8 +759,8 @@ def check_card_vs_cpu(cfg, tmp):
         out[dev] = ({k: float(v.detach()) for k, v in ld.items()},
                     {k: p.grad.detach().cpu().double().numpy()
                      for k, p in model.named_parameters()})
-        log(f"one step B=1 x {TRAIN_T} frames x {N_POINT} on {dev}: "
-            f"{time.perf_counter() - t0:.3f} s")
+        log(f"one step {cfg['dataset']} items x frames x points {shape} on "
+            f"{dev}: {time.perf_counter() - t0:.3f} s")
     (ld_c, g_c), (ld_r, g_r) = out[DEVICE], out["cpu"]
     for k in ld_r:
         if not math.isclose(ld_c[k], ld_r[k], rel_tol=LOSS_RTOL,
@@ -581,7 +781,7 @@ def check_card_vs_cpu(cfg, tmp):
         raise AssertionError("card and CPU gradients disagree")
 
 
-def profile_train(cfg, tmp, steps=3):
+def profile_train(cfg, tmp, batch, steps=3):
     """torch.profiler over ``steps`` warm train steps on one fixed batch:
     the device's busy share of the steps' host-clock time (device-side
     events' time over wall time; the profiler's own host cost lowers it a
@@ -591,11 +791,10 @@ def profile_train(cfg, tmp, steps=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = fixed_batch(cfg, TRAIN_B)
     model = make_model(cfg, DEVICE)
     trainer = make_trainer(cfg, model, torch.device(DEVICE),
-                           osp.join(tmp, "prof"))
-    it0 = first_it_all_terms(cfg)
+                           osp.join(tmp, "prof_" + cfg["dataset"]))
+    it0 = first_it_all_terms(cfg, batch[0].shape[0])
     trainer.train_it(it0, batch, aug_transform=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -609,7 +808,9 @@ def profile_train(cfg, tmp, steps=3):
     kernels = [e for e in events if e.device_type != DeviceType.CPU]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile of {steps} train steps: device time {dev_us / 1e3:.4f} ms "
+    log(f"profile of {steps} {cfg['dataset']} train steps (items x frames x "
+        f"points {'x'.join(map(str, batch[0].shape[:3]))}): device time "
+        f"{dev_us / 1e3:.4f} ms "
         f"of {wall_us / 1e3:.4f} ms wall, busy share {dev_us / wall_us:.4f}; "
         f"{sum(e.count for e in kernels) // steps} device-side events per "
         f"step")
@@ -639,9 +840,8 @@ def run_eval(tmp, cfg, cfg_path):
     n_batch = len(res["forward_s"])
     log(f"eval path: {n_batch} forward batches of B={BATCH} x {N_POINT}; "
         f"launches {launches}")
-    if n_batch != 25 or launches != {"fps": 3 * n_batch,
-                                     "knn_exact": 6 * n_batch,
-                                     "ball_query": 0, "scatter_add": 0}:
+    if n_batch != 25 or launches != {k: n_batch * v
+                                     for k, v in EVAL_LAUNCHES.items()}:
         raise AssertionError(f"expected 25 batches with 3 FPS and 6 KNN "
                              f"launches each, got {n_batch} and {launches}")
     for k in ("AP", "PQ", "F1", "per_scan_iou_avg", "per_scan_ri_avg"):
@@ -683,6 +883,264 @@ def run_eval(tmp, cfg, cfg_path):
         raise AssertionError(f"mask diff {diff} > {MASK_TOL}")
 
 
+def run_stage(name, fn, argv, per_unit, units_of):
+    """Run one CLI's ``main(argv)`` with the counts set to 0 just before and
+    read just after; ``units_of(result)`` gives its (steps, batches, ...)
+    and ``per_unit`` the derived launches of each unit.  Raises when the
+    counts differ from the derived ones."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn(argv)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    units = units_of(res)
+    want = {k: sum(n * per[k] for n, per in zip(units, per_unit))
+            for k in KERNELS}
+    log(f"{name}: {wall:.4f} s; units {units}; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, derived {want}")
+    return res, launches
+
+
+def check_finite(name, values):
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{name}: not finite {bad}")
+
+
+def setup_sapien(tmp):
+    """The protocol's synthetic SAPIEN root (ogc_tpu_torch/tools/synth.py:
+    120 scenes for train/val, 24 for test; round-1 flow predictions equal
+    to the true flows) and its two configs, cut to 1 epoch; the full config
+    phases in the augmented views and the invariance loss from epoch 1."""
+    import types
+
+    import yaml
+
+    from ogc_tpu_torch.tools import protocol_sapien as proto
+
+    args = types.SimpleNamespace(seed=SEED, n_scenes=SAP_SCENES,
+                                 n_test_scenes=SAP_TEST_SCENES,
+                                 ref_scenes=2000, epochs=1)
+    root = osp.join(tmp, "MBS_SAPIEN")
+    t0 = time.perf_counter()
+    proto.write_data(args, root)
+    cfgs, paths = {}, {}
+    for name in ("woinv", "full"):
+        cfgs[name], _ = proto.build_cfg(args, root, osp.join(tmp, "ckpt"),
+                                        name == "woinv")
+        paths[name] = osp.join(tmp, f"sapien_{name}.yaml")
+    cfgs["full"]["aug_transform_epoch"] = 0
+    for name in cfgs:
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfgs[name], f)
+    log(f"SAPIEN setup: {SAP_SCENES} + {SAP_TEST_SCENES} scenes x {SAP_N} "
+        f"points and round-1 flows in {time.perf_counter() - t0:.3f} s")
+    return cfgs, paths
+
+
+def sapien_split_sizes(cfg):
+    with open(osp.join(cfg["data"]["root"], "mbs-shapepart",
+                       "meta.json")) as f:
+        meta = json.load(f)
+    with open(osp.join(cfg["data"]["root"], "mbs-sapien", "meta.json")) as f:
+        test = json.load(f)["test"]
+    return len(meta["train"]), len(meta["val"]), len(test)
+
+
+def run_sapien(tmp):
+    """The SAPIEN round alternation through the port's CLIs: train_seg
+    woinv R1 -> oa_icp train/val R1 --save -> train_seg full R2 -> test_seg
+    R2 -> vote R2 --use_gt_flow; each stage's launches against the derived
+    counts.  Returns the configs and the launches of the whole path."""
+    from ogc_tpu_torch import oa_icp, test_seg, train_seg, vote
+
+    cfgs, paths = setup_sapien(tmp)
+    n_train, n_val, n_test = sapien_split_sizes(cfgs["woinv"])
+    n_val_batch = -(-n_val * 3 // SAP_B)
+    total = launch_counts()
+
+    def add(launches):
+        for k in KERNELS:
+            total[k] += launches[k]
+
+    for rnd, name, per_step in ((1, "woinv", SAP_WOINV_STEP),
+                                (2, "full", SAP_FULL_STEP)):
+        torch.cuda.reset_peak_memory_stats()
+        res, launches = run_stage(
+            f"train_seg {name} R{rnd}", train_seg.main,
+            [paths[name], "--round", str(rnd), "--device", DEVICE],
+            (per_step, SAP_VAL),
+            lambda r: (len(r["trainer"].step_seconds), n_val_batch))
+        add(launches)
+        trainer = res["trainer"]
+        steps = len(trainer.step_seconds)
+        if steps != n_train * 3 // SAP_B:
+            raise AssertionError(f"{steps} steps, want {n_train * 3 // SAP_B}")
+        with open(osp.join(trainer.exp_base, "log", "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        terms = {f"{s['tag']}@{s['step']}": s["value"] for s in scalars}
+        check_finite(f"train_seg {name}", terms)
+        ms = np.array(trainer.step_seconds) * 1e3
+        med = float(np.median(ms[1:]))
+        frames = 2 if name == "woinv" else 4
+        log(f"SAPIEN {name} step (B={SAP_B} x {frames} frames x {SAP_N}, "
+            f"host clock around a synchronised step, steps 2-{steps}): "
+            f"median {med:.4f} ms, min {ms[1:].min():.4f}, max "
+            f"{ms[1:].max():.4f}; {SAP_B * frames * 1e3 / med:.4f} "
+            f"clouds/s; first step {ms[0]:.4f} ms; val epoch "
+            f"{trainer.val_seconds[0] * 1e3:.4f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if rnd == 2:
+            break
+        for split, n_scene in (("train", n_train), ("val", n_val)):
+            res, launches = run_stage(
+                f"oa_icp {split} R1", oa_icp.main,
+                [paths["woinv"], "--split", split, "--round", "1", "--save",
+                 "--test_batch_size", str(SAP_ICP_BATCH), "--device",
+                 DEVICE],
+                (SAP_ICP,), lambda r: (-(-n_scene * 6 // SAP_ICP_BATCH),))
+            add(launches)
+            for report in res.values():
+                check_finite(f"oa_icp {split}", report)
+            log(f"oa_icp {split}: {res}")
+    res, launches = run_stage(
+        "test_seg R2", test_seg.main,
+        [paths["full"], "--split", "test", "--round", "2", "--device",
+         DEVICE], (SAP_FWD,), lambda r: (len(r["forward_s"]),))
+    add(launches)
+    metrics = {k: res[k] for k in ("AP", "PQ", "F1", "per_scan_iou_avg",
+                                   "per_scan_ri_avg")}
+    check_finite("test_seg", metrics)
+    log(f"test_seg R2: {metrics}")
+    res, launches = run_stage(
+        "vote R2", vote.main,
+        [paths["full"], "--split", "test", "--round", "2", "--use_gt_flow",
+         "--test_batch_size", str(SAP_VOTE_BATCH), "--device", DEVICE],
+        (SAP_FWD,), lambda r: (-(-n_test * 4 // SAP_VOTE_BATCH),))
+    add(launches)
+    check_finite("vote", res)
+    log(f"vote R2: {res}")
+    missing = [k for k in KERNELS if total[k] == 0]
+    if missing:
+        raise AssertionError(f"SAPIEN path launched no {missing}")
+    log(f"SAPIEN round alternation launches {total}")
+    return cfgs, total
+
+
+def check_refine_card_vs_cpu(cfgs):
+    """OA-ICP (round 1's model, 12 train pairs, 20 iterations) and voting
+    (round 2's model, 3 test scenes x 4 frames, true flows) on the card and
+    on the CPU from the same weights and inputs.
+
+    Tolerances, absolute on unit-scale scenes: REFINE_TOL for the Kabsch
+    and OA-ICP flows (the masks of the two devices differ by ~1e-6, and
+    every iteration ends in a Kabsch fit that averages over the object).
+    VOTE_TOL for the voted masks, with their argmax agreeing at VOTE_ARGMAX
+    of the points: voting warps by softmax(-d / 0.01) with d the sqrt of the
+    reference's expanded |a|^2 - 2ab + |b|^2, and under the true flow a
+    warped point lands on its target, where d2 ~ 0.  There the float32
+    GEMM's rounding (~1e-7 at unit scale, cuBLAS and the CPU rounding
+    differently) becomes a d of ~3e-4 after the sqrt, a logit shift of ~0.03
+    and a weight change of ~3%, diluted by the window's other votes.  The
+    witness: the same voting in float64 on the CPU, where that rounding is
+    ~1e-16, from each device's masks.  Each device's float32 result lies
+    within VOTE_F64_TOL of the float64 one from its own masks (so VOTE_TOL
+    is twice that), and the two float64 results, which differ only by the
+    masks, within VOTE_MASK_TOL."""
+    from ogc_tpu_torch.data.sapien import SapienDataset
+    from ogc_tpu_torch.refine.oa_icp import object_aware_icp, weighted_kabsch
+    from ogc_tpu_torch.refine.vote import mask_voting_batch
+    from ogc_tpu_torch.utils.checkpoint import load_model_state, weight_path
+
+    root = cfgs["woinv"]["data"]["root"]
+    icp_set = SapienDataset(osp.join(root, "mbs-shapepart"), split="train",
+                            view_sels=[[0, 1], [1, 0], [1, 2], [2, 1],
+                                       [2, 3], [3, 2]],
+                            predflow_path="flowstep3d")
+    items = [icp_set[i] for i in range(12)]
+    pcs = np.stack([it[0] for it in items])
+    flow = np.stack([it[2][0] for it in items])
+    vote_set = SapienDataset(osp.join(root, "mbs-sapien"), split="test",
+                             view_sels=[[0, 1], [1, 2], [2, 3], [3, 2]])
+    items = [vote_set[i] for i in range(12)]
+    vpc = np.stack([it[0][0] for it in items])
+    vflows = np.stack([it[2] for it in items])
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        res = {}
+        with torch.no_grad():
+            model = make_model(cfgs["woinv"], dev).eval()
+            model.load_state_dict(load_model_state(weight_path(
+                cfgs["woinv"]["save_path"], 1)))
+            pc1, pc2, f = (torch.from_numpy(a).to(dev)
+                           for a in (pcs[:, 0], pcs[:, 1], flow))
+            m1, m2 = model(pc1, pc1), model(pc2, pc2)
+            res["kabsch"] = weighted_kabsch(pc1, f, m1).cpu()
+            res["oa_icp"] = object_aware_icp(pc1, pc2, f, m1, m2,
+                                             icp_iter=20).cpu()
+            model.load_state_dict(load_model_state(weight_path(
+                cfgs["full"]["save_path"], 2)))
+            pc = torch.from_numpy(vpc).to(dev)
+            mask = model(pc, pc)
+            fl = torch.from_numpy(vflows).to(dev).reshape(3, 4, 2, SAP_N, 3)
+            vote_in = (pc.reshape(3, 4, SAP_N, 3),
+                       mask.reshape(3, 4, SAP_N, -1), fl[:, :3])
+            res["voted"] = mask_voting_batch(*vote_in).cpu()
+            voted64 = mask_voting_batch(*(a.cpu().double() for a in vote_in))
+        out[dev] = res
+        out[dev + "/f64"] = voted64
+        log(f"refine card-vs-CPU inputs on {dev}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    tol = {"kabsch": REFINE_TOL, "oa_icp": REFINE_TOL, "voted": VOTE_TOL}
+    diffs = {}
+    for k in out["cpu"]:
+        a, b = out[DEVICE][k], out["cpu"][k]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{k}: card output not finite")
+        diffs[k] = (a - b).abs().max().item()
+        log(f"card vs CPU {k} {tuple(a.shape)}: max abs diff "
+            f"{diffs[k]:.3e} (tolerance {tol[k]})")
+    for label, a, b, t in (
+            ("card float32 vs float64", out[DEVICE]["voted"],
+             out[DEVICE + "/f64"], VOTE_F64_TOL),
+            ("CPU float32 vs float64", out["cpu"]["voted"],
+             out["cpu/f64"], VOTE_F64_TOL),
+            ("float64 from card masks vs from CPU masks",
+             out[DEVICE + "/f64"], out["cpu/f64"], VOTE_MASK_TOL)):
+        diffs[label] = (a.double() - b).abs().max().item()
+        log(f"voted {label}: max abs diff {diffs[label]:.3e} "
+            f"(tolerance {t})")
+        tol[label] = t
+    for k, diff in diffs.items():
+        if not diff <= tol[k]:
+            raise AssertionError(f"{k}: differs by {diff}")
+    agree = (out[DEVICE]["voted"].argmax(-1) == out["cpu"]["voted"].argmax(-1)
+             ).float().mean().item()
+    log(f"card vs CPU voted argmax agreement {agree:.6f} (at least "
+        f"{VOTE_ARGMAX})")
+    if agree < VOTE_ARGMAX:
+        raise AssertionError(f"voted argmax agreement {agree}")
+
+
+def run_kitti_oaicp(cfg_path):
+    """OA-ICP on the KITTI-SF val ids with the checkpoint of the train
+    phase: the blockwise (N = 8192 > tile) streaming path."""
+    from ogc_tpu_torch import oa_icp
+
+    with open("data_prepare/kittisf/splits/val.txt") as f:
+        n_items = 2 * len(f.read().split())
+    res, _ = run_stage(
+        "KITTI-SF oa_icp val R1", oa_icp.main,
+        [cfg_path, "--split", "val", "--round", "1", "--test_batch_size",
+         str(KITTI_ICP_BATCH), "--device", DEVICE],
+        (KITTI_ICP_LAUNCHES,), lambda r: (-(-n_items // KITTI_ICP_BATCH),))
+    for report in res.values():
+        check_finite("KITTI-SF oa_icp", report)
+    log(f"KITTI-SF oa_icp val: {res}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -703,15 +1161,29 @@ def main():
     log(f"kernels built from {_build.CSRC_DIR} in {_build.build_seconds:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
-    report = check_kernels()
+    report, sap_report = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         cfg, cfg_path, launches = run_train(tmp)
         log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
-        profile_train(cfg, tmp)
+        profile_train(cfg, tmp, fixed_batch(cfg, TRAIN_B))
         run_eval(tmp, cfg, cfg_path)
-    log(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
+        log(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
+        run_kitti_oaicp(cfg_path)
+        log(f"KITTI-SF OA-ICP done at {time.perf_counter() - t_start:.1f} s")
+        sap_cfgs, sap_launches = run_sapien(tmp)
+        log(f"SAPIEN alternation done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        full = sap_cfgs["full"]
+        batch = fixed_batch(full, SAP_B)
+        check_determinism(full, tmp, batch)
+        check_card_vs_cpu(full, tmp, fixed_batch(full, 2))
+        check_refine_card_vs_cpu(sap_cfgs)
+        profile_train(full, tmp, batch)
+    log(f"SAPIEN checks done at {time.perf_counter() - t_start:.1f} s")
 
+    # name: (source, the TPU kernel it replaces); launches come from the
+    # KITTI-SF train run, and for #7/#8 from the SAPIEN alternation.
     meta = {
         "fps": ("ogc_tpu_torch/csrc/fps.cu",
                 "ogc_tpu/ops/pallas_kernels.py:24"),
@@ -721,10 +1193,19 @@ def main():
                        "ogc_tpu/ops/pallas_knn.py:836"),
         "scatter_add": ("ogc_tpu_torch/csrc/scatter_add.cu",
                         "ogc_tpu/ops/pallas_scatter.py:54"),
+        "gather_onehot": ("ogc_tpu_torch/csrc/onehot.cu",
+                          "ogc_tpu/ops/pallas_onehot.py:62"),
+        "scatter_onehot": ("ogc_tpu_torch/csrc/onehot.cu",
+                           "ogc_tpu/ops/pallas_onehot.py:75"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], **report.entry(name)}
-               for name, (src, rep) in meta.items()]
+    kernels = []
+    for name, (src, rep) in meta.items():
+        sapien = name.endswith("_onehot")
+        entry = (sap_report if sapien else report).entry(name)
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep,
+                        "launches": (sap_launches if sapien
+                                     else launches)[name], **entry})
     log(smi.stdout.strip())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,15 +1,20 @@
 """OGC in PyTorch and CUDA: the port of ``ogc_tpu`` to an NVIDIA H100.
 
 Layout mirrors ``ogc_tpu``:
-  ops/      point-cloud primitives; FPS and exact KNN as hand-written CUDA
-            kernels (csrc/) with plain PyTorch versions beside them
+  ops/      point-cloud primitives; FPS, exact KNN, ball query and the
+            grouping gathers/scatters as hand-written CUDA kernels (csrc/)
+            with plain PyTorch versions beside them
   nn/       SharedMLP, PointNet++ SA/FP modules, MaskFormer head
   models/   MaskFormer3D segnet with the per-dataset ARCHS table
-  utils/    weight conversion from the JAX package (numpy only), config
+  losses/   the unsupervised OGC loss
+  train/    the segmentation trainer
+  refine/   OA-ICP and multi-frame voting
+  data/, metrics/, utils/   copies of the JAX package's numpy-only
+            readers, metrics and helpers, weight conversion, config
             loading, checkpoints
-  test_seg.py  the segmentation evaluation entry point
+  tools/    synthetic SAPIEN scenes and the protocol runner
+  train_seg.py, test_seg.py, oa_icp.py, vote.py   the entry points
 
-The data readers, metrics, meters and native helpers are reused from
-``ogc_tpu`` (they import neither jax nor flax).  Importing this package
+The package imports nothing of ``ogc_tpu``, jax or flax.  Importing it
 imports nothing heavy.
 """

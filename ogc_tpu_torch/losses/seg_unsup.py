@@ -118,6 +118,25 @@ def ball_q_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
     return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
 
 
+def interpolate_mask_by_flow(pc1: torch.Tensor, pc2: torch.Tensor,
+                             mask1: torch.Tensor, flow1: torch.Tensor,
+                             k: int = 1) -> torch.Tensor:
+    """Warp pc1 by flow1 and carry its mask onto pc2 through the k nearest
+    warped points, inverse-distance weighted for k > 1 (reference
+    losses/seg_loss_unsup.py:183-209).  Used by OA-ICP.
+
+    :param pc1, pc2, flow1: (B, N, 3); :param mask1: (B, N, K).
+    :return: (B, N, K) mask on pc2.
+    """
+    dist, idx = ops.knn(k, pc2, pc1 + flow1)
+    nn_mask = ops.group(mask1, idx.detach())  # (B, N, k, K)
+    if k == 1:
+        return nn_mask[:, :, 0, :]
+    recip = 1.0 / torch.clamp(dist, min=1e-10)
+    weight = recip / recip.sum(-1, keepdim=True)
+    return (weight[..., None] * nn_mask).sum(2)
+
+
 def match_mask_by_iou(mask1: torch.Tensor, mask2: torch.Tensor) -> np.ndarray:
     """Hungarian-match the argmax object masks by IoU on the host.
 

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "ogc_scatter_add_rows": [_P, _P, _P, _I, _I, _P, _P],
+    "ogc_gather_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "ogc_scatter_add_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

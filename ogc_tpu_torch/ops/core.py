@@ -13,9 +13,14 @@ features are (B, N, C) and groups (B, M, S, C), as in the JAX package.
 * ``query_and_group`` -- KNN with the radius clamp: neighbours farther than
   the radius are replaced by the nearest one (pointnet2/pointnet2.py:281-301).
 
-``gather`` and ``group`` are a row gather whose backward is the
-deterministic scatter-add of ops/scatter.py (ascending source order, no
-atomics); ``three_interpolate`` and ``group_with_idx`` go through them.
+``gather`` and ``group`` are a row gather whose backward is a deterministic
+scatter-add (ascending source order, no atomics); ``three_interpolate`` and
+``group_with_idx`` go through them.  ``group`` routes as the JAX package
+does: where ``ops/onehot.py::onehot_path_applicable`` holds (a source of at
+most 1024 points and 16 channels, at least 1024 rows per cloud) through the
+small-source gather/scatter kernels #7/#8, else through advanced indexing
+with the scatter-add of ops/scatter.py (#11) as its backward.  Both
+backwards give the same bits.
 Approximate neighbour search is not ported yet (ROADMAP queue B):
 ``set_exact_neighbors(False)`` raises.
 """
@@ -29,6 +34,9 @@ import torch
 from ogc_tpu_torch.ops.ball import ball_query_exact
 from ogc_tpu_torch.ops.fps import fps
 from ogc_tpu_torch.ops.knn import knn_exact
+from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                      onehot_path_applicable,
+                                      scatter_add_rows_onehot)
 from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
 
@@ -50,24 +58,31 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """Row gather (B, N, C) x (B, R) -> (B, R, C); its backward is the
+    """Row gather (B, N, C) x (B, R) -> (B, R, C); its backward is a
     deterministic scatter-add kernel, never ``index_add_`` or the atomic
-    backward of advanced indexing."""
+    backward of advanced indexing.  With ``onehot`` the pair is the
+    small-source kernels #7/#8, else advanced indexing and #11.  The
+    backward runs only when the source needs a gradient (SA0 groups the
+    input cloud and launches no scatter)."""
 
     @staticmethod
-    def forward(ctx, points, idx):
+    def forward(ctx, points, idx, onehot=False):
         ctx.save_for_backward(idx)
         ctx.n_dest = points.shape[1]
+        ctx.onehot = onehot
+        if onehot:
+            return gather_rows_onehot(points, idx)
         rows = torch.arange(points.shape[0], device=points.device)[:, None]
         return points[rows, idx.long()]
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (idx,) = ctx.saved_tensors
-        d = scatter_add_rows(idx, grad.float().contiguous(), ctx.n_dest)
-        return d.to(grad.dtype), None
+        scatter = scatter_add_rows_onehot if ctx.onehot else scatter_add_rows
+        d = scatter(idx, grad.float().contiguous(), ctx.n_dest)
+        return d.to(grad.dtype), None, None
 
 
 def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,7 +93,10 @@ def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) x (B, M, S) -> (B, M, S, C)."""
     B, M, S = idx.shape
-    return gather(points, idx.reshape(B, M * S)).reshape(B, M, S, -1)
+    N, C = points.shape[1], points.shape[2]
+    out = _Gather.apply(points, idx.reshape(B, M * S),
+                        onehot_path_applicable(N, M * S, C))
+    return out.reshape(B, M, S, C)
 
 
 def knn(k: int, query: torch.Tensor,

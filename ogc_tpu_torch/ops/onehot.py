@@ -1,0 +1,125 @@
+"""Small-source row gather and deterministic scatter-add: the CUDA kernels
+(csrc/onehot.cu) and their plain PyTorch versions.
+
+Replaces ogc_tpu/ops/pallas_onehot.py::_gather_kernel (#7) and
+::_scatter_kernel (#8), the one-hot grouping the JAX package routes every
+``ops.group`` of a cloud of at most 1024 points with at most 16 channels
+through.  ``onehot_path_applicable`` is a copy of its shape gate, so the port
+launches these kernels at exactly the call sites where the JAX package
+launches #7/#8.
+
+* ``gather_rows_onehot`` (B, N, C) x (B, E) -> (B, E, C), bit-equal to
+  ``src[b, idx[b]]`` (the plain version, advanced indexing).
+* ``scatter_add_rows_onehot`` (B, E) x (B, E, C) -> (B, n, C), each
+  destination summed in ascending e from 0.0f: the contract of
+  ops/scatter.py, whose ``scatter_add_rows_plain`` is its plain version.
+
+Each routes by the tensors' device: CPU tensors take the plain version; CUDA
+tensors launch the kernel or raise.  ``.launches`` counts kernel launches.
+float32 only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ogc_tpu_torch.ops import _build
+from ogc_tpu_torch.ops.scatter import scatter_add_rows_plain
+
+MAX_N, MAX_C = 1024, 16
+
+
+def _pad_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def onehot_path_applicable(n_src: int, n_rows: int, c: int) -> bool:
+    """The JAX package's gate (ogc_tpu/ops/pallas_onehot.py::
+    onehot_path_applicable with OGC_GROUP_ONEHOT=auto on one chip):
+    n_pad = ceil128(n_src) <= 1024, c <= 16, n_rows >= 1024 rows per cloud.
+    Its VMEM-feasibility line always holds inside these limits.  Shapes
+    only."""
+    return (n_src >= 1 and _pad_to(n_src, 128) <= MAX_N and c <= MAX_C
+            and n_rows >= 1024)
+
+
+def gather_rows_onehot_plain(src: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """Advanced indexing.  :param src: (B, N, C); :param idx: (B, E) int."""
+    rows = torch.arange(src.shape[0], device=src.device)[:, None]
+    return src[rows, idx.long()]
+
+
+def _check(name: str, *tensors) -> None:
+    for label, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {label} on {t.device}")
+    if len({t.device for _, t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+
+
+def gather_rows_onehot(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) float32 x (B, E) int in [0, N) -> (B, E, C), bit-equal to
+    the plain version; requires N <= 1024 and C <= 16 on the card."""
+    if src.device.type == "cpu" and idx.device.type == "cpu":
+        return gather_rows_onehot_plain(src, idx)
+    _check("gather_rows_onehot", ("src", src), ("idx", idx))
+    if (src.dim() != 3 or idx.dim() != 2 or idx.shape[0] != src.shape[0]
+            or src.dtype != torch.float32
+            or idx.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(
+            f"gather_rows_onehot: want (B, N, C) float32 src and (B, E) int "
+            f"idx, got {tuple(src.shape)} {src.dtype}, {tuple(idx.shape)} "
+            f"{idx.dtype}")
+    B, N, C = src.shape
+    E = idx.shape[1]
+    if not (1 <= N <= MAX_N and 1 <= C <= MAX_C):
+        raise ValueError(f"gather_rows_onehot: N={N} C={C} outside the "
+                         f"kernel's N <= {MAX_N}, C <= {MAX_C}")
+    out = torch.empty((B, E, C), dtype=torch.float32, device=src.device)
+    if B * E == 0:
+        return out
+    src = src.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = _build.lib().ogc_gather_rows_onehot(
+        src.data_ptr(), idx.data_ptr(), B, N, C, E, out.data_ptr(), stream)
+    _build.check(err, "ogc_gather_rows_onehot")
+    gather_rows_onehot.launches += 1
+    return out
+
+
+def scatter_add_rows_onehot(idx: torch.Tensor, cot: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """(B, E) int in [0, n) x (B, E, C) float32 -> (B, n, C) float32, each
+    row summed in ascending e; requires n <= 1024 and C <= 16 on the card."""
+    if idx.device.type == "cpu" and cot.device.type == "cpu":
+        return scatter_add_rows_plain(idx, cot, n)
+    _check("scatter_add_rows_onehot", ("idx", idx), ("cot", cot))
+    if (idx.dim() != 2 or cot.dim() != 3 or cot.shape[:2] != idx.shape
+            or cot.dtype != torch.float32
+            or idx.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(
+            f"scatter_add_rows_onehot: want (B, E) int idx and (B, E, C) "
+            f"float32 cot, got {tuple(idx.shape)} {idx.dtype}, "
+            f"{tuple(cot.shape)} {cot.dtype}")
+    B, E = idx.shape
+    C = cot.shape[-1]
+    if not (1 <= n <= MAX_N and 1 <= C <= MAX_C):
+        raise ValueError(f"scatter_add_rows_onehot: n={n} C={C} outside the "
+                         f"kernel's n <= {MAX_N}, C <= {MAX_C}")
+    out = torch.empty((B, n, C), dtype=torch.float32, device=cot.device)
+    if B == 0:
+        return out
+    idx = idx.to(torch.int32).contiguous()
+    cot = cot.contiguous()
+    stream = torch.cuda.current_stream(cot.device).cuda_stream
+    err = _build.lib().ogc_scatter_add_rows_onehot(
+        idx.data_ptr(), cot.data_ptr(), B, E, C, n, out.data_ptr(), stream)
+    _build.check(err, "ogc_scatter_add_rows_onehot")
+    scatter_add_rows_onehot.launches += 1
+    return out
+
+
+gather_rows_onehot.launches = 0
+scatter_add_rows_onehot.launches = 0

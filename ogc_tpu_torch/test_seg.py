@@ -16,7 +16,7 @@ import argparse
 import os
 import os.path as osp
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +35,9 @@ from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.meters import AverageMeter
 
 
-def build_test_dataset(args):
-    """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py."""
+def build_test_dataset(args, predflow_path: Optional[str] = None):
+    """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py;
+    vote.py passes the flow predictions to read (None: the true flows)."""
     data_root = args.data["root"]
     if args.dataset == "sapien":
         from ogc_tpu_torch.data.sapien import SapienDataset
@@ -46,6 +47,7 @@ def build_test_dataset(args):
         view_sels = [[0, 1], [1, 2], [2, 3], [3, 2]]
         test_set = SapienDataset(
             data_root=data_root, split=args.split, view_sels=view_sels,
+            predflow_path=predflow_path,
             decentralize=args.data["decentralize"])
         return test_set, len(view_sels), 0, data_root
     if args.dataset == "kittisf":
@@ -57,10 +59,80 @@ def build_test_dataset(args):
         view_sels = [[0, 1], [1, 0]]
         test_set = KITTISceneFlowDataset(
             data_root=data_root, mapping_path=mapping_path, downsampled=True,
-            view_sels=view_sels, decentralize=args.data["decentralize"])
+            view_sels=view_sels, predflow_path=predflow_path,
+            decentralize=args.data["decentralize"])
         return test_set, len(view_sels), 50, data_root
     raise NotImplementedError(
         f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue A)")
+
+
+def load_segnet(args) -> Tuple[MaskFormer3D, torch.device]:
+    """The config's MaskFormer3D with the weights of ``args.round``, on
+    ``args.device`` in eval mode; sets exact neighbours and full float32
+    for the evaluating entry points (test_seg, oa_icp, vote)."""
+    ops.set_exact_neighbors(not args.approx_knn)
+    # Full float32 matmuls and convolutions (TF32 keeps ~3 digits).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(args.device)
+    sn = args.segnet
+    segnet = MaskFormer3D(
+        n_slot=sn["n_slot"], n_point=sn["n_point"], arch=args.dataset,
+        use_xyz=sn["use_xyz"], n_transformer_layer=sn["n_transformer_layer"],
+        transformer_embed_dim=sn["transformer_embed_dim"],
+        transformer_input_pos_enc=sn["transformer_input_pos_enc"])
+    path = weight_path(args.save_path, args.round)
+    segnet.load_state_dict(load_model_state(path))
+    segnet.to(device).eval()
+    print("Loaded weights from", path)
+    return segnet, device
+
+
+class SegMetrics:
+    """AP@50, PQ/F1/Pre/Rec@50 and the per-scan IoU/RI over the batches of
+    one evaluation (the report of test_seg.py and vote.py)."""
+
+    def __init__(self, ignore_npoint_thresh: int):
+        self.thresh = ignore_npoint_thresh
+        self.ap = {"Pred_IoU": [], "Pred_Matched": [], "Confidence": [],
+                   "N_GT_Inst": []}
+        self.scans = AverageMeter()
+
+    def add(self, segm: np.ndarray, mask: np.ndarray, n_frame: int) -> None:
+        """One batch of whole scenes: segm (B, N), mask (B, N, K)."""
+        iou, matched, conf, n_gt = accumulate_eval_results(
+            segm, mask, ignore_npoint_thresh=self.thresh)
+        self.ap["Pred_IoU"].append(iou)
+        self.ap["Pred_Matched"].append(matched)
+        self.ap["Confidence"].append(conf)
+        self.ap["N_GT_Inst"].append(n_gt)
+        for sid in range(segm.shape[0] // n_frame):
+            sl = slice(n_frame * sid, n_frame * (sid + 1))
+            mbs = clustering_metrics(mask[sl], segm[sl],
+                                     ignore_npoint_thresh=self.thresh)
+            self.scans.append_loss({
+                "per_scan_iou_avg": float(np.mean(mbs["iou"])),
+                "per_scan_iou_std": float(np.std(mbs["iou"])),
+                "per_scan_ri_avg": float(np.mean(mbs["ri"])),
+                "per_scan_ri_std": float(np.std(mbs["ri"])),
+            })
+
+    def report(self, title: str) -> Dict[str, float]:
+        """Print the reference's report and return its numbers."""
+        print("Evaluation on %s:" % title)
+        pred_iou = np.concatenate(self.ap["Pred_IoU"])
+        pred_matched = np.concatenate(self.ap["Pred_Matched"])
+        confidence = np.concatenate(self.ap["Confidence"])
+        n_gt_inst = int(np.sum(self.ap["N_GT_Inst"]))
+        ap = calculate_AP(pred_matched, confidence, n_gt_inst)
+        print("AveragePrecision@50:", ap)
+        pq, f1, pre, rec = calculate_PQ_F1(pred_iou, pred_matched, n_gt_inst)
+        print("PanopticQuality@50:", pq, "F1-score@50:", f1, "Prec@50:", pre,
+              "Recall@50:", rec)
+        clustering = self.scans.get_mean_loss_dict()
+        print(clustering)
+        return {"AP": ap, "PQ": pq, "F1": f1, "Pre": pre, "Rec": rec,
+                **clustering}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -86,25 +158,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     metrics plus the per-batch forward times (seconds)."""
     args = parse_args(argv)
     load_config_into_args(args)
-    ops.set_exact_neighbors(not args.approx_knn)
-    # Full float32 matmuls and convolutions (TF32 keeps ~3 digits).
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(args.device)
-
-    segnet = MaskFormer3D(
-        n_slot=args.segnet["n_slot"],
-        n_point=args.segnet["n_point"],
-        arch=args.dataset,
-        use_xyz=args.segnet["use_xyz"],
-        n_transformer_layer=args.segnet["n_transformer_layer"],
-        transformer_embed_dim=args.segnet["transformer_embed_dim"],
-        transformer_input_pos_enc=args.segnet["transformer_input_pos_enc"],
-    )
-    path = weight_path(args.save_path, args.round)
-    segnet.load_state_dict(load_model_state(path))
-    segnet.to(device).eval()
-    print("Loaded weights from", path)
+    segnet, device = load_segnet(args)
 
     test_set, n_frame, ignore_npoint_thresh, data_root = build_test_dataset(args)
     batch_size = args.test_batch_size
@@ -118,9 +172,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         os.makedirs(save_dir, exist_ok=True)
         print("Save segmentation predictions into", save_dir, "...")
 
-    eval_meter = AverageMeter()
-    ap_meter = {"Pred_IoU": [], "Pred_Matched": [], "Confidence": [],
-                "N_GT_Inst": []}
+    metrics = SegMetrics(ignore_npoint_thresh)
     forward_s = []
     loader = DataLoader(test_set, batch_size=batch_size, shuffle=False,
                         num_workers=4)
@@ -136,44 +188,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             x = torch.from_numpy(pc).to(device)
             mask = segnet(x, x).cpu().numpy()  # the copy waits for the device
         forward_s.append(time.perf_counter() - t0)
-
-        iou, matched, conf, n_gt = accumulate_eval_results(
-            segm, mask, ignore_npoint_thresh=ignore_npoint_thresh)
-        ap_meter["Pred_IoU"].append(iou)
-        ap_meter["Pred_Matched"].append(matched)
-        ap_meter["Confidence"].append(conf)
-        ap_meter["N_GT_Inst"].append(n_gt)
-
-        for sid in range(segm.shape[0] // n_frame):
-            sl = slice(n_frame * sid, n_frame * (sid + 1))
-            mbs = clustering_metrics(
-                mask[sl], segm[sl], ignore_npoint_thresh=ignore_npoint_thresh)
-            eval_meter.append_loss({
-                "per_scan_iou_avg": float(np.mean(mbs["iou"])),
-                "per_scan_iou_std": float(np.std(mbs["iou"])),
-                "per_scan_ri_avg": float(np.mean(mbs["ri"])),
-                "per_scan_ri_std": float(np.std(mbs["ri"])),
-            })
+        metrics.add(segm, mask, n_frame)
 
         if args.save:
             test_set._save_predsegm(mask, save_root=save_dir,
                                     batch_size=batch_size, n_frame=n_frame,
                                     offset=i)
 
-    print("Evaluation on %s-%s:" % (args.dataset, args.split))
-    pred_iou = np.concatenate(ap_meter["Pred_IoU"])
-    pred_matched = np.concatenate(ap_meter["Pred_Matched"])
-    confidence = np.concatenate(ap_meter["Confidence"])
-    n_gt_inst = int(np.sum(ap_meter["N_GT_Inst"]))
-    ap = calculate_AP(pred_matched, confidence, n_gt_inst)
-    print("AveragePrecision@50:", ap)
-    pq, f1, pre, rec = calculate_PQ_F1(pred_iou, pred_matched, n_gt_inst)
-    print("PanopticQuality@50:", pq, "F1-score@50:", f1, "Prec@50:", pre,
-          "Recall@50:", rec)
-    clustering = eval_meter.get_mean_loss_dict()
-    print(clustering)
-    return {"AP": ap, "PQ": pq, "F1": f1, "Pre": pre, "Rec": rec,
-            **clustering, "forward_s": forward_s}
+    return {**metrics.report("%s-%s" % (args.dataset, args.split)),
+            "forward_s": forward_s}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ runs the torch side here in a subprocess, and reads the outputs back:
     python -m tests.torch_port_helper <case> <in.npz> <out.npz> [<case> ...]
 
 Every case also reports the kernel launch counters (FPS, exact KNN, ball
-query, scatter-add), which must stay at 0 on CPU tensors.
+query, scatter-add; and the small-source gather and scatter as
+``launches_onehot``), which must stay at 0 on CPU tensors.
 """
 
 from __future__ import annotations
@@ -175,8 +176,11 @@ def _case_save_ckpt(x, cfg, state):
 
 
 def _case_imports(x, cfg, state):
+    import ogc_tpu_torch.oa_icp  # noqa: F401
     import ogc_tpu_torch.test_seg  # noqa: F401
+    import ogc_tpu_torch.tools.protocol_sapien  # noqa: F401
     import ogc_tpu_torch.train_seg  # noqa: F401
+    import ogc_tpu_torch.vote  # noqa: F401
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ogc_tpu"))
@@ -200,6 +204,70 @@ def _case_ball_scatter(x, cfg, state):
     points = t["group/points"].clone().requires_grad_(True)
     (ops.group(points, t["group/idx"]) * t["group/w"]).sum().backward()
     out["group/grad"] = points.grad.numpy()
+    return out
+
+
+def _case_onehot(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                          onehot_path_applicable,
+                                          scatter_add_rows_onehot)
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = {"gate": np.array([onehot_path_applicable(*s)
+                             for s in cfg["gate"]])}
+    for name in cfg["gather"]:
+        out[name] = gather_rows_onehot(t[name + "/src"],
+                                       t[name + "/idx"]).numpy()
+    for name, n in cfg["scatter"].items():
+        out[name] = scatter_add_rows_onehot(t[name + "/idx"],
+                                            t[name + "/cot"], n).numpy()
+    points = t["group/points"].clone().requires_grad_(True)
+    g = ops.group(points, t["group/idx"])
+    (g * t["group/w"]).sum().backward()
+    out["group/out"] = g.detach().numpy()
+    out["group/grad"] = points.grad.numpy()
+    return out
+
+
+def _case_refine(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import interpolate_mask_by_flow
+    from ogc_tpu_torch.metrics.flow import eval_flow
+    from ogc_tpu_torch.refine.oa_icp import object_aware_icp, weighted_kabsch
+    from ogc_tpu_torch.refine.vote import (collect_correspondences,
+                                           mask_voting, match_mask_by_cost,
+                                           warp_mask_chain)
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    icp = (t["pc1"], t["pc2"], t["flow"], t["mask1"], t["mask2"])
+    out = {
+        "kabsch": weighted_kabsch(t["pc1"], t["flow"], t["mask1"]).numpy(),
+        # One tile at the default (the JAX dense path's counterpart), and
+        # several at tile 64.
+        "icp_dense": object_aware_icp(*icp,
+                                      icp_iter=cfg["icp_iter"]).numpy(),
+        "icp_block": object_aware_icp(*icp, icp_iter=cfg["icp_iter"],
+                                      tile=64).numpy(),
+        "interp": interpolate_mask_by_flow(t["pc1"], t["pc2"], t["mask1"],
+                                           t["flow"]).numpy(),
+        "interp3": interpolate_mask_by_flow(t["pc1"], t["pc2"], t["mask1"],
+                                            t["flow"], k=3).numpy(),
+        "eval_flow": np.array(eval_flow(x["flow_gt"], x["flow"], 0.01)),
+        "voted": mask_voting(t["v_pc"], t["v_mask"], t["v_flows"],
+                             time_window_size=2, tile=32).numpy(),
+    }
+    for measure in ("ce", "iou"):
+        out["cost_" + measure] = match_mask_by_cost(
+            t["c_mask1"], t["c_mask2"], measure).numpy()
+    corrs = collect_correspondences(t["v_pc"], t["v_flows"])
+    for tt, v in cfg["chains"]:
+        out[f"chain/{tt}_{v}"] = warp_mask_chain(
+            t["v_pc"], t["v_flows"], tt, v, t["v_mask"][v], tile=32).numpy()
+        out[f"dense/{tt}_{v}"] = (corrs[f"{tt}_{v}"] @ t["v_mask"][v]).numpy()
     return out
 
 
@@ -292,6 +360,8 @@ CASES = {
     "save_ckpt": _case_save_ckpt,
     "imports": _case_imports,
     "ball_scatter": _case_ball_scatter,
+    "onehot": _case_onehot,
+    "refine": _case_refine,
     "lap": _case_lap,
     "ogc_loss": _case_ogc_loss,
     "train_steps": _case_train_steps,
@@ -313,11 +383,15 @@ def main(argv: List[str]) -> None:
         from ogc_tpu_torch.ops.ball import ball_query_exact
         from ogc_tpu_torch.ops.fps import fps
         from ogc_tpu_torch.ops.knn import knn_exact
+        from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                              scatter_add_rows_onehot)
         from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
         out["launches"] = np.array([fps.launches, knn_exact.launches,
                                     ball_query_exact.launches,
                                     scatter_add_rows.launches])
+        out["launches_onehot"] = np.array([gather_rows_onehot.launches,
+                                           scatter_add_rows_onehot.launches])
         np.savez(out_path, **out)
 
 
