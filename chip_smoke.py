@@ -21,12 +21,16 @@
    deterministic mode for a scatter, ``torch.gather`` for the small-source
    gather) and, for the small-source kernels, the general route
    ``ops.group`` would take without them (advanced indexing; #11 with its
-   sort prologue).
-4. Train phase (the main path): writes a synthetic KITTI-SF root (the
-   write_kittisf layout plus flow_preds/flowstep3d/<id>/flow{1,2}.npy),
-   train/val mappings of 40 and 20 ids, and a copy of
-   config/seg/kittisf/kittisf_unsup.yaml with epochs 1; runs
-   ogc_tpu_torch.train_seg.main: 10 steps at B=4 x 4 frames x 8192, then
+   sort prologue).  Fast path: the block-min KNN (#3) at its five model
+   sites at batch 16 and 8 and the smooth KNN (4 x 8192 x 8192, k 32), the
+   block-min ball query at the smooth shape (crowded and under-full), a
+   ragged M = 1500 and a k = 3 case, each beside the exact route (#2, #5).
+4. Train phase (the main path, pinned exact as every parity phase): writes
+   a synthetic KITTI-SF root (the write_kittisf layout plus
+   flow_preds/flowstep3d/<id>/flow{1,2}.npy), train/val mappings of 40 and
+   20 ids, and copies of config/seg/kittisf/kittisf_unsup{,_fast}.yaml with
+   epochs 1; runs ogc_tpu_torch.train_seg.main: 10 steps at B=4 x 4 frames
+   x 8192, then
    the val epoch (5 batches of 4 items x 2 frames).  Asserts finite loss
    terms and the launch counts derived below.  Then, past every start
    step (so every loss term and every scatter-add carries a gradient): two
@@ -40,11 +44,21 @@
 6. Eval phase: ogc_tpu_torch.test_seg.main on the 100 ids of
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
-   finite metrics, and card masks within 2e-4 of the CPU run.
+   finite metrics, card masks within 2e-4 of the CPU run, and a profile
+   of 3 eval forwards of B=8 as in phase 5.
 7. KITTI-SF OA-ICP: ogc_tpu_torch.oa_icp.main on the val ids with that
    checkpoint (10 batches of 20, 8192 points: the blockwise streaming
    path); asserts the derived launches and finite flow reports.
-8. SAPIEN round alternation (a main path of its own, at full width: 512
+8. Fast mode (a main path of its own): phase 4 on kittisf_unsup_fast.yaml
+   (bf16, symmetric smooth gradient) in train_seg's default approximate
+   mode, with the fast launches derived below; the card-vs-CPU step with
+   compute_dtype forced to f32 (kernels against plain versions through a
+   whole approximate step, the tolerances of phase 4); one bf16 step on the
+   card against the f32 step (BF16_LOSS_RTOL, BF16_GRAD_RTOL, and moved by
+   BF16_MIN_MOVE); a profile as in phase 5;
+   phase 6 with --approx_knn (bf16 masks card vs CPU by BF16_MASK_TOL and
+   BF16_ARGMAX).
+9. SAPIEN round alternation (a main path of its own, at full width: 512
    points, 8 slots, embed 128, 2 layers, B=32) on the protocol's synthetic
    scenes (ogc_tpu_torch/tools/synth.py, 120 train/val + 24 test), each
    stage through its CLI's main with the counts set to 0 before it and
@@ -52,8 +66,7 @@
    --save, train_seg full R2 (1 epoch, augmented views and invariance
    from the first epoch), test_seg R2, vote R2 --use_gt_flow.  Asserts
    the derived launches of every stage and finite losses and metrics;
-   then, on the
-   full config past every start step, two bit-equal seeded 2-step runs,
+   then, on the full config past every start step, two bit-equal seeded 2-step runs,
    one step card vs CPU (the tolerances of phase 4), OA-ICP flows and
    voted masks card vs CPU (REFINE_TOL, VOTE_TOL; the voting also against
    float64 on the CPU, VOTE_F64_TOL, VOTE_MASK_TOL), and a profile as in
@@ -88,6 +101,20 @@ TRAIN_B, TRAIN_T = 4, 4
 DEVICE = "cuda"
 SEED = 0
 MASK_TOL = 2e-4
+# bf16 (fast config): one bf16 step against the float32 step from the same
+# weights and batch.  Its loss sum within BF16_LOSS_RTOL and its gradients
+# within BF16_GRAD_RTOL (relative Frobenius norm over all leaves; 4x the JAX
+# package's own bf16-vs-float32 gap, 2.65e-2, on tests/test_torch_fast.py's
+# input).  And it must have moved: its largest relative term change and its
+# gradient gap each at least BF16_MIN_MOVE.  A step that stayed in float32
+# reads 0 on both (the float32 step is bit-reproducible), and the float32
+# step on the card and on the CPU differ by ~3e-6 per term.  The sum moves
+# far less than the terms: 10 x dynamic carries 99.7% of it and moves 1e-5,
+# and the small smooth and invariance moves (0.1 x each) partly cancel.
+# Eval masks card against CPU by their mean absolute difference and argmax
+# agreement.
+BF16_LOSS_RTOL, BF16_GRAD_RTOL, BF16_MIN_MOVE = 1e-2, 0.1, 1e-3
+BF16_MASK_TOL, BF16_ARGMAX = 2e-3, 0.99
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 3e-3, 2e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s.
@@ -111,7 +138,7 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 #     most 1024 points with at most 16 channels (ops/onehot.py's gate).
 # And of one val batch (8 clouds forward, loss on 2 frames, no backward).
 KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
-           "scatter_onehot")
+           "scatter_onehot", "knn_blockmin", "ball_blockmin")
 
 
 def launch_counts(**kw):
@@ -123,6 +150,28 @@ STEP_LAUNCHES = launch_counts(fps=3, knn_exact=10, ball_query=4,
 VAL_LAUNCHES = launch_counts(fps=3, knn_exact=8, ball_query=2)
 EVAL_LAUNCHES = launch_counts(fps=3, knn_exact=6)
 N_TRAIN_IDS, N_VAL_IDS = 40, 20
+# Fast mode (config/seg/kittisf/kittisf_unsup_fast.yaml: bf16, approximate
+# neighbours, symmetric smooth gradient), the same B=4 x 4 frames x 8192.
+# Block-min sites (#3) of one forward, (n_query, n_points, k, recall):
+# SA0 (8192 -> 2048), SA1 and SA2 on nested FPS (prefixes of SA0's sample),
+# and the two FP three_nn whose known cloud has >= 1024 points; FP's
+# 1024 x 512 is below the gate and takes #2.  The smooth KNN (k 32, r 1)
+# and ball (ns 64, r 2) run per frame at B=4 on 8192 x 8192.
+BLOCKMIN_SHAPES = [(2048, 8192, 64, 0.95), (1024, 2048, 64, 0.95),
+                   (512, 1024, 64, 0.95), (8192, 2048, 3, 0.99),
+                   (2048, 1024, 3, 0.99)]
+# Derived launches of one fast train step:
+#   fps 1         SA0 only (SA1 and SA2 sample nested prefixes);
+#   knn_exact 1   FP's 1024 x 512 three_nn, below the #3 gate;
+#   knn_blockmin 9  SA0-SA2, 2 FP three_nn, 1 smooth KnnLoss per frame;
+#   ball_blockmin 4  1 smooth BallQLoss per frame;
+#   scatter_add 5  SA1, SA2 and the 3 FP groups; the smooth groups' symmetric
+#     gradient gathers and scatters nothing.
+# A fast val batch (8 clouds, loss on 2 frames) and a fast eval forward.
+FAST_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9,
+                          ball_blockmin=4, scatter_add=5)
+FAST_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2)
+FAST_EVAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=5)
 # KITTI-SF OA-ICP (the blockwise path at 8192): per batch two forwards and
 # the k=1 KNN of the mask interpolation.
 KITTI_ICP_BATCH = 20
@@ -222,9 +271,11 @@ class Report:
     def __init__(self):
         self.rows = {}
 
-    def add(self, name, err, ms, plain, bound, by, lib=None, per_step=1):
+    def add(self, name, err, ms, plain, bound, by, lib=None, per_step=1,
+            general=None):
         r = self.rows.setdefault(name, {"err": 0.0, "ms": 0.0, "plain": 0.0,
-                                        "bound": 0.0, "by": {}, "lib": None})
+                                        "bound": 0.0, "by": {}, "lib": None,
+                                        "general": None})
         r["err"] = max(r["err"], float(err))
         r["ms"] += per_step * ms
         r["plain"] += per_step * plain
@@ -232,13 +283,18 @@ class Report:
         r["by"][by] = r["by"].get(by, 0.0) + per_step * bound
         if lib is not None:
             r["lib"] = (r["lib"] or 0.0) + per_step * lib
+        if general is not None:
+            r["general"] = (r["general"] or 0.0) + per_step * general
 
     def entry(self, name):
         r = self.rows[name]
-        return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
-                "bound_ms": r["bound"],
-                "bound_by": max(r["by"], key=r["by"].get),
-                "library_ms": r["lib"]}
+        e = {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
+             "bound_ms": r["bound"],
+             "bound_by": max(r["by"], key=r["by"].get),
+             "library_ms": r["lib"]}
+        if r["general"] is not None:
+            e["general_ms"] = r["general"]
+        return e
 
 
 def grid_cloud(gen, b, n, extent=30.0, step=1 / 8):
@@ -386,6 +442,94 @@ def check_scatter(report, gen):
             f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
+def check_blockmin(report, gen, b, shapes, ball=True):
+    """#3 at every block-min site of the fast path (``shapes`` of the model
+    at ``b`` clouds; with ``ball`` the smooth KNN and ball at B=4 per frame,
+    a ragged M = 1500 and a small-recall k = 3 case), bit-equal to the plain
+    version in both modes.  Timed beside the plain version and the route
+    exact mode takes at the same shape ("general": #2 for KNN, #5 for the
+    ball).  Bound: 8 f32 operations per (query, candidate) pair the
+    function needs (every pair for KNN; for a ball, the candidates up to
+    the run of its ns-th hit, all of them when it is not full), or the
+    bytes, the larger.  No single PyTorch call computes block-min thinning
+    with packed keys: no library time."""
+    from ogc_tpu_torch.ops.ball import ball_query_exact
+    from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                ball_query_blockmin_plain,
+                                                block_size, knn_blockmin,
+                                                knn_blockmin_plain)
+
+    cases = [(b, nq, m, k, rec, 1) for nq, m, k, rec in shapes]
+    if ball:
+        cases += [(TRAIN_B, N_POINT, N_POINT, SMOOTH_K, 0.95, TRAIN_T),
+                  (2, 1500, 1500, 16, 0.95, 0), (2, 1500, 1500, 3, 0.99, 0)]
+    for bb, nq, m, k, rec, per_step in cases:
+        q, p = grid_cloud(gen, bb, nq), grid_cloud(gen, bb, m)
+        (d, i), (pd, pi) = (knn_blockmin(q, p, k, rec),
+                            knn_blockmin_plain(q, p, k, rec))
+        torch.cuda.synchronize()
+        if not (torch.equal(i, pi) and torch.equal(d, pd)):
+            raise AssertionError(
+                f"knn_blockmin b{bb} q{nq} p{m} k{k}: kernel != plain at "
+                f"{(i != pi).sum().item()} indices, max dist diff "
+                f"{(d - pd).abs().max().item()}")
+        ms = cuda_ms(lambda: knn_blockmin(q, p, k, rec), 20)
+        pms = cuda_ms(lambda: knn_blockmin_plain(q, p, k, rec), 3)
+        gms = cuda_ms(lambda: knn_exact(q, p, min(k, m)), 5)
+        bnd, by = bound_ms(bb * ((nq + m) * 12 + nq * k * 8), bb * nq * m * 8)
+        if per_step:
+            report.add("knn_blockmin", 0, ms, pms, bnd, by,
+                       per_step=per_step, general=gms)
+        log(f"knn_blockmin ({bb},{nq} q,{m} p,k={k},blk="
+            f"{block_size(m, k, rec)}) x{per_step}/step: idx and dist "
+            f"bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, #2 "
+            f"{gms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    if not ball:
+        return
+    blk = block_size(N_POINT, BALL_NS, 0.95)
+    for extent in (8.0, 30.0):  # crowded balls, then under-full ones
+        x = grid_cloud(gen, TRAIN_B, N_POINT, extent)
+        got = ball_query_blockmin(x, x, BALL_R, BALL_NS)
+        want = ball_query_blockmin_plain(x, x, BALL_R, BALL_NS)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"ball_blockmin extent {extent}: kernel != plain at "
+                f"{(got != want).sum().item()} slots")
+        full = got[..., -1] != got[..., 0]
+        log(f"ball_blockmin ({TRAIN_B},{N_POINT} c,{N_POINT} p,ns={BALL_NS},"
+            f"r={BALL_R},blk={blk}) extent {extent}: bit-equal; full balls "
+            f"{full.float().mean().item():.4f}")
+    x = grid_cloud(gen, 2, 1500, 8.0)
+    c = grid_cloud(gen, 2, 700, 8.0)
+    for r_, ns in ((0.1, 8), (0.5, 16)):
+        if not torch.equal(ball_query_blockmin(x, c, r_, ns),
+                           ball_query_blockmin_plain(x, c, r_, ns)):
+            raise AssertionError(f"ball_blockmin ragged r={r_}: kernel != "
+                                 f"plain")
+    log("ball_blockmin ragged (2,700 c,1500 p) r 0.1 ns 8, r 0.5 ns 16: "
+        "bit-equal")
+    # Timed on an under-full cloud (extent 30): no ball stops early.
+    x = grid_cloud(gen, TRAIN_B, N_POINT, 30.0)
+    got = ball_query_blockmin(x, x, BALL_R, BALL_NS)
+    full = got[..., -1] != got[..., 0]
+    need = torch.where(full, (got[..., -1].long() // blk + 1) * blk,
+                       N_POINT).clamp(max=N_POINT)
+    pairs = int(need.sum().item())
+    ms = cuda_ms(lambda: ball_query_blockmin(x, x, BALL_R, BALL_NS), 20)
+    pms = cuda_ms(lambda: ball_query_blockmin_plain(x, x, BALL_R, BALL_NS),
+                  3)
+    gms = cuda_ms(lambda: ball_query_exact(x, x, BALL_R, BALL_NS), 5)
+    bnd, by = bound_ms(TRAIN_B * (2 * N_POINT * 12 + N_POINT * BALL_NS * 4),
+                       pairs * 8)
+    report.add("ball_blockmin", 0, ms, pms, bnd, by, per_step=TRAIN_T,
+               general=gms)
+    log(f"ball_blockmin x{TRAIN_T}/step: kernel {ms:.4f} ms, plain {pms:.4f} "
+        f"ms, #5 {gms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs} pairs "
+        f"needed)")
+
+
 def sapien_tables(gen, clouds):
     """A grid cloud of SAPIEN scale (unit extent, 1/64 grid) and the index
     tables of its three grouping sites: SA0's KNN (256 FPS centres, k 64)
@@ -516,6 +660,18 @@ def check_kernels():
         log(f"per train step: {name} kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library {e['library_ms']}")
+    log("-- fast path: #3 at the train shapes (16 clouds; smooth terms at "
+        "B=4 per frame), then at the eval shapes (B=8)")
+    fast_report, fast_eval_report = Report(), Report()
+    check_blockmin(fast_report, gen, B, BLOCKMIN_SHAPES)
+    check_blockmin(fast_eval_report, gen, BATCH, BLOCKMIN_SHAPES, ball=False)
+    for rep, what in ((fast_report, "fast train step"),
+                      (fast_eval_report, "fast eval forward")):
+        for name in rep.rows:
+            e = rep.entry(name)
+            log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.4f} ms, exact route {e['general_ms']:.4f} "
+                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
     log(f"-- SAPIEN path shapes (B={SAP_B} items x 2 or 4 frames x {SAP_N})")
     sapien = {"woinv": (Report(), 2), "full": (Report(), 4)}
     check_onehot(sapien, gen)
@@ -525,7 +681,7 @@ def check_kernels():
             log(f"per SAPIEN {cfg} train step: {name} {e['ms']:.4f} ms, "
                 f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
                 f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
-    return train_report, sapien["full"][0]
+    return train_report, sapien["full"][0], fast_report
 
 
 def write_kittisf(root, ids, seed):
@@ -573,6 +729,8 @@ def counters():
     from ogc_tpu_torch.ops.ball import ball_query_exact
     from ogc_tpu_torch.ops.fps import fps
     from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                knn_blockmin)
     from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                           scatter_add_rows_onehot)
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
@@ -580,7 +738,8 @@ def counters():
     return {"fps": fps, "knn_exact": knn_exact,
             "ball_query": ball_query_exact, "scatter_add": scatter_add_rows,
             "gather_onehot": gather_rows_onehot,
-            "scatter_onehot": scatter_add_rows_onehot}
+            "scatter_onehot": scatter_add_rows_onehot,
+            "knn_blockmin": knn_blockmin, "ball_blockmin": ball_query_blockmin}
 
 
 def reset_counts():
@@ -593,7 +752,8 @@ def read_counts():
 
 
 def setup_data(tmp):
-    """Synthetic KITTI-SF root, mapping files and the config copy."""
+    """Synthetic KITTI-SF root, mapping files, and copies of the parity and
+    the fast config pointing at them: {"parity" | "fast": (cfg, path)}."""
     import yaml
 
     with open("data_prepare/kittisf/splits/train.txt") as f:
@@ -608,18 +768,33 @@ def setup_data(tmp):
         maps[split] = osp.join(tmp, f"{split}.txt")
         with open(maps[split], "w") as f:
             f.write("\n".join(ids))
-    with open("config/seg/kittisf/kittisf_unsup.yaml") as f:
-        cfg = yaml.safe_load(f)
-    cfg["data"].update(root=root, train_mapping=maps["train"],
-                       val_mapping=maps["val"])
-    cfg["save_path"] = osp.join(tmp, "ckpt", "kittisf_unsup")
-    cfg["epochs"] = 1
-    cfg_path = osp.join(tmp, "kittisf_unsup.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(cfg, f)
+    out = {}
+    for mode, name in (("parity", "kittisf_unsup"),
+                       ("fast", "kittisf_unsup_fast")):
+        with open(f"config/seg/kittisf/{name}.yaml") as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"].update(root=root, train_mapping=maps["train"],
+                           val_mapping=maps["val"])
+        cfg["save_path"] = osp.join(tmp, "ckpt", name)
+        cfg["epochs"] = 1
+        cfg_path = osp.join(tmp, f"{name}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        out[mode] = (cfg, cfg_path)
     log(f"setup: {len(set(train_ids) | set(val_ids))} scenes x {N_POINT} "
         f"points in {time.perf_counter() - t0:.3f} s")
-    return cfg, cfg_path
+    return out
+
+
+def set_modes(cfg, exact=None):
+    """The process-wide settings the CLIs set: the compute dtype of ``cfg``
+    and, unless None, the neighbour mode."""
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.utils.config import apply_compute_dtype
+
+    apply_compute_dtype(cfg)
+    if exact is not None:
+        ops.set_exact_neighbors(exact)
 
 
 def make_model(cfg, device):
@@ -670,10 +845,15 @@ def fixed_batch(cfg, n_items):
     return tuple(np.stack(f, 0) for f in zip(*items))
 
 
-def run_train(tmp):
+def run_train(tmp, cfg, cfg_path, exact, per_step, per_val):
+    """train_seg on ``cfg`` in the given neighbour mode (train_seg itself
+    follows the process's mode, as with OGC_EXACT_NEIGHBORS), its launches
+    against the derived ones, then the determinism and card-vs-CPU checks
+    (in float32 for a bf16 config, which also gets check_bf16_step)."""
     from ogc_tpu_torch import train_seg
 
-    cfg, cfg_path = setup_data(tmp)
+    set_modes(cfg, exact)
+    name = osp.basename(cfg_path)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -683,12 +863,11 @@ def run_train(tmp):
     trainer = res["trainer"]
     steps = len(trainer.step_seconds)
     n_val = -(-N_VAL_IDS // TRAIN_B)
-    want = {k: steps * STEP_LAUNCHES[k] + n_val * VAL_LAUNCHES[k]
-            for k in KERNELS}
-    log(f"train main path: {steps} steps of B={TRAIN_B} x {TRAIN_T} frames x "
-        f"{N_POINT}, val epoch of {n_val} batches; launches {launches}, "
-        f"derived {want} (per step {STEP_LAUNCHES}, per val batch "
-        f"{VAL_LAUNCHES})")
+    want = {k: steps * per_step[k] + n_val * per_val[k] for k in KERNELS}
+    log(f"train main path {name} ({'exact' if exact else 'approximate'}): "
+        f"{steps} steps of B={TRAIN_B} x {TRAIN_T} frames x {N_POINT}, val "
+        f"epoch of {n_val} batches; launches {launches}, derived {want} (per "
+        f"step {per_step}, per val batch {per_val})")
     if steps != N_TRAIN_IDS // TRAIN_B or launches != want:
         raise AssertionError(f"expected {N_TRAIN_IDS // TRAIN_B} steps and "
                              f"launches {want}, got {steps} and {launches}")
@@ -702,8 +881,8 @@ def run_train(tmp):
     step_ms = np.array(trainer.step_seconds) * 1e3
     med = float(np.median(step_ms[1:]))
     clouds = TRAIN_B * TRAIN_T
-    log(f"train step (host clock around a synchronised step, steps 2-"
-        f"{steps}): median {med:.4f} ms, min {step_ms[1:].min():.4f}, max "
+    log(f"train step {name} (host clock around a synchronised step, steps "
+        f"2-{steps}): median {med:.4f} ms, min {step_ms[1:].min():.4f}, max "
         f"{step_ms[1:].max():.4f}; {1e3 / med:.4f} steps/s, "
         f"{clouds * 1e3 / med:.4f} clouds/s; first step {step_ms[0]:.4f} ms; "
         f"val epoch {trainer.val_seconds[0] * 1e3:.4f} ms; whole train_seg "
@@ -711,8 +890,11 @@ def run_train(tmp):
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     log(f"last step's terms: {last}; best val loss {res['best_loss']}")
     check_determinism(cfg, tmp, fixed_batch(cfg, TRAIN_B))
-    check_card_vs_cpu(cfg, tmp, fixed_batch(cfg, 1))
-    return cfg, cfg_path, launches
+    check_card_vs_cpu({**cfg, "compute_dtype": "f32"}, tmp,
+                      fixed_batch(cfg, 1))
+    if cfg.get("compute_dtype") == "bf16":
+        check_bf16_step(cfg, tmp, fixed_batch(cfg, 1))
+    return launches
 
 
 def first_it_all_terms(cfg, n_items):
@@ -724,6 +906,7 @@ def first_it_all_terms(cfg, n_items):
 def check_determinism(cfg, tmp, batch):
     """Two 2-step runs from one seed on one batch, all loss terms on:
     bit-equal parameters."""
+    set_modes(cfg)
     it0 = first_it_all_terms(cfg, batch[0].shape[0])
     params = []
     for run in range(2):
@@ -745,6 +928,7 @@ def check_determinism(cfg, tmp, batch):
 def check_card_vs_cpu(cfg, tmp, batch):
     """One train step (all terms on: the samples seen pass every start
     step) on the card and on the CPU with the plain versions."""
+    set_modes(cfg)
     it_samples = max(cfg["loss"]["start_steps"])
     shape = "x".join(map(str, batch[0].shape[:3]))
     out = {}
@@ -781,42 +965,75 @@ def check_card_vs_cpu(cfg, tmp, batch):
         raise AssertionError("card and CPU gradients disagree")
 
 
-def profile_train(cfg, tmp, batch, steps=3):
-    """torch.profiler over ``steps`` warm train steps on one fixed batch:
-    the device's busy share of the steps' host-clock time (device-side
-    events' time over wall time; the profiler's own host cost lowers it a
-    little), the operators whose kernels take the most device time, and the
-    kernels that do.  The port's ctypes kernels are launched by no operator,
-    so they show among the kernels only."""
+def check_bf16_step(cfg, tmp, batch):
+    """One bf16 step on the card against the float32 step from the same
+    weights and batch: finite, its loss and gradients within BF16_LOSS_RTOL
+    and BF16_GRAD_RTOL, and moved from float32 by BF16_MIN_MOVE."""
+    it_samples = max(cfg["loss"]["start_steps"])
+    terms, grads = {}, {}
+    for dt in ("f32", "bf16"):
+        c = {**cfg, "compute_dtype": dt}
+        set_modes(c)
+        model = make_model(c, DEVICE)
+        trainer = make_trainer(c, model, torch.device(DEVICE),
+                               osp.join(tmp, f"bf16_{dt}"))
+        pcs, flows = trainer._to_device(batch[0], batch[2])
+        loss, ld, _ = trainer._loss(pcs, flows, it_samples, True, True)
+        loss.backward()
+        terms[dt] = {k: float(v.detach()) for k, v in ld.items()}
+        grads[dt] = torch.cat([p.grad.detach().double().flatten()
+                               for _, p in model.named_parameters()])
+    set_modes(cfg)
+    rel = {k: abs(terms["bf16"][k] - v) / max(abs(v), 1e-12)
+           for k, v in terms["f32"].items()}
+    moved = max(rel.values())
+    gap = float((grads["bf16"] - grads["f32"]).norm()
+                / grads["f32"].norm())
+    log(f"bf16 step vs float32 step on the card: {terms['bf16']} vs "
+        f"{terms['f32']}; relative differences {rel}; gradients' relative "
+        f"gap {gap:.4e} (tolerances: loss {BF16_LOSS_RTOL}, gradients "
+        f"{BF16_GRAD_RTOL}; largest term move and gradient gap at least "
+        f"{BF16_MIN_MOVE})")
+    if not (all(math.isfinite(v) for v in terms["bf16"].values())
+            and torch.isfinite(grads["bf16"]).all()):
+        raise AssertionError("bf16 step not finite")
+    if rel["sum"] > BF16_LOSS_RTOL or gap > BF16_GRAD_RTOL:
+        raise AssertionError("bf16 step off the float32 step")
+    if moved < BF16_MIN_MOVE or gap < BF16_MIN_MOVE:
+        raise AssertionError("bf16 step did not move from the float32 "
+                             "step: it did not run in bf16")
+
+
+def profile_steps(what, fn, steps=3):
+    """torch.profiler over ``steps`` warm calls ``fn(i)``, i = 1..steps,
+    after ``fn(0)``: the device's busy share of their host-clock time
+    (device-side events' time over wall time; the profiler's own host cost
+    lowers it a little), the operators whose kernels take the most device
+    time, and the kernels that do.  The port's ctypes kernels are launched
+    by no operator, so they show among the kernels only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model = make_model(cfg, DEVICE)
-    trainer = make_trainer(cfg, model, torch.device(DEVICE),
-                           osp.join(tmp, "prof_" + cfg["dataset"]))
-    it0 = first_it_all_terms(cfg, batch[0].shape[0])
-    trainer.train_it(it0, batch, aug_transform=True)
+    fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for it in range(it0 + 1, it0 + steps + 1):
-            trainer.train_it(it, batch, aug_transform=True)
+        for i in range(1, steps + 1):
+            fn(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     kernels = [e for e in events if e.device_type != DeviceType.CPU]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile of {steps} {cfg['dataset']} train steps (items x frames x "
-        f"points {'x'.join(map(str, batch[0].shape[:3]))}): device time "
-        f"{dev_us / 1e3:.4f} ms "
+    log(f"profile of {steps} {what}: device time {dev_us / 1e3:.4f} ms "
         f"of {wall_us / 1e3:.4f} ms wall, busy share {dev_us / wall_us:.4f}; "
         f"{sum(e.count for e in kernels) // steps} device-side events per "
-        f"step")
+        f"call")
     for title, rows, n in (("operators", ops, 12), ("kernels", kernels, 8)):
-        log(f"  top {title} by device time (share, ms per step, count per "
-            f"step):")
+        log(f"  top {title} by device time (share, ms per call, count per "
+            f"call):")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:n]:
             name = e.key.removeprefix("void ").removeprefix(
                 "(anonymous namespace)::").split("(")[0]
@@ -825,7 +1042,27 @@ def profile_train(cfg, tmp, batch, steps=3):
                 f"x{e.count // steps:<5d} {name[:100]}")
 
 
-def run_eval(tmp, cfg, cfg_path):
+def profile_train(cfg, tmp, batch, steps=3):
+    """profile_steps over ``steps`` warm train steps on one fixed batch."""
+    set_modes(cfg)
+    model = make_model(cfg, DEVICE)
+    trainer = make_trainer(cfg, model, torch.device(DEVICE),
+                           osp.join(tmp, "prof_" + cfg["dataset"]))
+    it0 = first_it_all_terms(cfg, batch[0].shape[0])
+    profile_steps(
+        f"{cfg['dataset']} train steps (items x frames x points "
+        f"{'x'.join(map(str, batch[0].shape[:3]))})",
+        lambda i: trainer.train_it(it0 + i, batch, aug_transform=True),
+        steps)
+
+
+def run_eval(tmp, cfg, cfg_path, approx=False):
+    """test_seg on the 100 val ids with the train phase's checkpoint of
+    ``cfg``; with ``approx`` under --approx_knn.  Then the trained model's
+    masks on the card against the CPU's: within MASK_TOL in float32; in
+    bf16, where cuBLAS and the CPU round bf16 products at other places, the
+    mean absolute difference within BF16_MASK_TOL and the argmax agreeing at
+    BF16_ARGMAX of the points."""
     from ogc_tpu_torch import test_seg
     from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
     from ogc_tpu_torch.utils.checkpoint import load_model_state, weight_path
@@ -834,16 +1071,19 @@ def run_eval(tmp, cfg, cfg_path):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = test_seg.main([cfg_path, "--split", "val", "--round", "1",
-                         "--test_batch_size", str(BATCH), "--device", DEVICE])
+                         "--test_batch_size", str(BATCH), "--device", DEVICE]
+                        + (["--approx_knn"] if approx else []))
     wall = time.perf_counter() - t0
     launches = read_counts()
     n_batch = len(res["forward_s"])
-    log(f"eval path: {n_batch} forward batches of B={BATCH} x {N_POINT}; "
-        f"launches {launches}")
+    per_batch = FAST_EVAL if approx else EVAL_LAUNCHES
+    log(f"eval path {osp.basename(cfg_path)}{' --approx_knn' * approx}: "
+        f"{n_batch} forward batches of B={BATCH} x {N_POINT}; launches "
+        f"{launches}, per batch derived {per_batch}")
     if n_batch != 25 or launches != {k: n_batch * v
-                                     for k, v in EVAL_LAUNCHES.items()}:
-        raise AssertionError(f"expected 25 batches with 3 FPS and 6 KNN "
-                             f"launches each, got {n_batch} and {launches}")
+                                     for k, v in per_batch.items()}:
+        raise AssertionError(f"expected 25 batches with {per_batch} each, "
+                             f"got {n_batch} and {launches}")
     for k in ("AP", "PQ", "F1", "per_scan_iou_avg", "per_scan_ri_avg"):
         if not math.isfinite(res[k]):
             raise AssertionError(f"metric {k} is {res[k]}")
@@ -867,20 +1107,31 @@ def run_eval(tmp, cfg, cfg_path):
         data_root=cfg["data"]["root"],
         mapping_path="data_prepare/kittisf/splits/val.txt", downsampled=True,
         view_sels=[[0, 1], [1, 0]], decentralize=cfg["data"]["decentralize"])
-    pc = torch.from_numpy(np.stack([ds[i][0][0] for i in range(2)]))
+    pcs = torch.from_numpy(np.stack([ds[i][0][0] for i in range(BATCH)]))
+    pc = pcs[:2]
     model.eval()
     with torch.no_grad():
         ref = model(pc, pc)
         got = model.to(DEVICE)(pc.to(DEVICE), pc.to(DEVICE)).cpu()
+        # Where the time of one eval forward (B=8) goes on the device.
+        pcs = pcs.to(DEVICE)
+        profile_steps(f"eval forwards of {osp.basename(cfg_path)} (B={BATCH}"
+                      f" x {N_POINT})", lambda i: model(pcs, pcs))
     if got.shape != (2, N_POINT, cfg["segnet"]["n_slot"]) \
             or not torch.isfinite(got).all():
         raise AssertionError(f"bad mask {tuple(got.shape)}")
     diff = (got - ref).abs().max().item()
+    mean = (got - ref).abs().mean().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    bf16 = cfg.get("compute_dtype") == "bf16"
     log(f"card vs CPU reference, 2 frames x {N_POINT}: max abs mask diff "
-        f"{diff:.3e} (tolerance {MASK_TOL}), argmax agreement {agree:.6f}")
-    if not diff <= MASK_TOL:
-        raise AssertionError(f"mask diff {diff} > {MASK_TOL}")
+        f"{diff:.3e}, mean {mean:.3e}, argmax agreement {agree:.6f} "
+        f"(tolerance: " + (f"mean {BF16_MASK_TOL}, argmax {BF16_ARGMAX})"
+                           if bf16 else f"max {MASK_TOL})"))
+    if not (mean <= BF16_MASK_TOL and agree >= BF16_ARGMAX if bf16
+            else diff <= MASK_TOL):
+        raise AssertionError(f"card and CPU masks differ: max {diff}, mean "
+                             f"{mean}, argmax {agree}")
 
 
 def run_stage(name, fn, argv, per_unit, units_of):
@@ -919,7 +1170,8 @@ def setup_sapien(tmp):
 
     from ogc_tpu_torch.tools import protocol_sapien as proto
 
-    args = types.SimpleNamespace(seed=SEED, n_scenes=SAP_SCENES,
+    args = types.SimpleNamespace(seed=SEED, mode="parity",
+                                 n_scenes=SAP_SCENES,
                                  n_test_scenes=SAP_TEST_SCENES,
                                  ref_scenes=2000, epochs=1)
     root = osp.join(tmp, "MBS_SAPIEN")
@@ -956,6 +1208,7 @@ def run_sapien(tmp):
     from ogc_tpu_torch import oa_icp, test_seg, train_seg, vote
 
     cfgs, paths = setup_sapien(tmp)
+    set_modes(cfgs["woinv"], True)
     n_train, n_val, n_test = sapien_split_sizes(cfgs["woinv"])
     n_val_batch = -(-n_val * 3 // SAP_B)
     total = launch_counts()
@@ -1021,7 +1274,9 @@ def run_sapien(tmp):
     add(launches)
     check_finite("vote", res)
     log(f"vote R2: {res}")
-    missing = [k for k in KERNELS if total[k] == 0]
+    path = (SAP_WOINV_STEP, SAP_FULL_STEP, SAP_VAL, SAP_FWD, SAP_ICP)
+    missing = [k for k in KERNELS
+               if total[k] == 0 and any(per[k] for per in path)]
     if missing:
         raise AssertionError(f"SAPIEN path launched no {missing}")
     log(f"SAPIEN round alternation launches {total}")
@@ -1154,23 +1409,36 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; {smi.stdout.strip()}")
     set_deterministic(torch.device("cuda"))
     t0 = time.perf_counter()
     _build.lib()
     log(f"kernels built from {_build.CSRC_DIR} in {_build.build_seconds:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
-    report, sap_report = check_kernels()
+    report, sap_report, fast_report = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, cfg_path, launches = run_train(tmp)
+        cfgs = setup_data(tmp)
+        # The parity phases pin exact neighbours, as protocol_sapien's
+        # parity mode does with OGC_EXACT_NEIGHBORS=1.
+        cfg, cfg_path = cfgs["parity"]
+        launches = run_train(tmp, cfg, cfg_path, True, STEP_LAUNCHES,
+                             VAL_LAUNCHES)
         log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
         profile_train(cfg, tmp, fixed_batch(cfg, TRAIN_B))
         run_eval(tmp, cfg, cfg_path)
         log(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
         run_kitti_oaicp(cfg_path)
         log(f"KITTI-SF OA-ICP done at {time.perf_counter() - t_start:.1f} s")
+        # Fast mode: train_seg's default neighbour mode (approximate) on
+        # kittisf_unsup_fast.yaml, then test_seg --approx_knn.
+        fcfg, fcfg_path = cfgs["fast"]
+        fast_launches = run_train(tmp, fcfg, fcfg_path, False, FAST_STEP,
+                                  FAST_VAL)
+        profile_train(fcfg, tmp, fixed_batch(fcfg, TRAIN_B))
+        run_eval(tmp, fcfg, fcfg_path, approx=True)
+        log(f"fast phase done at {time.perf_counter() - t_start:.1f} s")
         sap_cfgs, sap_launches = run_sapien(tmp)
         log(f"SAPIEN alternation done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -1183,7 +1451,8 @@ def main():
     log(f"SAPIEN checks done at {time.perf_counter() - t_start:.1f} s")
 
     # name: (source, the TPU kernel it replaces); launches come from the
-    # KITTI-SF train run, and for #7/#8 from the SAPIEN alternation.
+    # KITTI-SF train run, for #7/#8 from the SAPIEN alternation, and for #3
+    # from the fast KITTI-SF train run.
     meta = {
         "fps": ("ogc_tpu_torch/csrc/fps.cu",
                 "ogc_tpu/ops/pallas_kernels.py:24"),
@@ -1197,15 +1466,20 @@ def main():
                           "ogc_tpu/ops/pallas_onehot.py:62"),
         "scatter_onehot": ("ogc_tpu_torch/csrc/onehot.cu",
                            "ogc_tpu/ops/pallas_onehot.py:75"),
+        "knn_blockmin": ("ogc_tpu_torch/csrc/knn_blockmin.cu",
+                         "ogc_tpu/ops/pallas_knn.py:147"),
+        "ball_blockmin": ("ogc_tpu_torch/csrc/knn_blockmin.cu",
+                          "ogc_tpu/ops/pallas_knn.py:147"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
-        sapien = name.endswith("_onehot")
-        entry = (sap_report if sapien else report).entry(name)
+        rep_, counts = ((sap_report, sap_launches) if name.endswith("_onehot")
+                        else (fast_report, fast_launches)
+                        if name.endswith("_blockmin")
+                        else (report, launches))
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep,
-                        "launches": (sap_launches if sapien
-                                     else launches)[name], **entry})
+                        "replaces": rep, "launches": counts[name],
+                        **rep_.entry(name)})
     log(smi.stdout.strip())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """OGC in PyTorch and CUDA: the port of ``ogc_tpu`` to an NVIDIA H100.
 
 Layout mirrors ``ogc_tpu``:
-  ops/      point-cloud primitives; FPS, exact KNN, ball query and the
-            grouping gathers/scatters as hand-written CUDA kernels (csrc/)
-            with plain PyTorch versions beside them
+  ops/      point-cloud primitives; FPS, exact and block-min KNN and ball
+            query, and the grouping gathers/scatters as hand-written CUDA
+            kernels (csrc/) with plain PyTorch versions beside them
   nn/       SharedMLP, PointNet++ SA/FP modules, MaskFormer head
   models/   MaskFormer3D segnet with the per-dataset ARCHS table
   losses/   the unsupervised OGC loss

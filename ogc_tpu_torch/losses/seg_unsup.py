@@ -7,12 +7,13 @@ after Hungarian matching by IoU, plus the entropy and rank monitors
 (reference losses/seg_loss_unsup.py).
 
 The smooth terms differentiate through ``ops.group``, whose backward is the
-deterministic scatter-add kernel.  The Hungarian matching runs on the host
-(utils/lap.py, the JAX package's solver step for step).  Options of the JAX
-package that no shipped parity config uses -- the mutual graph,
-``symmetric_grad``, the MXU edge engine, lean/remat smooth backwards, the
-opt-in scatter routing flag and ``monitor_terms: false`` -- are not ported
-(ROADMAP A.13): asking for them raises.
+deterministic scatter-add kernel; with ``symmetric_grad`` (the fast configs)
+their backward is the scatter-free symmetric-graph formula instead.  The
+Hungarian matching runs on the host (utils/lap.py, the JAX package's solver
+step for step).  Options of the JAX package that no shipped config of the
+port's paths uses -- the mutual graph, the MXU edge engine, lean/remat
+smooth backwards, the opt-in scatter routing flag and ``monitor_terms:
+false`` -- are not ported (ROADMAP A.13): asking for them raises.
 """
 
 from __future__ import annotations
@@ -98,24 +99,72 @@ def _neighbor_discrepancy(mask: torch.Tensor, nn_mask: torch.Tensor,
     return _norm(mask[:, :, None, :] - nn_mask, loss_norm).mean()
 
 
+class _SymGradDiscrepancy(torch.autograd.Function):
+    """Neighbour discrepancy with a symmetric-graph gradient
+    (ogc_tpu/losses/seg_unsup.py::_sym_grad_discrepancy).
+
+    The forward is mean_{i,s} ||m_i - m_j(i,s)|| through ``ops.group``.  The
+    backward assumes j in N(i) <=> i in N(j), under which the scatter-add
+    transpose of the neighbour gather equals the gather itself:
+    grad_i = 2 g / (B N S) sum_s d||.||(m_i - m_j(i,s)), a gather and no
+    scatter.  The KNN and ball graphs are only roughly symmetric, so this
+    is the fast configs' deliberate deviation from the exact gradient.
+    """
+
+    @staticmethod
+    def _diff(mask, idx):
+        return mask[:, :, None, :] - ops.group(mask, idx)
+
+    @staticmethod
+    def forward(ctx, mask, idx, loss_norm):
+        ctx.save_for_backward(mask, idx)
+        ctx.loss_norm = loss_norm
+        diff = _SymGradDiscrepancy._diff(mask, idx)
+        if loss_norm == 1:
+            return diff.abs().sum(-1).mean()
+        return torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-24)).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, idx = ctx.saved_tensors
+        with torch.no_grad():
+            diff = _SymGradDiscrepancy._diff(mask, idx)
+            if ctx.loss_norm == 1:
+                d = torch.sign(diff)
+            else:
+                d = diff / torch.sqrt(torch.clamp(
+                    (diff * diff).sum(-1, keepdim=True), min=1e-24))
+            B, N, S, _ = diff.shape
+            return (2.0 * g / (B * N * S)) * d.sum(2), None, None
+
+
+def _smooth_term(mask: torch.Tensor, idx: torch.Tensor, loss_norm: int,
+                 symmetric_grad: bool) -> torch.Tensor:
+    if symmetric_grad:
+        return _SymGradDiscrepancy.apply(mask, idx, loss_norm)
+    return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
+
+
 def knn_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
-                    radius: float, loss_norm: int = 1) -> torch.Tensor:
+                    radius: float, loss_norm: int = 1,
+                    symmetric_grad: bool = False) -> torch.Tensor:
     """KNN smoothness with the radius clamp (reference KnnLoss,
     losses/seg_loss_unsup.py:101-129): neighbours farther than ``radius``
     are replaced by the nearest one."""
     with torch.no_grad():
         dist, idx = ops.knn(k, pc, pc)
         idx = torch.where(dist > radius, idx[..., :1], idx)
-    return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
+    return _smooth_term(mask, idx, loss_norm, symmetric_grad)
 
 
 def ball_q_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
-                       radius: float, loss_norm: int = 1) -> torch.Tensor:
+                       radius: float, loss_norm: int = 1,
+                       symmetric_grad: bool = False) -> torch.Tensor:
     """Ball-query smoothness (reference BallQLoss,
     losses/seg_loss_unsup.py:132-158)."""
     with torch.no_grad():
         idx = ops.ball_query(radius, k, pc, pc)
-    return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
+    return _smooth_term(mask, idx, loss_norm, symmetric_grad)
 
 
 def interpolate_mask_by_flow(pc1: torch.Tensor, pc2: torch.Tensor,
@@ -212,13 +261,14 @@ class OGCLossConfig:
     ball_q_radius: float = 0.2
     ball_q_loss_norm: int = 1
     invariance_loss_norm: int = 2
+    # Scatter-free symmetric-graph smooth gradient (_SymGradDiscrepancy).
+    symmetric_smooth_grad: bool = False
 
     # Keys of the JAX package's extensions, with the only value the port
     # implements: smooth_loss_params keys, and the loss block's
     # monitor_terms (the port always computes the entropy/rank monitors).
-    _UNPORTED = {"graph": "reference", "symmetric_grad": False,
-                 "edge_engine": "gather", "ref_bwd": "autodiff",
-                 "scatter_kernel": False}
+    _UNPORTED = {"graph": "reference", "edge_engine": "gather",
+                 "ref_bwd": "autodiff", "scatter_kernel": False}
 
     @classmethod
     def from_dict(cls, loss_cfg: dict) -> "OGCLossConfig":
@@ -250,6 +300,7 @@ class OGCLossConfig:
             ball_q_radius=bp.get("radius", 0.2),
             ball_q_loss_norm=bp.get("loss_norm", 1),
             invariance_loss_norm=i.get("loss_norm", 2),
+            symmetric_smooth_grad=s.get("symmetric_grad", False),
         )
 
 
@@ -258,9 +309,9 @@ def smooth_loss(pc: torch.Tensor, mask: torch.Tensor,
     """w_knn * KnnLoss + w_ball_q * BallQLoss (reference SmoothLoss,
     losses/seg_loss_unsup.py:161-180)."""
     l_knn = knn_smooth_loss(pc, mask, cfg.knn_k, cfg.knn_radius,
-                            cfg.knn_loss_norm)
+                            cfg.knn_loss_norm, cfg.symmetric_smooth_grad)
     l_bq = ball_q_smooth_loss(pc, mask, cfg.ball_q_k, cfg.ball_q_radius,
-                              cfg.ball_q_loss_norm)
+                              cfg.ball_q_loss_norm, cfg.symmetric_smooth_grad)
     return cfg.smooth_w_knn * l_knn + cfg.smooth_w_ball_q * l_bq
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ogc_tpu_torch import ops
 from ogc_tpu_torch.nn.layers import Conv1x1, PointwiseConv
 from ogc_tpu_torch.nn.pointnet2 import FPModule, SAModuleMSG
 from ogc_tpu_torch.nn.transformer import MaskFormerHead, MultiheadAttention
@@ -148,9 +149,13 @@ class MaskFormer3D(nn.Module):
                 point_feats: torch.Tensor) -> torch.Tensor:
         """:param pc: (B, N, 3); :param point_feats: (B, N, 3).
         :return: mask (B, N, K)."""
+        # From stage 1 on, approximate mode samples a prefix of the previous
+        # stage's FPS output (nested FPS, ogc_tpu/models/segnet.py:110-127).
+        nested = not ops.exact_neighbors()
         l_pc, l_feats = [pc], [point_feats]
-        for sa in self.SA_modules:
-            new_xyz, new_feats = sa(l_pc[-1], l_feats[-1])
+        for si, sa in enumerate(self.SA_modules):
+            new_xyz, new_feats = sa(l_pc[-1], l_feats[-1],
+                                    fps_nested=nested and si > 0)
             l_pc.append(new_xyz)
             l_feats.append(new_feats)
         # Decoder, deepest level first (segnet_sapien.py:67-70).
@@ -158,7 +163,9 @@ class MaskFormer3D(nn.Module):
         for i in range(-1, -(n_fp + 1), -1):
             l_feats[i - 1] = self.FP_modules[n_fp + i](
                 l_pc[i - 1], l_pc[i], l_feats[i - 1], l_feats[i])
-        slot = self.object_mlp(self.MF_head(l_feats[-1], l_pc[-1]))
+        # The head runs in float32 whatever the compute dtype; object_mlp
+        # follows it, as in the JAX package.
+        slot = self.object_mlp(self.MF_head(l_feats[-1].float(), l_pc[-1]))
         feats = F.normalize(l_feats[0].float(), dim=-1, eps=1e-12)
         slot = F.normalize(slot.float(), dim=-1, eps=1e-12)
         logits = torch.einsum("bnd,bkd->bnk", feats, slot) / 0.05

@@ -6,6 +6,12 @@ linear map over the trailing channel axis; SharedMLP stacks conv + GroupNorm
 (``layer{j}.conv.weight``, ``layer{j}.normlayer.gn.weight``), and conv
 weights keep the reference's (C_out, C_in, 1[, 1]) shape, so reference
 checkpoints load unchanged.
+
+Compute dtype (ogc_tpu/nn/layers.py:23-36): None is float32; bfloat16 is
+the fast mode, set from the config by utils/config.py.  In bf16 a Conv1x1
+runs its product in bf16 (parameters stay float32 and are cast), and
+GroupNorm takes its statistics in float32 from per-channel sums and
+normalises in bf16 (the JAX package's GroupStatsNorm, same parameters).
 """
 
 from __future__ import annotations
@@ -15,6 +21,19 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_COMPUTE_DTYPE: Optional[torch.dtype] = None  # None = float32
+
+
+def set_compute_dtype(dtype: Optional[torch.dtype]) -> None:
+    """Set the activation dtype of the pointwise stacks (None or
+    torch.bfloat16)."""
+    global _COMPUTE_DTYPE
+    _COMPUTE_DTYPE = dtype
+
+
+def compute_dtype() -> Optional[torch.dtype]:
+    return _COMPUTE_DTYPE
 
 
 class GroupNorm(nn.Module):
@@ -33,10 +52,28 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[0], x.shape[-1]
+        if _COMPUTE_DTYPE is not None:
+            return self._stats_norm(x)
         xg = x.reshape(B, -1, self.num_groups, C // self.num_groups)
         var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return y * self.weight + self.bias
+
+    def _stats_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """GroupStatsNorm (ogc_tpu/nn/layers.py:80-137): group mean and
+        E[x^2] - mean^2 in float32 from per-channel sums, applied in the
+        activation's dtype."""
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        xf = x.float().reshape(B, -1, C)
+        n = xf.shape[1] * (C // G)
+        gmean = xf.sum(1).reshape(B, G, -1).sum(-1) / n
+        gms = (xf * xf).sum(1).reshape(B, G, -1).sum(-1) / n
+        k = torch.rsqrt(torch.clamp(gms - gmean ** 2, min=0.0) + self.eps)
+        shape = (B,) + (1,) * (x.dim() - 2) + (C,)
+        kc = k.repeat_interleave(C // G, -1).reshape(shape).to(x.dtype)
+        mc = gmean.repeat_interleave(C // G, -1).reshape(shape).to(x.dtype)
+        y = (x - mc) * kc
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class Conv1x1(nn.Module):
@@ -55,7 +92,11 @@ class Conv1x1(nn.Module):
         nn.init.kaiming_normal_(self.weight, mode="fan_in", nonlinearity="relu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        w, b = self.weight.flatten(1), self.bias
+        if _COMPUTE_DTYPE is not None:
+            x, w = x.to(_COMPUTE_DTYPE), w.to(_COMPUTE_DTYPE)
+            b = None if b is None else b.to(_COMPUTE_DTYPE)
+        return F.linear(x, w, b)
 
 
 class PointwiseConv(nn.Module):
@@ -74,7 +115,10 @@ class PointwiseConv(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        return self.post(self.conv(x))
+
+    def post(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm and activation after the product."""
         if self.normlayer is not None:
             x = self.normlayer["gn"](x)
         return F.relu(x) if self.act else x
@@ -96,7 +140,11 @@ class SharedMLP(nn.Module):
             in_channels = c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for j in range(self.n_layers):
+        return self.rest(self.layer0(x))
+
+    def rest(self, x: torch.Tensor) -> torch.Tensor:
+        """Every layer after the first."""
+        for j in range(1, self.n_layers):
             x = getattr(self, f"layer{j}")(x)
         return x
 

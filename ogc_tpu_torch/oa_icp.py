@@ -10,9 +10,9 @@ Weights are read from ``<save_path>_R<round>/best.pth.tar``; flow
 predictions from ``flow_preds/flowstep3d`` (round 1) or
 ``flow_preds/flowstep3d_R<round-1>``.  ``--save`` writes
 ``flow_preds/<saveflow_path>_R<round>`` (plus its ``.json`` view list on
-SAPIEN) in the layout the datasets of both packages read.  Runs float32 with
-TF32 off and exact neighbours; ``--approx_knn`` and ``--dp`` other than 1 are
-not ported yet and raise.
+SAPIEN) in the layout the datasets of both packages read.  Runs with TF32
+off and exact neighbours unless ``--approx_knn``; ``--dp`` other than 1 is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def parse_args(argv: Optional[List[str]] = None):
                         help="Save updated flow predictions")
     parser.add_argument("--saveflow_path", type=str, default=None)
     parser.add_argument("--approx_knn", default=False, action="store_true",
-                        help="Approximate neighbour search (not ported yet)")
+                        help="Approximate neighbour search (block-min, nested FPS)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the refinement runs on")
     args = parser.parse_args(argv)

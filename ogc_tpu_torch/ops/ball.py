@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ogc_tpu_torch.ops import _build
+from ogc_tpu_torch.ops.knn import check_clouds, pair_d2
 
 
 def radius_sq(radius: float) -> float:
@@ -50,12 +51,7 @@ def ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     k_eff = min(nsample, N)
     cands = []
     for c in new_xyz.float().split(chunk, dim=1):
-        dx = p[:, None, :, 0] - c[:, :, None, 0]
-        dy = p[:, None, :, 1] - c[:, :, None, 1]
-        dz = p[:, None, :, 2] - c[:, :, None, 2]
-        d2 = (dx * dx + dy * dy) + dz * dz  # (B, chunk, N)
-        del dx, dy, dz
-        key = torch.where(d2 < r2, ids, N + ids)
+        key = torch.where(pair_d2(c, p) < r2, ids, N + ids)
         cands.append(torch.topk(key, k_eff, dim=-1, largest=False,
                                 sorted=True).values)
     cand = torch.cat(cands, 1)
@@ -71,17 +67,9 @@ def ball_query_exact(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     centre, filled as the reference fills them: (B, M, nsample) int32."""
     if xyz.device.type == "cpu" and new_xyz.device.type == "cpu":
         return ball_query_plain(xyz, new_xyz, radius, nsample)
-    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
-        if t.device.type != "cuda":
-            raise ValueError(f"ball_query_exact: {name} on {t.device}")
-        if t.dim() != 3 or t.shape[-1] != 3 or t.dtype != torch.float32:
-            raise ValueError(f"ball_query_exact: want (B, *, 3) float32 "
-                             f"{name}, got {tuple(t.shape)} {t.dtype}")
+    check_clouds("ball_query_exact", xyz, new_xyz, "xyz", "new_xyz")
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
-    if new_xyz.shape[0] != B or xyz.device != new_xyz.device:
-        raise ValueError("ball_query_exact: xyz and new_xyz disagree on "
-                         "batch/device")
     if nsample < 1:
         raise ValueError(f"ball_query_exact: nsample={nsample} must be >= 1")
     xyz = xyz.contiguous()

@@ -18,6 +18,31 @@ from ogc_tpu_torch.ops import _build
 MAX_K = 64
 
 
+def pair_d2(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Direct-form d2 of every (query, point) pair in float32, as the
+    kernels compute it: points minus query per coordinate, then
+    ((dx*dx + dy*dy) + dz*dz).  (B, N, 3) x (B, M, 3) -> (B, N, M)."""
+    q, p = query.float(), points.float()
+    dx = p[:, None, :, 0] - q[:, :, None, 0]
+    dy = p[:, None, :, 1] - q[:, :, None, 1]
+    dz = p[:, None, :, 2] - q[:, :, None, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def check_clouds(fn: str, a: torch.Tensor, b: torch.Tensor, an: str,
+                 bn: str) -> None:
+    """Raise unless ``a`` and ``b`` are (B, *, 3) float32 CUDA tensors of
+    one batch size on one device (the kernels' inputs)."""
+    for name, t in ((an, a), (bn, b)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} on {t.device}")
+        if t.dim() != 3 or t.shape[-1] != 3 or t.dtype != torch.float32:
+            raise ValueError(f"{fn}: want (B, *, 3) float32 {name}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if a.shape[0] != b.shape[0] or a.device != b.device:
+        raise ValueError(f"{fn}: {an} and {bn} disagree on batch/device")
+
+
 def knn_exact_plain(query: torch.Tensor, points: torch.Tensor,
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Direct-form d2, stable sort (ties to the lower index), first k.
@@ -25,14 +50,7 @@ def knn_exact_plain(query: torch.Tensor, points: torch.Tensor,
     :param query: (B, N, 3); :param points: (B, M, 3); requires k <= M.
     :return: (dist (B, N, k) float32 = sqrt(max(d2, 0)), idx (B, N, k) int32).
     """
-    q = query.float()
-    p = points.float()
-    dx = p[:, None, :, 0] - q[:, :, None, 0]
-    dy = p[:, None, :, 1] - q[:, :, None, 1]
-    dz = p[:, None, :, 2] - q[:, :, None, 2]
-    d2 = (dx * dx + dy * dy) + dz * dz  # (B, N, M)
-    del dx, dy, dz
-    d2s, idx = torch.sort(d2, dim=-1, stable=True)
+    d2s, idx = torch.sort(pair_d2(query, points), dim=-1, stable=True)
     return (torch.sqrt(torch.clamp(d2s[..., :k], min=0.0)),
             idx[..., :k].to(torch.int32))
 
@@ -42,16 +60,9 @@ def knn_exact(query: torch.Tensor, points: torch.Tensor,
     """Exact KNN, ascending d2, ties to the lower index; requires k <= M."""
     if query.device.type == "cpu" and points.device.type == "cpu":
         return knn_exact_plain(query, points, k)
-    for name, t in (("query", query), ("points", points)):
-        if t.device.type != "cuda":
-            raise ValueError(f"knn_exact: {name} on {t.device}")
-        if t.dim() != 3 or t.shape[-1] != 3 or t.dtype != torch.float32:
-            raise ValueError(f"knn_exact: want (B, *, 3) float32 {name}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    check_clouds("knn_exact", query, points, "query", "points")
     B, N, _ = query.shape
     M = points.shape[1]
-    if points.shape[0] != B or query.device != points.device:
-        raise ValueError("knn_exact: query and points disagree on batch/device")
     if not 1 <= k <= min(M, MAX_K):
         raise ValueError(f"knn_exact: k={k} must be in 1..min(M={M}, {MAX_K})")
     query = query.contiguous()

@@ -6,8 +6,9 @@ Usage (the flags of the repo's test_seg.py, minus --dp and --visualize):
         [--test_batch_size 8] [--device cuda] [--save]
 
 Weights are read from ``<save_path>[_R<round>]/best.pth.tar`` as
-``{"model_state": state_dict}``.  Neighbour search is exact (parity mode);
-``--approx_knn`` is not ported yet and raises.
+``{"model_state": state_dict}``.  Neighbour search is exact unless
+``--approx_knn`` asks for the approximate mode (block-min search, nested
+FPS), as in the JAX package's test_seg.py.
 """
 
 from __future__ import annotations
@@ -68,8 +69,9 @@ def build_test_dataset(args, predflow_path: Optional[str] = None):
 
 def load_segnet(args) -> Tuple[MaskFormer3D, torch.device]:
     """The config's MaskFormer3D with the weights of ``args.round``, on
-    ``args.device`` in eval mode; sets exact neighbours and full float32
-    for the evaluating entry points (test_seg, oa_icp, vote)."""
+    ``args.device`` in eval mode; sets the neighbour mode (exact unless
+    ``--approx_knn``) and turns TF32 off for the evaluating entry points
+    (test_seg, oa_icp, vote)."""
     ops.set_exact_neighbors(not args.approx_knn)
     # Full float32 matmuls and convolutions (TF32 keeps ~3 digits).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -147,7 +149,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--save", default=False, action="store_true",
                         help="Save segmentation predictions")
     parser.add_argument("--approx_knn", default=False, action="store_true",
-                        help="Approximate neighbour search (not ported yet)")
+                        help="Approximate neighbour search (block-min, nested FPS)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model runs on")
     return parser.parse_args(argv)

@@ -1,6 +1,11 @@
 """The reference-length SAPIEN protocol through the PyTorch port's CLIs, on
-synthetic coherent scenes (port of tools/protocol_sapien.py, parity mode:
-float32, exact neighbours).
+synthetic coherent scenes (port of tools/protocol_sapien.py).
+
+Modes, as the JAX runner's: ``default`` trains with the training defaults
+(float32, approximate neighbours); ``fast`` with bf16 and approximate
+neighbours; ``parity`` with float32 and exact neighbours
+(``OGC_EXACT_NEIGHBORS=1`` in the train processes).  The evaluating CLIs
+keep their exact default in every mode.
 
 The reference's R-round recipe (reference README.md:215-222):
 
@@ -17,7 +22,8 @@ config/seg/sapien/sapien_unsup*.yaml; the sample-denominated ones
 ref_scenes so each fires at the same fraction of training.  Round-1
 "flowstep3d" predictions are the ground-truth flows.
 
-    python -m ogc_tpu_torch.tools.protocol_sapien --seed 0 [--device cuda]
+    python -m ogc_tpu_torch.tools.protocol_sapien --seed 0 \
+        [--mode default|fast|parity] [--device cuda]
 
 Writes <out>/summary.json: final metrics of test_seg and vote, the OA-ICP
 flow reports, per-epoch trajectories and stage wall times.
@@ -90,6 +96,8 @@ def build_cfg(args, root, save_root, woinv: bool):
             "invariance_loss_params": {"loss_norm": 2},
         },
     }
+    if args.mode == "fast":
+        cfg["compute_dtype"] = "bf16"
     return cfg, {"decay_step": decay_step, "smooth_start": smooth_start,
                  "n_pairs": args.n_scenes * 3}
 
@@ -149,6 +157,10 @@ def parse_metrics(stdout):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", choices=("default", "fast", "parity"),
+                    default="default",
+                    help="default: approx+f32 (training defaults); fast: "
+                         "bf16+approx; parity: f32+exact neighbours")
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--n_scenes", type=int, default=120)
@@ -159,7 +171,7 @@ def main(argv=None):
     ap.add_argument("--keep_data", action="store_true")
     args = ap.parse_args(argv)
 
-    tag = f"s{args.seed}_parity_reference"
+    tag = f"s{args.seed}_{args.mode}_reference"
     out = args.out or osp.join(tempfile.gettempdir(),
                                f"ogc_torch_protocol_{tag}")
     os.makedirs(out, exist_ok=True)
@@ -178,13 +190,13 @@ def main(argv=None):
 
     stages = []
 
-    def run(cli, *flags):
+    def run(cli, *flags, env=None):
         cmd = [sys.executable, "-m", f"ogc_tpu_torch.{cli}", *flags,
                "--device", args.device]
         print("::", " ".join(cmd[1:]), flush=True)
         ts = time.time()
         r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                           timeout=14000)
+                           timeout=14000, env={**os.environ, **(env or {})})
         stages.append({"cmd": " ".join(cmd[2:]), "s": time.time() - ts})
         sys.stdout.write(r.stdout[-1800:])
         sys.stdout.flush()
@@ -193,13 +205,16 @@ def main(argv=None):
             raise SystemExit(f"FAILED: {' '.join(cmd)}")
         return r.stdout
 
+    # Training-mode env: parity trains with exact neighbour search.
+    tr_env = {"OGC_EXACT_NEIGHBORS": "1"} if args.mode == "parity" else {}
+
     summary = {"tag": tag, "args": vars(args), "scales": scales,
                "rounds": {}}
     for r in range(1, args.rounds + 1):
         last = r == args.rounds
         name = "full" if last else "woinv"
         cfg = cfg_f if last else cfg_w
-        run("train_seg", paths[name], "--round", str(r))
+        run("train_seg", paths[name], "--round", str(r), env=tr_env)
         summary["rounds"][r] = {"train_traj": read_trajectory(
             cfg["save_path"] + f"_R{r}")}
         if not last:

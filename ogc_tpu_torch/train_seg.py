@@ -6,10 +6,14 @@ Usage (the flags of the repo's train_seg.py):
 
 Writes ``<save_path>_R<round>/{current,best}.pth.tar`` (full train state;
 ``model_state`` is what ``ogc_tpu_torch.test_seg`` reads) and
-``<save_path>_R<round>/log/scalars.jsonl``.  Runs float32 with exact
-neighbours.  On CUDA it turns on ``torch.use_deterministic_algorithms``
-(with the cuBLAS workspace setting that mode requires) and turns TF32 off,
-so two runs from one seed give the same bits.
+``<save_path>_R<round>/log/scalars.jsonl``.  Neighbour search follows
+``OGC_EXACT_NEIGHBORS``, as in the JAX package's train_seg.py: approximate
+(block-min search and nested FPS) by default, exact with
+``OGC_EXACT_NEIGHBORS=1``.  The config's ``compute_dtype`` (or
+``OGC_COMPUTE_DTYPE``) picks float32 or bf16.  On CUDA it turns on
+``torch.use_deterministic_algorithms`` (with the cuBLAS workspace setting
+that mode requires) and turns TF32 off, so two runs from one seed give the
+same bits.
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ Weights are read from ``<save_path>[_R<round>]/best.pth.tar``.  Every batch
 holds whole scenes (test_batch_size a multiple of the 4 frames); the
 segnet runs on all their frames in one forward, then the masks are voted
 scene by scene, all scenes of the batch at once.  Prints AP@50,
-PQ/F1/Pre/Rec@50 and the per-scan IoU/RI.  Runs float32 with TF32 off and
-exact neighbours; ``--approx_knn`` and ``--dp`` other than 1 raise.
+PQ/F1/Pre/Rec@50 and the per-scan IoU/RI.  Runs with TF32 off and exact
+neighbours unless ``--approx_knn``; ``--dp`` other than 1 raises.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--use_gt_flow", default=False, action="store_true")
     parser.add_argument("--save", default=False, action="store_true")
     parser.add_argument("--approx_knn", default=False, action="store_true",
-                        help="Approximate neighbour search (not ported yet)")
+                        help="Approximate neighbour search (block-min, nested FPS)")
     parser.add_argument("--dp", type=int, default=1,
                         help="Data-parallel devices (only 1 is ported)")
     parser.add_argument("--device", type=str, default="cuda",

@@ -115,15 +115,30 @@ def test_importing_the_port_leaves_jax_out(runs):
 
 
 def test_approx_knn_is_refused(runs):
-    """Approximate mode also changes the model (nested FPS); until it is
-    ported the CLI must refuse it rather than run exact."""
+    """--approx_knn, which the port refused when this test was named, now
+    runs the approximate mode (nested FPS; these 64-point clouds are below
+    the block-min gate), as the JAX CLI does, and gives the JAX CLI's
+    metrics under the same flag within 1e-3."""
     cfg_path = runs[3]
-    r = subprocess.run(
-        [sys.executable, "-m", "ogc_tpu_torch.test_seg", cfg_path,
-         "--approx_knn", "--device", "cpu"], cwd=REPO, capture_output=True,
-        text=True, timeout=300)
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "queue B" in r.stderr
+    flags = [cfg_path, "--split", "test", "--round", "1",
+             "--test_batch_size", "4", "--approx_knn"]
+    jax_run = subprocess.Popen(
+        [sys.executable, "test_seg.py", *flags], cwd=REPO,
+        env=dict(os.environ, OGC_PLATFORM="cpu"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "ogc_tpu_torch.test_seg", *flags,
+             "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        jax_out, jax_err = jax_run.communicate(timeout=600)
+    finally:
+        jax_run.kill()
+    assert jax_run.returncode == 0, jax_err[-3000:]
+    assert r.returncode == 0, r.stderr[-3000:]
+    want, got = _metrics(jax_out), _metrics(r.stdout)
+    for m in METRICS:
+        assert abs(got[m] - want[m]) <= 1e-3, (m, got, want)
 
 
 def test_port_sources_import_no_jax_and_no_ogc_tpu():

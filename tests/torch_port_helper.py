@@ -8,8 +8,12 @@ runs the torch side here in a subprocess, and reads the outputs back:
     python -m tests.torch_port_helper <case> <in.npz> <out.npz> [<case> ...]
 
 Every case also reports the kernel launch counters (FPS, exact KNN, ball
-query, scatter-add; and the small-source gather and scatter as
-``launches_onehot``), which must stay at 0 on CPU tensors.
+query, scatter-add; the small-source gather and scatter as
+``launches_onehot``; the block-min KNN and ball query as
+``launches_blockmin``), which must stay at 0 on CPU tensors.  The torch side
+runs with exact neighbours (``OGC_EXACT_NEIGHBORS=1``) unless a test asks
+for the environment without it; a case's ``compute_dtype: bf16`` runs it in
+the bf16 compute mode.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import json
 import os
 import subprocess
 import sys
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,12 +47,16 @@ def pack(path: str, arrays: Dict[str, np.ndarray], cfg=None,
     return path
 
 
-def run_torch(cases: List[Tuple[str, str, str]], timeout: float = 300.0
-              ) -> List[Dict[str, np.ndarray]]:
+def run_torch(cases: List[Tuple[str, str, str]], timeout: float = 300.0,
+              exact: bool = True) -> List[Dict[str, np.ndarray]]:
     """Run (case, in.npz, out.npz) triples in ONE torch subprocess and load
-    the outputs."""
+    the outputs.  ``exact=False`` runs it with no ``OGC_EXACT_NEIGHBORS``
+    (the port's default: approximate)."""
     argv = [a for c in cases for a in c]
     env = dict(os.environ, OMP_NUM_THREADS="2")
+    env.pop("OGC_EXACT_NEIGHBORS", None)
+    if exact:
+        env["OGC_EXACT_NEIGHBORS"] = "1"
     r = subprocess.run(
         [sys.executable, "-m", "tests.torch_port_helper", *argv],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
@@ -350,6 +358,87 @@ def _case_adam(x, cfg, state):
     return out
 
 
+def _case_blockmin(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops import core
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                knn_blockmin)
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = {}
+    for name, (k, recall) in cfg["knn"].items():
+        d, i = knn_blockmin(t[name + "/q"], t[name + "/p"], k, recall)
+        out[name + "/dist"], out[name + "/idx"] = d.numpy(), i.numpy()
+    for name, (radius, ns) in cfg["ball"].items():
+        out[name] = ball_query_blockmin(t[name + "/xyz"], t[name + "/centres"],
+                                        radius, ns).numpy()
+    # Which route ops.knn / ops.ball_query take in approximate mode.
+    used = []
+    core.knn_blockmin = lambda *a: used.append(1) or knn_blockmin(*a)
+    core.ball_query_blockmin = (lambda *a: used.append(1)
+                                or ball_query_blockmin(*a))
+    gates = []
+    for fn, grid in ((lambda m, k: ops.knn(k, torch.zeros(1, 1, 3),
+                                            torch.rand(1, m, 3)),
+                       cfg["gate_knn"]),
+                      (lambda n, ns: ops.ball_query(0.5, ns,
+                                                    torch.rand(1, n, 3),
+                                                    torch.zeros(1, 1, 3)),
+                       cfg["gate_ball"])):
+        for m, k in grid:
+            used.clear()
+            fn(m, k)
+            gates.append(bool(used))
+    core.knn_blockmin, core.ball_query_blockmin = (knn_blockmin,
+                                                   ball_query_blockmin)
+    out["gates"] = np.array(gates)
+    out["exact_mode"] = np.array(ops.exact_neighbors())
+    return out
+
+
+def _case_symgrad(x, cfg, state):
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import _SymGradDiscrepancy
+
+    out = {}
+    for norm in cfg["loss_norms"]:
+        mask = torch.from_numpy(x["mask"]).requires_grad_(True)
+        loss = _SymGradDiscrepancy.apply(mask, torch.from_numpy(x["idx"]),
+                                         norm)
+        (loss * float(x["g"])).backward()
+        out[f"loss{norm}"] = loss.detach().numpy()
+        out[f"grad{norm}"] = mask.grad.numpy()
+    return out
+
+
+def _case_train_mode(x, cfg, state):
+    """``train_seg.main`` in this process, counting the model's forwards
+    and the FPS calls they make."""
+    from ogc_tpu_torch import ops, train_seg
+    from ogc_tpu_torch.models.segnet import MaskFormer3D
+    from ogc_tpu_torch.ops import fps as fps_mod
+
+    counts = {"fps": 0, "forward": 0}
+    plain, forward = fps_mod.fps_plain, MaskFormer3D.forward
+
+    def count_fps(*a):
+        counts["fps"] += 1
+        return plain(*a)
+
+    def count_forward(self, *a):
+        counts["forward"] += 1
+        return forward(self, *a)
+
+    fps_mod.fps_plain, MaskFormer3D.forward = count_fps, count_forward
+    train_seg.main(cfg["argv"])
+    return {"fps": np.array(counts["fps"]),
+            "forward": np.array(counts["forward"]),
+            "exact_mode": np.array(ops.exact_neighbors())}
+
+
 CASES = {
     "kernels": _case_kernels,
     "core": _case_core,
@@ -366,6 +455,9 @@ CASES = {
     "ogc_loss": _case_ogc_loss,
     "train_steps": _case_train_steps,
     "adam": _case_adam,
+    "blockmin": _case_blockmin,
+    "symgrad": _case_symgrad,
+    "train_mode": _case_train_mode,
 }
 
 
@@ -379,10 +471,15 @@ def main(argv: List[str]) -> None:
     for i in range(0, len(argv), 3):
         case, in_path, out_path = argv[i:i + 3]
         x, cfg, state = _load(in_path)
+        from ogc_tpu_torch.utils.config import apply_compute_dtype
+
+        apply_compute_dtype({"compute_dtype": cfg.pop("compute_dtype", None)})
         out = CASES[case](x, cfg, state)
         from ogc_tpu_torch.ops.ball import ball_query_exact
         from ogc_tpu_torch.ops.fps import fps
         from ogc_tpu_torch.ops.knn import knn_exact
+        from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                    knn_blockmin)
         from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                               scatter_add_rows_onehot)
         from ogc_tpu_torch.ops.scatter import scatter_add_rows
@@ -392,6 +489,8 @@ def main(argv: List[str]) -> None:
                                     scatter_add_rows.launches])
         out["launches_onehot"] = np.array([gather_rows_onehot.launches,
                                            scatter_add_rows_onehot.launches])
+        out["launches_blockmin"] = np.array([knn_blockmin.launches,
+                                             ball_query_blockmin.launches])
         np.savez(out_path, **out)
 
 
