@@ -71,6 +71,24 @@
    voted masks card vs CPU (REFINE_TOL, VOTE_TOL; the voting also against
    float64 on the CPU, VOTE_F64_TOL, VOTE_MASK_TOL), and a profile as in
    phase 5.
+10. KITTI-SF flow forward (a main path of its own: FlowStep3D inference at
+   the JAX package's bench shape, kitti arch, B=8 x 8192, 5 iterations,
+   random seeded weights, synthetic scenes), exact and then approximate
+   (block-min search, nested FPS, frozen self-KNN), each with the gates
+   OGC_PALLAS_POOL and OGC_PALLAS_EXACT_PRUNE at the JAX defaults, then
+   (exact only) the pool gate alone, then both at on / knn: launches
+   against the derived counts, flows bit-equal between the gate settings, the A/B of the median forward, peak memory,
+   profiles as in phase 5, and one scene pair (2 iterations) on the card
+   against the CPU within FLOW_TOL.
+11. test_flow on SAPIEN (B=48, 4 iterations, --save, pool gate on) over
+   the synthetic test scenes; the saved flows, read back through
+   SapienDataset(predflow_path="flowstep3d"), equal the same forward.
+The kernel phase also holds the row-group pool (#12) at every pool shape of
+phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group
+add, ReLU on and off) and the bound-pruned exact KNN (#4) at every shape
+its gate admits on the flow path and the seg parity path, a ragged M and
+k = 64 over 32-point blocks, bit-equal to their plain versions and #4 to
+#2.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -138,7 +156,8 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 #     most 1024 points with at most 16 channels (ops/onehot.py's gate).
 # And of one val batch (8 clouds forward, loss on 2 frames, no backward).
 KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
-           "scatter_onehot", "knn_blockmin", "ball_blockmin")
+           "scatter_onehot", "knn_blockmin", "ball_blockmin", "pool",
+           "knn_exact_pruned")
 
 
 def launch_counts(**kw):
@@ -217,6 +236,53 @@ REFINE_TOL, VOTE_TOL, VOTE_F64_TOL, VOTE_ARGMAX = 1e-4, 5e-3, 2.5e-3, 0.999
 # float64 against float64 8.9e-7; VOTE_F64_TOL and VOTE_MASK_TOL leave
 # about 1.7x and 11x room, and VOTE_TOL = 2 * VOTE_F64_TOL.
 VOTE_MASK_TOL = 1e-5
+# FlowStep3D inference.  KITTI-SF flow forward at the JAX package's bench
+# shape (bench.py:115-142; config/flow/kittisf/kittisf_unsup.yaml): kitti
+# arch, 8192 points, loc_flow_nn 16, loc_flow_rad 1.5, k_decay 0.5 (the test
+# value), B=8, 5 iterations, eval, random seeded weights.  Both clouds are
+# encoded in one 2B batch; the refinement re-encodes the warped cloud at B.
+FLOW_B, FLOW_ITERS, FLOW_REPS = 8, 5, 5
+FLOW_KW = dict(npoint=N_POINT, arch="kitti", loc_flow_nn=16, loc_flow_rad=1.5,
+               k_decay_fact=0.5)
+# Card against CPU: B=1, 2 iterations (the recurrence is chaotic past ~2,
+# PARITY.md:238-241), within FLOW_TOL of the flow's scale (max |flow|, at
+# least 1): the port's CPU suite holds the same bound against the JAX
+# package.
+FLOW_CPU_ITERS, FLOW_TOL = 2, 2e-5
+# Derived launches of one KITTI-SF flow forward (exact mode, gates off):
+#   fps 5         enc_loc SA1 and SA2, the three enc_glob stages (2B clouds
+#                 in one launch each); the corr stages and every module on
+#                 the 1/4 cloud keep their points, the refinement reuses
+#                 frame 1's FPS indices;
+#   knn_exact 24  12 before the refinement (enc_loc 2, enc_glob 3, corr SA 2,
+#                 the 3 corr FP three_nn, the shared 1/4-cloud table, the
+#                 upsample stencil) and 3 per refinement iteration (enc_loc
+#                 SA1 and SA2 of the warped cloud, the FlowEmbedding KNN);
+#   gather_onehot 1  the first corr FP's three_interpolate of the 3-channel
+#                 flow from 256 points (ops/onehot.py's gate).
+# With OGC_PALLAS_EXACT_PRUNE=knn, the enc_loc searches (4096 x 8192 and
+# 2048 x 4096, k 32: M >= 4096, N >= 1024) take #4 instead of #2, each
+# after one #3 pre-pass: 2 + 2 x 4 = 10.  With OGC_PALLAS_POOL=on every
+# pool whose S is a power of two launches #12 (flow_pool_sites).
+FLOW_EXACT = launch_counts(fps=5, knn_exact=24, gather_onehot=1)
+FLOW_PRUNED = 2 + 2 * (FLOW_ITERS - 1)
+# Approximate mode (--approx_knn): FPS at enc_loc SA1 only (nested FPS),
+# the self-KNN tables of the warped cloud frozen; #3 where the searched
+# cloud has >= 1024 points: enc_loc SA1, SA2, enc_glob SA1, SA2, corr SA2,
+# the last corr FP, the 1/4-cloud table, the stencil, and the FlowEmbedding
+# KNN per iteration; #2 at enc_glob SA3, corr SA1 and the first two corr FP.
+FLOW_APPROX = launch_counts(fps=1, knn_exact=4, gather_onehot=1,
+                            knn_blockmin=8 + (FLOW_ITERS - 1))
+# test_flow on SAPIEN (config/flow/sapien/sapien_unsup.yaml: 512 points,
+# loc_flow_nn 8, loc_flow_rad 0.1) over the 24 synthetic test scenes x 6
+# view pairs, B=48, 4 iterations, exact, pool gate on.  Per batch: fps 4
+# (enc_loc 2, enc_glob 2); knn_exact 9 + 3 per iteration (enc_loc 2,
+# enc_glob 2, corr SA 1, the 2 corr FP three_nn, the 1/4-cloud table and the
+# stencil; no search reaches #4's M >= 4096); gather_onehot 1 + 1 per
+# iteration (the upsample of the 3-channel flow from the 128-point cloud).
+SAP_FLOW_B, SAP_FLOW_ITERS = 48, 4
+SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
+                         gather_onehot=SAP_FLOW_ITERS)
 
 
 def log(*a):
@@ -530,6 +596,176 @@ def check_blockmin(report, gen, b, shapes, ball=True):
         f"needed)")
 
 
+def flow_pool_sites(arch, npoint, b, iters, loc_flow_nn):
+    """Every neighbour pool of one FlowStep3D eval forward (models/flownet.py)
+    as (site, clouds, M, S, C, per-group add, ReLU, calls): the BatchNorm
+    stacks fold their last affine and ReLU into the pool (a (C,) add), the
+    single-layer stacks (H0Net's second conv, the GRU gates) their centre
+    term (a per-group add, no activation)."""
+    from ogc_tpu_torch.models.flownet import ARCHS
+
+    a = ARCHS[arch]
+    lr, rest = npoint // 4, iters - 1
+    sites = []
+    for i, sp in enumerate(a.enc_loc):
+        m = npoint // sp.npoint_div
+        sites.append((f"enc_loc_sa{i + 1}", 2 * b, m, sp.nsample, sp.mlp[-1],
+                      False, True, 1))
+        sites.append((f"enc_loc_sa{i + 1} (refine)", b, m, sp.nsample,
+                      sp.mlp[-1], False, True, rest))
+    for i, sp in enumerate(a.enc_glob):
+        sites.append((f"enc_glob_sa{i + 1}", 2 * b, npoint // sp.npoint_div,
+                      sp.nsample, sp.mlp[-1], False, True, 1))
+    for i, sp in enumerate(a.corr_sa):
+        sites.append((f"corr_sa{i + 1}", b, npoint // sp.npoint_div,
+                      sp.nsample, sp.mlp[-1], False, True, 1))
+    sites += [("flow0_sa1", b, lr, a.reg_nsample, a.reg_mlp[-1], False, True,
+               1),
+              ("h0_sa1", b, lr, 4, a.h0_mlp1[-1], False, True, 1),
+              ("h0_sa2", b, lr, 4, a.hidden_dim, True, False, 1),
+              ("local_corr", b, lr, loc_flow_nn, a.local_corr_mlp[-1], False,
+               True, rest),
+              ("flow_conv1", b, lr, a.flow_conv1.nsample,
+               a.flow_conv1.mlp[-1], False, True, rest),
+              ("flow_conv2", b, lr, a.flow_conv2.nsample,
+               a.flow_conv2.mlp[-1], False, True, rest),
+              ("gru_conv{z,r,q}", b, lr, 4, a.hidden_dim, True, False,
+               3 * rest),
+              ("flow_sa{1,2}", b, lr, a.reg_nsample, a.reg_mlp[-1], False,
+               True, 2 * rest)]
+    return sites
+
+
+def pool_launches(sites):
+    """#12 launches of a forward with OGC_PALLAS_POOL=on: the pools whose
+    shape ops/pool.py::supported takes (the JAX package's gate)."""
+    from ogc_tpu_torch.ops.pool import supported
+
+    return sum(calls for _, clouds, m, s, c, _, _, calls in sites
+               if supported(clouds * m, s, c))
+
+
+def check_pool(report, gen, sites, what):
+    """#12 at every supported pool shape of ``sites``, bit-equal to its
+    plain version in every variant: max and mean, float32 and bf16, a
+    broadcast and a per-group add, ReLU on and off.  The site's own variant
+    (float32 max, its add and activation) is timed beside the plain
+    version, the route the gate's off position takes (pool_neighbors' plain
+    chain: "general"), and torch.amax over S (the library call of a bare
+    max), weighted by the site's calls per forward.  Bound: bytes, every
+    row read once and every pooled row written once."""
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops.pool import (rowgroup_pool, rowgroup_pool_plain,
+                                        supported)
+
+    done = {}
+    for site, clouds, m, s, c, per_group, relu, calls in sites:
+        if not supported(clouds * m, s, c):
+            log(f"pool {what} {site} ({clouds},{m},S={s},C={c}): S is not a "
+                f"power of two, the plain chain pools (the JAX gate)")
+            continue
+        key = (clouds, m, s, c, per_group, relu)
+        if key in done:
+            d = done[key]
+            report.add("pool", 0, d["ms"], d["plain"], d["bound"], d["by"],
+                       d["lib"], per_step=calls, general=d["general"])
+            continue
+        g = clouds * m
+        x32 = torch.randn((g * s, c), generator=gen, device="cuda")
+        scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+        adds = {False: torch.randn((1, c), generator=gen, device="cuda"),
+                True: torch.randn((g, c), generator=gen, device="cuda")}
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            for pg, add in adds.items():
+                for rl in (True, False):
+                    for mean in (False, True):
+                        got = rowgroup_pool(x, scale, add.to(dt), s, rl, mean)
+                        want = rowgroup_pool_plain(x, scale, add.to(dt), s,
+                                                   rl, mean)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"pool {site} {dt} per-group {pg} relu {rl} "
+                                f"mean {mean}: kernel != plain, max diff "
+                                f"{(got.float() - want.float()).abs().max()}")
+        add = adds[per_group]
+        ms = cuda_ms(lambda: rowgroup_pool(x32, scale, add, s, relu), 20)
+        pms = cuda_ms(lambda: rowgroup_pool_plain(x32, scale, add, s, relu),
+                      5)
+        x4 = x32.reshape(clouds, m, s, c)
+        ad4 = add.reshape(clouds, m, c) if per_group else add.reshape(c)
+        ops.set_pool_mode("off")
+        gms = cuda_ms(lambda: ops.pool_neighbors(
+            x4, differentiable=False, scale=scale, add=ad4, relu=relu), 20)
+        lib = cuda_ms(lambda: torch.amax(x4, 2), 20)
+        bnd, by = bound_ms((g * s + g) * c * 4 + c * 4
+                           + (g * c * 4 if per_group else c * 4), 0)
+        done[key] = dict(ms=ms, plain=pms, bound=bnd, by=by, lib=lib,
+                         general=gms)
+        report.add("pool", 0, ms, pms, bnd, by, lib, per_step=calls,
+                   general=gms)
+        log(f"pool {what} {site} ({clouds},{m},S={s},C={c}, "
+            f"{'per-group' if per_group else 'broadcast'} add, relu {relu}) "
+            f"x{calls}/forward: bit-equal in all 16 variants; kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, gate-off chain {gms:.4f} ms, "
+            f"torch.amax {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+
+def check_pruned(report, gen):
+    """#4 at every shape its gate admits on the flow path (enc_loc SA1 4096 x
+    8192 and SA2 2048 x 4096, k 32, at 2B = 16 clouds before the refinement
+    and at B = 8 in it), at the seg parity SA0 (2048 x 8192, k 64) and smooth
+    KNN (8192 x 8192, k 32) shapes, a ragged M = 5000 and k = 64 over blocks
+    of 32 points: bit-equal to its plain version and to #2.  Timed beside
+    the plain version and #2 ("general"); bound as #2's (the pairs in each
+    query's k-th-distance cube, 9 operations each, or the bytes); the
+    survivor share is the surviving (tile, block) pairs over all."""
+    from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.knn_pruned import (CB, QT, knn_exact_pruned,
+                                              knn_exact_pruned_plain,
+                                              prologue, survivors)
+
+    rest = FLOW_ITERS - 1
+    # (label, clouds, queries, points, k, cb, calls per flow forward)
+    cases = [("flow enc_loc SA1", 2 * FLOW_B, 4096, 8192, 32, CB, 1),
+             ("flow enc_loc SA2", 2 * FLOW_B, 2048, 4096, 32, CB, 1),
+             ("flow enc_loc SA1 (refine)", FLOW_B, 4096, 8192, 32, CB, rest),
+             ("flow enc_loc SA2 (refine)", FLOW_B, 2048, 4096, 32, CB, rest),
+             ("seg SA0", BATCH, 2048, 8192, 64, CB, 0),
+             ("smooth knn", TRAIN_B, 8192, 8192, SMOOTH_K, CB, 0),
+             ("ragged M", 2, 2048, 5000, 32, CB, 0),
+             ("k 64 over 32-point blocks", 2, 1024, 4096, 64, 32, 0)]
+    for label, b, nq, m, k, cb, calls in cases:
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        d, i = knn_exact_pruned(q, p, k, cb)
+        pd, pi = knn_exact_pruned_plain(q, p, k, cb)
+        ed, ei = knn_exact(q, p, k)
+        torch.cuda.synchronize()
+        for other, od, oi in (("plain", pd, pi), ("#2", ed, ei)):
+            if not (torch.equal(i, oi) and torch.equal(d, od)):
+                raise AssertionError(
+                    f"knn_exact_pruned {label}: kernel != {other} at "
+                    f"{(i != oi).sum().item()} indices, max dist diff "
+                    f"{(d - od).abs().max().item()}")
+        order, count = survivors(prologue(q, p, cb, QT), p, k, QT)
+        share = count.sum().item() / (count.numel() * order.shape[-1])
+        ms = cuda_ms(lambda: knn_exact_pruned(q, p, k, cb), 10)
+        pro_ms = cuda_ms(lambda: survivors(prologue(q, p, cb, QT), p, k, QT),
+                         10)
+        pms = cuda_ms(lambda: knn_exact_pruned_plain(q, p, k, cb), 3)
+        gms = cuda_ms(lambda: knn_exact(q, p, k), 10)
+        pairs = box_pairs(q, p, d[..., -1])
+        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * 9)
+        if calls:
+            report.add("knn_exact_pruned", 0, ms, pms, bnd, by,
+                       per_step=calls, general=gms)
+        log(f"knn_exact_pruned {label} ({b},{nq} q,{m} p,k={k},cb={cb}) "
+            f"x{calls}/forward: idx and dist bit-equal to plain and to #2; "
+            f"survivor share {share:.4f}; kernel {ms:.4f} ms (of which the "
+            f"prologue with its #3 pre-pass {pro_ms:.4f} ms), plain "
+            f"{pms:.4f} ms, #2 {gms:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+
 def sapien_tables(gen, clouds):
     """A grid cloud of SAPIEN scale (unit extent, 1/64 grid) and the index
     tables of its three grouping sites: SA0's KNN (256 FPS centres, k 64)
@@ -681,38 +917,60 @@ def check_kernels():
             log(f"per SAPIEN {cfg} train step: {name} {e['ms']:.4f} ms, "
                 f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
                 f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
-    return train_report, sapien["full"][0], fast_report
+    log(f"-- flow path shapes (KITTI-SF B={FLOW_B} x {N_POINT}, "
+        f"{FLOW_ITERS} iterations; SAPIEN test_flow B={SAP_FLOW_B} x "
+        f"{SAP_N}, {SAP_FLOW_ITERS} iterations)")
+    flow_report = Report()
+    check_pool(flow_report, gen, flow_pool_sites(
+        "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"]),
+        "KITTI-SF")
+    check_pool(Report(), gen, flow_pool_sites(
+        "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, 8), "SAPIEN")
+    check_pruned(flow_report, gen)
+    for name in ("pool", "knn_exact_pruned"):
+        e = flow_report.entry(name)
+        log(f"per KITTI-SF flow forward: {name} kernel {e['ms']:.4f} ms, "
+            f"plain {e['plain_ms']:.4f} ms, general route "
+            f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}), library {e['library_ms']}")
+    return train_report, sapien["full"][0], fast_report, flow_report
+
+
+def kitti_scene(rng):
+    """One synthetic KITTI-SF scene of N_POINT points: a static ground plane
+    plus 3-6 rigid objects that move between frames.  :return: (pc1, flow1,
+    segm1)."""
+    n_obj = rng.randint(3, 7)
+    counts = [N_POINT // 2] + [(N_POINT - N_POINT // 2) // n_obj] * n_obj
+    counts[-1] += N_POINT - sum(counts)
+    pc = [np.c_[60 * rng.rand(counts[0], 2) - 30,
+                0.1 * rng.randn(counts[0], 1)]]
+    segm = [np.zeros(counts[0], np.int64)]
+    flow = [np.zeros((counts[0], 3))]
+    for o in range(1, n_obj + 1):
+        center = np.r_[50 * rng.rand(2) - 25, 0.8]
+        pts = center + (rng.rand(counts[o], 3) - 0.5) * [4.0, 1.8, 1.5]
+        a = rng.uniform(-0.1, 0.1)
+        rot = np.array([[math.cos(a), -math.sin(a), 0],
+                        [math.sin(a), math.cos(a), 0], [0, 0, 1]])
+        moved = (pts - center) @ rot.T + center + np.r_[rng.randn(2), 0]
+        pc.append(pts)
+        segm.append(np.full(counts[o], o))
+        flow.append(moved - pts)
+    pc1 = np.vstack(pc).astype(np.float32)
+    flow1 = np.vstack(flow).astype(np.float32)
+    segm1 = np.concatenate(segm)
+    perm = rng.permutation(N_POINT)
+    return pc1[perm], flow1[perm], segm1[perm]
 
 
 def write_kittisf(root, ids, seed):
-    """KITTI-SF downsampled layout (data/<id>/{pc,flow,segm}{1,2}.npy): a
-    static ground plane plus 3-6 rigid objects that move between frames;
-    flow_preds/flowstep3d/<id>/flow{1,2}.npy hold the same flows as the
-    predictions training reads."""
+    """KITTI-SF downsampled layout (data/<id>/{pc,flow,segm}{1,2}.npy) of
+    kitti_scene's scenes; flow_preds/flowstep3d/<id>/flow{1,2}.npy hold the
+    same flows as the predictions training reads."""
     rng = np.random.RandomState(seed)
     for sid in ids:
-        n_obj = rng.randint(3, 7)
-        counts = [N_POINT // 2] + [(N_POINT - N_POINT // 2) // n_obj] * n_obj
-        counts[-1] += N_POINT - sum(counts)
-        pc = [np.c_[60 * rng.rand(counts[0], 2) - 30,
-                    0.1 * rng.randn(counts[0], 1)]]
-        segm = [np.zeros(counts[0], np.int64)]
-        flow = [np.zeros((counts[0], 3))]
-        for o in range(1, n_obj + 1):
-            center = np.r_[50 * rng.rand(2) - 25, 0.8]
-            pts = center + (rng.rand(counts[o], 3) - 0.5) * [4.0, 1.8, 1.5]
-            a = rng.uniform(-0.1, 0.1)
-            rot = np.array([[math.cos(a), -math.sin(a), 0],
-                            [math.sin(a), math.cos(a), 0], [0, 0, 1]])
-            moved = (pts - center) @ rot.T + center + np.r_[rng.randn(2), 0]
-            pc.append(pts)
-            segm.append(np.full(counts[o], o))
-            flow.append(moved - pts)
-        pc1 = np.vstack(pc).astype(np.float32)
-        flow1 = np.vstack(flow).astype(np.float32)
-        segm1 = np.concatenate(segm)
-        perm = rng.permutation(N_POINT)
-        pc1, flow1, segm1 = pc1[perm], flow1[perm], segm1[perm]
+        pc1, flow1, segm1 = kitti_scene(rng)
         d = osp.join(root, "data", sid)
         os.makedirs(d)
         for name, arr in (("pc1", pc1), ("pc2", pc1 + flow1), ("flow1", flow1),
@@ -731,15 +989,18 @@ def counters():
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
                                                 knn_blockmin)
+    from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
     from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                           scatter_add_rows_onehot)
+    from ogc_tpu_torch.ops.pool import rowgroup_pool
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
     return {"fps": fps, "knn_exact": knn_exact,
             "ball_query": ball_query_exact, "scatter_add": scatter_add_rows,
             "gather_onehot": gather_rows_onehot,
             "scatter_onehot": scatter_add_rows_onehot,
-            "knn_blockmin": knn_blockmin, "ball_blockmin": ball_query_blockmin}
+            "knn_blockmin": knn_blockmin, "ball_blockmin": ball_query_blockmin,
+            "pool": rowgroup_pool, "knn_exact_pruned": knn_exact_pruned}
 
 
 def reset_counts():
@@ -1396,6 +1657,243 @@ def run_kitti_oaicp(cfg_path):
     log(f"KITTI-SF oa_icp val: {res}")
 
 
+def make_flownet(kw, device, seed=SEED):
+    """FlowStep3D with random weights from ``seed``: torch's default conv
+    and linear init, BatchNorm affines and running statistics drawn away
+    from the identity, so the eval fold's affines are not trivial."""
+    from ogc_tpu_torch.models.flownet import FlowStep3D
+    from ogc_tpu_torch.nn.flowstep3d import SchedulableBatchNorm
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = FlowStep3D(**kw)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, SchedulableBatchNorm):
+                    m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape))
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape))
+                    m.running_mean.copy_(0.1 * torch.randn(m.weight.shape))
+                    m.running_var.copy_(
+                        1 + 0.2 * torch.randn(m.weight.shape).abs())
+    return model.to(device).eval()
+
+
+def flow_scenes(b, seed):
+    """``b`` synthetic KITTI-SF scene pairs (kitti_scene): pc2 is pc1 moved
+    by its flow, its points in another order.  :return: (pc1, pc2) float32
+    (b, N_POINT, 3) on the card."""
+    rng = np.random.RandomState(seed)
+    pc1, pc2 = [], []
+    for _ in range(b):
+        p, f, _ = kitti_scene(rng)
+        pc1.append(p)
+        pc2.append((p + f)[rng.permutation(N_POINT)])
+    return (torch.from_numpy(np.stack(pc1)).to(DEVICE),
+            torch.from_numpy(np.stack(pc2)).to(DEVICE))
+
+
+def set_flow_gates(setting):
+    """The gates as the port reads them: "off" is the JAX package's
+    defaults (OGC_PALLAS_POOL=off, OGC_PALLAS_EXACT_PRUNE=on), "pool" turns
+    the pool kernel on, "on" also routes exact KNN to #4 (=knn)."""
+    from ogc_tpu_torch import ops
+
+    ops.set_pool_mode("off" if setting == "off" else "on")
+    ops.set_exact_prune("knn" if setting == "on" else "on")
+
+
+def flow_forward(model, pc1, pc2, iters):
+    with torch.no_grad():
+        return model(pc1, pc2, pc1, pc2, iters)
+
+
+def run_flow():
+    """The KITTI-SF flow forward (B=8 x 8192, 5 iterations), exact with the
+    gates off, the pool gate alone and both gates on, then approximate with
+    the gates off and on: launches against the derived counts, flows finite
+    and bit-equal between the settings (every #12 pool is the plain chain's
+    max of the same float32 values, #4 is #2's answer).  Then the A/B of the
+    forward's median time (the settings in turns), peak memory, a profile
+    of 3 forwards per gate setting at its ends, and the card against the
+    CPU at B=1.  Returns the launches of the gates-on forwards."""
+    from ogc_tpu_torch import ops
+
+    model = make_flownet(FLOW_KW, DEVICE)
+    pc1, pc2 = flow_scenes(FLOW_B, SEED)
+    n_pool = pool_launches(flow_pool_sites(
+        "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"]))
+    total = launch_counts()
+    for mode, exact in (("exact", True), ("approx", False)):
+        ops.set_exact_neighbors(exact)
+        settings = ("off", "pool", "on") if exact else ("off", "on")
+        flows = {}
+        for setting in settings:
+            set_flow_gates(setting)
+            want = dict(FLOW_EXACT if exact else FLOW_APPROX)
+            if setting != "off":
+                want["pool"] = n_pool
+            if setting == "on" and exact:
+                want["knn_exact_pruned"] = FLOW_PRUNED
+                want["knn_blockmin"] += FLOW_PRUNED
+                want["knn_exact"] -= FLOW_PRUNED
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            flows[setting] = flow_forward(model, pc1, pc2, FLOW_ITERS)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            log(f"flow forward {mode}, gates {setting}: first call "
+                f"{first:.4f} ms, peak device memory {peak:.1f} MiB; "
+                f"launches {launches}")
+            if launches != want:
+                raise AssertionError(f"flow {mode} gates {setting}: launches "
+                                     f"{launches}, derived {want}")
+            if setting == "on":
+                for k in KERNELS:
+                    total[k] += launches[k]
+            check_finite(f"flow {mode}", {
+                f"iteration {i}": f.abs().max().item()
+                for i, f in enumerate(flows[setting])})
+        for setting in settings[1:]:
+            gaps = [(a - b).abs().max().item()
+                    for a, b in zip(flows["off"], flows[setting])]
+            log(f"flow {mode}: gates off vs {setting}, max abs gap per "
+                f"iteration {gaps}")
+            if any(gaps):
+                raise AssertionError(f"flow {mode}: gates {setting} and off "
+                                     f"differ")
+        log(f"flow {mode}: |flow| max per iteration "
+            f"{[f.abs().max().item() for f in flows['off']]}")
+        times = {setting: [] for setting in settings}
+        for r in range(FLOW_REPS):
+            turn = settings if r % 2 == 0 else settings[::-1]
+            for setting in turn:
+                set_flow_gates(setting)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flow_forward(model, pc1, pc2, FLOW_ITERS)
+                torch.cuda.synchronize()
+                times[setting].append((time.perf_counter() - t0) * 1e3)
+        for setting in settings:
+            med = float(np.median(times[setting]))
+            log(f"flow forward {mode} gates {setting} (B={FLOW_B} x "
+                f"{N_POINT}, {FLOW_ITERS} iterations, host clock around a "
+                f"synchronised forward, {FLOW_REPS} calls in turns): median "
+                f"{med:.4f} ms, min {min(times[setting]):.4f}, max "
+                f"{max(times[setting]):.4f}; {FLOW_B * 1e3 / med:.4f} scene "
+                f"pairs/s")
+        for setting in (("off", "on") if exact else ("on",)):
+            set_flow_gates(setting)
+            profile_steps(f"flow forwards {mode} gates {setting} (B={FLOW_B} "
+                          f"x {N_POINT}, {FLOW_ITERS} iterations)",
+                          lambda i: flow_forward(model, pc1, pc2, FLOW_ITERS))
+    set_flow_gates("off")
+    check_flow_card_vs_cpu(model)
+    return total
+
+
+def check_flow_card_vs_cpu(model):
+    """One scene pair (B=1 x 8192), exact, 2 iterations: the card with both
+    gates on (kernels #1, #2, #3, #4, #12) against the CPU (plain versions),
+    within FLOW_TOL of the flow's scale per iteration."""
+    import copy
+
+    from ogc_tpu_torch import ops
+
+    ops.set_exact_neighbors(True)
+    pc1, pc2 = flow_scenes(1, SEED + 1)
+    set_flow_gates("on")
+    card = flow_forward(model, pc1, pc2, FLOW_CPU_ITERS)
+    set_flow_gates("off")
+    t0 = time.perf_counter()
+    cpu = flow_forward(copy.deepcopy(model).cpu(), pc1.cpu(), pc2.cpu(),
+                       FLOW_CPU_ITERS)
+    log(f"flow card-vs-CPU reference forward on the CPU: "
+        f"{time.perf_counter() - t0:.3f} s")
+    for it, (a, b) in enumerate(zip(card, cpu)):
+        scale = max(1.0, b.abs().max().item())
+        diff = (a.cpu() - b).abs().max().item()
+        log(f"flow card vs CPU iteration {it} (1 x {N_POINT}): max abs diff "
+            f"{diff:.3e}, flow scale {scale:.4f} (tolerance "
+            f"{FLOW_TOL} x scale)")
+        if not diff <= FLOW_TOL * scale:
+            raise AssertionError(f"flow iteration {it}: card and CPU differ "
+                                 f"by {diff}")
+
+
+def run_test_flow(tmp):
+    """test_flow on the synthetic SAPIEN root (ogc_tpu_torch/tools/synth.py
+    through protocol_sapien.write_data; its 23 test scenes x 6 view pairs),
+    B=48, 4 iterations, --save, the pool gate on, with random seeded
+    weights: launches per batch against the derived ones, finite metrics;
+    then the saved flows, read back through SapienDataset(predflow_path=
+    "flowstep3d"), against the same forward on the first batch."""
+    import types
+
+    import yaml
+
+    from ogc_tpu_torch import ops, test_flow
+    from ogc_tpu_torch.data.sapien import SapienDataset
+    from ogc_tpu_torch.tools import protocol_sapien as proto
+    from ogc_tpu_torch.utils.checkpoint import (load_model_state,
+                                                save_model_state)
+
+    root = osp.join(tmp, "FLOW_SAPIEN")
+    proto.write_data(types.SimpleNamespace(
+        seed=SEED, n_scenes=SAP_SCENES, n_test_scenes=SAP_TEST_SCENES), root)
+    with open("config/flow/sapien/sapien_unsup.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"]["root"] = root
+    cfg["save_path"] = osp.join(tmp, "ckpt", "flow_sapien")
+    cfg_path = osp.join(tmp, "flow_sapien.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    kw = dict(npoint=SAP_N, arch="sapien",
+              loc_flow_nn=cfg["flownet"]["loc_flow_nn"],
+              loc_flow_rad=cfg["flownet"]["loc_flow_rad"], k_decay_fact=0.5)
+    save_model_state(make_flownet(kw, "cpu").state_dict(),
+                     osp.join(cfg["save_path"], "best"))
+    per_batch = dict(SAP_FLOW, pool=pool_launches(flow_pool_sites(
+        "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, kw["loc_flow_nn"])))
+    ops.set_pool_mode("on")
+    t0 = time.perf_counter()
+    res, launches = run_stage(
+        "test_flow SAPIEN", test_flow.main,
+        [cfg_path, "--split", "test", "--test_batch_size", str(SAP_FLOW_B),
+         "--test_model_iters", str(SAP_FLOW_ITERS), "--save", "--device",
+         DEVICE], (per_batch,), lambda r: (len(r["forward_s"]),))
+    wall = time.perf_counter() - t0
+    metrics = {k: res[k] for k in ("EPE", "AccS", "AccR", "Outlier")}
+    check_finite("test_flow", metrics)
+    fwd = np.array(res["forward_s"]) * 1e3
+    ds = SapienDataset(osp.join(root, "mbs-sapien"), split="test",
+                       view_sels=test_flow.VIEW_SELS,
+                       predflow_path="flowstep3d")
+    log(f"test_flow SAPIEN: {metrics}; {len(ds)} pairs in {fwd.size} "
+        f"batches of <= {SAP_FLOW_B}, wall {wall:.4f} s incl. loading, "
+        f"metrics and saving ({len(ds) / wall:.4f} pairs/s); forward per "
+        f"batch (host clock, incl. copy to host) first {fwd[0]:.4f} ms, "
+        f"median of the rest {np.median(fwd[1:]):.4f} ms")
+    model = make_flownet(kw, DEVICE)
+    model.load_state_dict(load_model_state(osp.join(cfg["save_path"],
+                                                    "best")))
+    items = [ds[i] for i in range(min(SAP_FLOW_B, len(ds)))]
+    pcs = torch.from_numpy(np.stack([it[0] for it in items])).to(DEVICE)
+    saved = torch.from_numpy(np.stack([it[2][0] for it in items]))
+    again = flow_forward(model, pcs[:, 0], pcs[:, 1], SAP_FLOW_ITERS)[-1]
+    ops.set_pool_mode("off")
+    diff = (again.cpu() - saved).abs().max().item()
+    log(f"test_flow saved flows (read back through SapienDataset) vs the "
+        f"same forward on the first batch: max abs diff {diff:.3e} "
+        f"(expected 0)")
+    if diff != 0:
+        raise AssertionError(f"saved flows differ from the forward by {diff}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1416,7 +1914,7 @@ def main():
     log(f"kernels built from {_build.CSRC_DIR} in {_build.build_seconds:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
-    report, sap_report, fast_report = check_kernels()
+    report, sap_report, fast_report, flow_report = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         cfgs = setup_data(tmp)
@@ -1448,11 +1946,18 @@ def main():
         check_card_vs_cpu(full, tmp, fixed_batch(full, 2))
         check_refine_card_vs_cpu(sap_cfgs)
         profile_train(full, tmp, batch)
-    log(f"SAPIEN checks done at {time.perf_counter() - t_start:.1f} s")
+        log(f"SAPIEN checks done at {time.perf_counter() - t_start:.1f} s")
+        flow_launches = run_flow()
+        log(f"KITTI-SF flow phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        for k, v in run_test_flow(tmp).items():
+            flow_launches[k] += v
+    log(f"test_flow phase done at {time.perf_counter() - t_start:.1f} s")
 
     # name: (source, the TPU kernel it replaces); launches come from the
-    # KITTI-SF train run, for #7/#8 from the SAPIEN alternation, and for #3
-    # from the fast KITTI-SF train run.
+    # KITTI-SF train run, for #7/#8 from the SAPIEN alternation, for #3
+    # from the fast KITTI-SF train run, and for #12/#4 from the gates-on
+    # KITTI-SF flow forwards (exact and approximate) and test_flow.
     meta = {
         "fps": ("ogc_tpu_torch/csrc/fps.cu",
                 "ogc_tpu/ops/pallas_kernels.py:24"),
@@ -1470,12 +1975,18 @@ def main():
                          "ogc_tpu/ops/pallas_knn.py:147"),
         "ball_blockmin": ("ogc_tpu_torch/csrc/knn_blockmin.cu",
                           "ogc_tpu/ops/pallas_knn.py:147"),
+        "pool": ("ogc_tpu_torch/csrc/pool.cu",
+                 "ogc_tpu/ops/pallas_pool.py:112"),
+        "knn_exact_pruned": ("ogc_tpu_torch/csrc/knn_exact_pruned.cu",
+                             "ogc_tpu/ops/pallas_knn.py:757"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
         rep_, counts = ((sap_report, sap_launches) if name.endswith("_onehot")
                         else (fast_report, fast_launches)
                         if name.endswith("_blockmin")
+                        else (flow_report, flow_launches)
+                        if name in ("pool", "knn_exact_pruned")
                         else (report, launches))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": counts[name],

@@ -2,11 +2,12 @@
 (counterpart of ogc_tpu/nn/pointnet2.py).
 
 SA = FPS -> KNN grouping with a per-scale radius clamp -> SharedMLP -> max
-over the neighbourhood; FP = three_nn inverse-distance interpolation +
-SharedMLP (reference utils/pointnet2_util.py:9-121).  In float32 this is
-the reference-shaped chain, i.e. what the JAX package computes with
-OGC_EVAL_FOLD=off; the JAX package's source-projected eval fold differs from
-it by matmul reassociation only (~1e-6).
+over the neighbourhood (ops.pool_neighbors, #12 behind its gate); FP =
+three_nn inverse-distance interpolation + SharedMLP (reference
+utils/pointnet2_util.py:9-121).  In float32 this is the reference-shaped
+chain, i.e. what the JAX package computes with OGC_EVAL_FOLD=off; the JAX
+package's source-projected eval fold differs from it by matmul
+reassociation only (~1e-6).
 
 In the bf16 compute mode the first layer of each grouped stack keeps
 float32 on the raw coordinates, as the JAX package places it
@@ -86,7 +87,7 @@ class SAModuleMSG(nn.Module):
             h = F.linear(grouped.float(), mlp.layer0.conv.weight.flatten(1),
                          mlp.layer0.conv.bias)
             h = mlp.rest(mlp.layer0.post(h if dt is None else h.to(dt)))
-            outs.append(h.amax(dim=2))
+            outs.append(ops.pool_neighbors(h, differentiable=self.training))
         return new_xyz, torch.cat(outs, -1)
 
     def _fold(self, xyz, new_xyz, features, dist, idx, dt):
@@ -105,7 +106,7 @@ class SAModuleMSG(nn.Module):
                 gs = torch.where((dist[..., :nsample] > radius)[..., None],
                                  g[..., :1, off:off + c0], gs)
             h = mlp.rest(mlp.layer0.post(gs - cproj[:, :, None, off:off + c0]))
-            outs.append(h.amax(dim=2))
+            outs.append(ops.pool_neighbors(h, differentiable=self.training))
             off += c0
         return torch.cat(outs, -1)
 

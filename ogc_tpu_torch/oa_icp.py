@@ -65,16 +65,19 @@ def build_datasets(args):
     data_root = args.data["root"]
     predflow_path = ("flowstep3d_R%d" % (args.round - 1) if args.round > 1
                      else "flowstep3d")
-    if args.dataset == "sapien":
-        from ogc_tpu_torch.data.sapien import SapienDataset
+    if args.dataset in ("sapien", "ogcdr"):
+        if args.dataset == "sapien":
+            from ogc_tpu_torch.data.sapien import SapienDataset as make
 
-        data_root = osp.join(data_root, "mbs-sapien" if args.split == "test"
-                             else "mbs-shapepart")
+            data_root = osp.join(data_root, "mbs-sapien"
+                                 if args.split == "test" else "mbs-shapepart")
+        else:
+            from ogc_tpu_torch.data.ogcdr import OGCDynamicRoomDataset as make
         view_sels = [[0, 1], [1, 0], [1, 2], [2, 1], [2, 3], [3, 2]]
         common = dict(data_root=data_root, split=args.split,
                       view_sels=view_sels,
                       decentralize=args.data["decentralize"])
-        make, thresh = SapienDataset, 0.01
+        thresh = 0.01
     elif args.dataset == "kittisf":
         from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
 
@@ -86,10 +89,6 @@ def build_datasets(args):
                       downsampled=True, view_sels=view_sels,
                       decentralize=args.data["decentralize"])
         make, thresh = KITTISceneFlowDataset, 0.05
-    elif args.dataset == "ogcdr":
-        raise NotImplementedError(
-            "dataset 'ogcdr' is not copied into the port yet (ROADMAP.md "
-            "queue A)")
     else:
         raise KeyError("Unrecognized dataset!")
     return (make(**common), make(**common, predflow_path=predflow_path),
@@ -120,7 +119,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                             (args.saveflow_path or "flowstep3d")
                             + "_R%d" % args.round)
         os.makedirs(save_dir, exist_ok=True)
-        if args.dataset == "sapien":
+        if args.dataset in ("sapien", "ogcdr"):
             with open(save_dir + ".json", "w") as f:
                 json.dump({"view_sel": view_sels}, f)
 

@@ -22,7 +22,13 @@ searched cloud has M >= 1024 points and ceil(M / 4) >= k, ball query where
 N >= 1024 and ceil(N / 4) >= nsample.  Off the gates approximate mode takes
 the exact routes: there the JAX package calls ``jax.lax.approx_max_k``,
 which computes an exact top-k away from the TPU (XLA lowers it exactly on
-the CPU and the GPU), so exact is what it computes.
+the CPU and the GPU), so exact is what it computes.  Exact KNN takes the
+bound-pruned kernel (ops/knn_pruned.py, #4) instead of #2 behind the JAX
+package's opt-in gate: ``OGC_PALLAS_EXACT_PRUNE=knn`` (read at import, or
+``set_exact_prune``), 4096 <= M <= 16384, M >= k and N >= 1024 queries.
+
+``pool_neighbors`` (ops/pool.py, #12) reduces grouped features over the
+neighbour axis behind the JAX package's ``OGC_PALLAS_POOL`` gate.
 
 ``gather`` and ``group`` are a row gather whose backward is a deterministic
 scatter-add (ascending source order, no atomics); ``three_interpolate`` and
@@ -45,6 +51,7 @@ from ogc_tpu_torch.ops.ball import ball_query_exact
 from ogc_tpu_torch.ops.fps import fps
 from ogc_tpu_torch.ops.knn import knn_exact
 from ogc_tpu_torch.ops.knn_blockmin import ball_query_blockmin, knn_blockmin
+from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
 from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                       onehot_path_applicable,
                                       scatter_add_rows_onehot)
@@ -52,6 +59,10 @@ from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
 
 _EXACT = os.environ.get("OGC_EXACT_NEIGHBORS", "") in ("1", "on")
+# The JAX package's default is "on", which prunes only its ball query (the
+# port's #5 is that ball query); "knn" also routes exact KNN to #4.
+_EXACT_PRUNE = os.environ.get("OGC_PALLAS_EXACT_PRUNE", "on")
+_PRUNE_MIN_M, _PRUNE_MIN_N, _PRUNE_MAX_M = 4096, 1024, 16384
 # Recall targets of the block-min run length: large-k grouping tolerates
 # more misses than the k = 3 interpolation stencil.
 _RECALL_LARGE_K = 0.95
@@ -66,6 +77,13 @@ def set_exact_neighbors(exact: bool) -> None:
 
 def exact_neighbors() -> bool:
     return _EXACT
+
+
+def set_exact_prune(mode: str) -> None:
+    """Set the #4 gate as ``OGC_PALLAS_EXACT_PRUNE`` would: "knn" routes
+    exact KNN on its shapes to the bound-pruned kernel."""
+    global _EXACT_PRUNE
+    _EXACT_PRUNE = mode
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -128,6 +146,9 @@ def knn(k: int, query: torch.Tensor,
     if not _EXACT and M >= 1024 and -(-M // 4) >= k:
         recall = _RECALL_LARGE_K if k >= 8 else _RECALL_SMALL_K
         return knn_blockmin(query.float(), points.float(), k, recall)
+    if (_EXACT and _EXACT_PRUNE == "knn" and _PRUNE_MIN_M <= M <= _PRUNE_MAX_M
+            and M >= k and query.shape[1] >= _PRUNE_MIN_N):
+        return knn_exact_pruned(query.float(), points.float(), k)
     k_eff = min(k, M)
     dist, idx = knn_exact(query.float(), points.float(), k_eff)
     if k_eff < k:

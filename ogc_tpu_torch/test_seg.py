@@ -40,13 +40,16 @@ def build_test_dataset(args, predflow_path: Optional[str] = None):
     """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py;
     vote.py passes the flow predictions to read (None: the true flows)."""
     data_root = args.data["root"]
-    if args.dataset == "sapien":
-        from ogc_tpu_torch.data.sapien import SapienDataset
+    if args.dataset in ("sapien", "ogcdr"):
+        if args.dataset == "sapien":
+            from ogc_tpu_torch.data.sapien import SapienDataset as make
 
-        data_root = osp.join(
-            data_root, "mbs-sapien" if args.split == "test" else "mbs-shapepart")
+            data_root = osp.join(data_root, "mbs-sapien"
+                                 if args.split == "test" else "mbs-shapepart")
+        else:
+            from ogc_tpu_torch.data.ogcdr import OGCDynamicRoomDataset as make
         view_sels = [[0, 1], [1, 2], [2, 3], [3, 2]]
-        test_set = SapienDataset(
+        test_set = make(
             data_root=data_root, split=args.split, view_sels=view_sels,
             predflow_path=predflow_path,
             decentralize=args.data["decentralize"])

@@ -46,9 +46,8 @@ def build_model_and_datasets(args, predflow_path: Optional[str],
         from ogc_tpu_torch.data.kittisf import \
             KITTISceneFlowDataset as TrainDataset
     elif args.dataset == "ogcdr":
-        raise NotImplementedError(
-            "dataset 'ogcdr' is not copied into the port yet (ROADMAP.md "
-            "queue A)")
+        from ogc_tpu_torch.data.ogcdr import \
+            OGCDynamicRoomDataset as TrainDataset
     else:
         raise KeyError("Unrecognized dataset!")
 
@@ -62,7 +61,7 @@ def build_model_and_datasets(args, predflow_path: Optional[str],
 
     common = dict(predflow_path=predflow_path,
                   decentralize=args.data["decentralize"])
-    if args.dataset == "sapien":
+    if args.dataset in ("sapien", "ogcdr"):
         view_sels = [[0, 1], [1, 2], [2, 3]]
         train_set = TrainDataset(
             data_root=data_root, split="train", view_sels=view_sels,

@@ -1,10 +1,13 @@
-"""Carry MaskFormer3D weights from the JAX package to the port (numpy only).
+"""Carry MaskFormer3D and FlowStep3D weights from the JAX package to the
+port (numpy only).
 
 ``segnet_state_dict_from_jax`` is the inverse of
 ogc_tpu/utils/torch_interop.py::segnet_params_from_torch: it maps a flax
 parameter tree onto the reference state_dict key space, which the port's
-``MaskFormer3D.load_state_dict`` takes after ``torch.from_numpy``.  This
-module imports neither torch nor jax, so either process can use it.
+``MaskFormer3D.load_state_dict`` takes after ``torch.from_numpy``.
+``flownet_state_dict_from_jax`` is the inverse of
+::flownet_variables_from_torch for FlowStep3D's params and batch_stats.
+This module imports neither torch nor jax, so either process can use it.
 
 Layouts translated:
   Dense kernel (C_in, C_out)          -> conv weight (C_out, C_in, 1[, 1])
@@ -127,4 +130,59 @@ def segnet_state_dict_from_jax(flax_params: Mapping[str, Any]) -> State:
     out["object_mlp.0.normlayer.gn.bias"] = _a(om0["GroupNorm_0"]["bias"])
     out["object_mlp.1.conv.weight"] = _conv(om1["Dense_0"]["kernel"], 1)
     out["object_mlp.1.conv.bias"] = _a(om1["Dense_0"]["bias"])
+    return out
+
+
+# Reference module prefix, flax module name, and whether its stack has
+# BatchNorms (ogc_tpu/utils/torch_interop.py::_FLOW_SA_MAP).
+FLOW_SA_MAP = [
+    ("encoder_loc.sa1", "enc_loc_sa1", True),
+    ("encoder_loc.sa2", "enc_loc_sa2", True),
+    ("encoder_glob.sa1", "enc_glob_sa1", True),
+    ("encoder_glob.sa2", "enc_glob_sa2", True),
+    ("encoder_glob.sa3", "enc_glob_sa3", True),
+    ("global_corr_layer.sa1", "corr_sa1", True),
+    ("global_corr_layer.sa2", "corr_sa2", True),
+    ("h0_net.sa1", "h0_sa1", True),
+    ("h0_net.sa2", "h0_sa2", False),
+    ("flow0_regressor.sa1", "flow0_sa1", True),
+    ("flow_regressor.sa1", "flow_sa1", True),
+    ("flow_regressor.sa2", "flow_sa2", True),
+    ("gru.convz", "gru_convz", False),
+    ("gru.convr", "gru_convr", False),
+    ("gru.convq", "gru_convq", False),
+    ("flow_conv1", "flow_conv1", True),
+    ("flow_conv2", "flow_conv2", True),
+    ("local_corr_layer", "local_corr", True),
+]
+FLOW_FC_MAP = [("flow0_regressor.fc", "flow0_fc"),
+               ("flow_regressor.fc", "flow_fc")]
+
+
+def flownet_state_dict_from_jax(variables: Mapping[str, Any]) -> State:
+    """FlowStep3D flax variables ({'params', 'batch_stats'}) -> the
+    reference state_dict as numpy arrays (conv weights (C_out, C_in, 1, 1),
+    BatchNorm2d entries with ``num_batches_tracked`` 0)."""
+    p, bs = variables["params"], variables["batch_stats"]
+    out: State = {}
+    for prefix, name, has_norm in FLOW_SA_MAP:
+        if name not in p:
+            continue  # absent in this arch (corr_sa2, enc_glob_sa3)
+        stack = p[name]["_NormedConvStack_0"]
+        for j in range(_count(stack, "Dense_")):
+            out[f"{prefix}.mlp_convs.{j}.weight"] = _conv(
+                stack[f"Dense_{j}"]["kernel"], 2)
+            if not has_norm:
+                continue
+            bn = f"{prefix}.mlp_bns.{j}"
+            norm = f"SchedulableBatchNorm_{j}"
+            stats = bs[name]["_NormedConvStack_0"][norm]
+            out[f"{bn}.weight"] = _a(stack[norm]["scale"])
+            out[f"{bn}.bias"] = _a(stack[norm]["bias"])
+            out[f"{bn}.running_mean"] = _a(stats["mean"])
+            out[f"{bn}.running_var"] = _a(stats["var"])
+            out[f"{bn}.num_batches_tracked"] = np.zeros((), np.int64)
+    for prefix, name in FLOW_FC_MAP:
+        _linear(out, prefix, p[name])
+    out["global_corr_layer.epsilon"] = _a(p["epsilon"])
     return out

@@ -10,7 +10,8 @@ runs the torch side here in a subprocess, and reads the outputs back:
 Every case also reports the kernel launch counters (FPS, exact KNN, ball
 query, scatter-add; the small-source gather and scatter as
 ``launches_onehot``; the block-min KNN and ball query as
-``launches_blockmin``), which must stay at 0 on CPU tensors.  The torch side
+``launches_blockmin``; the row-group pool and the bound-pruned KNN as
+``launches_flow``), which must stay at 0 on CPU tensors.  The torch side
 runs with exact neighbours (``OGC_EXACT_NEIGHBORS=1``) unless a test asks
 for the environment without it; a case's ``compute_dtype: bf16`` runs it in
 the bf16 compute mode.
@@ -185,6 +186,7 @@ def _case_save_ckpt(x, cfg, state):
 
 def _case_imports(x, cfg, state):
     import ogc_tpu_torch.oa_icp  # noqa: F401
+    import ogc_tpu_torch.test_flow  # noqa: F401
     import ogc_tpu_torch.test_seg  # noqa: F401
     import ogc_tpu_torch.tools.protocol_sapien  # noqa: F401
     import ogc_tpu_torch.train_seg  # noqa: F401
@@ -439,6 +441,118 @@ def _case_train_mode(x, cfg, state):
             "exact_mode": np.array(ops.exact_neighbors())}
 
 
+def _case_pool(x, cfg, state):
+    """#12's plain version (rowgroup_pool on CPU tensors), pool_neighbors
+    with the gate at ``interpret`` and ``off``, and ``supported``."""
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops.pool import rowgroup_pool, supported
+
+    def t(name, bf16):
+        v = torch.from_numpy(x[name])
+        return v.to(torch.bfloat16) if bf16 else v
+
+    out = {}
+    for name, (s, relu, mean, bf16) in cfg["rowgroup"].items():
+        y = rowgroup_pool(t(name + "/x", bf16), t(name + "/scale", False),
+                          t(name + "/add", bf16), s, relu=relu, mean=mean)
+        out[name] = y.float().numpy()
+    for name, (mean, relu) in cfg["neighbors"].items():
+        kw = {k: torch.from_numpy(x[f"{name}/{k}"]) for k in ("scale", "add")
+              if f"{name}/{k}" in x}
+        for mode in ("interpret", "off"):
+            ops.set_pool_mode(mode)
+            out[f"{name}/{mode}"] = ops.pool_neighbors(
+                torch.from_numpy(x[name + "/x"]), mean=mean,
+                differentiable=False, relu=relu, **kw).numpy()
+    ops.set_pool_mode("off")
+    out["supported"] = np.array([supported(*g) for g in cfg["grid"]])
+    return out
+
+
+def _case_pruned(x, cfg, state):
+    """#4's plain version, its prologue's survivors, and which shapes
+    ops.knn routes to #4 under each gate setting (exact mode)."""
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops import core
+    from ogc_tpu_torch.ops.knn_pruned import (knn_exact_pruned_plain,
+                                              prologue, survivors)
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = {}
+    for name, (k, cb, qt) in cfg["cases"].items():
+        q, p = t[name + "/q"], t[name + "/p"]
+        d, i = knn_exact_pruned_plain(q, p, k, cb, qt)
+        out[name + "/dist"], out[name + "/idx"] = d.numpy(), i.numpy()
+        pro = prologue(q, p, cb, qt)
+        order, count = survivors(pro, p, k, qt)
+        out[name + "/order"], out[name + "/count"] = (order.numpy(),
+                                                      count.numpy())
+    used, saved = [], (core.knn_exact_pruned, core.knn_exact)
+
+    def fake(query, points, k):
+        used.append(1)
+        shape = query.shape[:2] + (k,)
+        return torch.zeros(shape), torch.zeros(shape, dtype=torch.int32)
+
+    core.knn_exact_pruned = fake
+    core.knn_exact = lambda q, p, k: (torch.zeros(q.shape[:2] + (k,)),
+                                      torch.zeros(q.shape[:2] + (k,),
+                                                  dtype=torch.int32))
+    routes = []
+    for mode in ("on", "knn"):
+        ops.set_exact_prune(mode)
+        for n, m, k in cfg["gate"]:
+            used.clear()
+            ops.knn(k, torch.zeros(1, n, 3), torch.zeros(1, m, 3))
+            routes.append(bool(used))
+    core.knn_exact_pruned, core.knn_exact = saved
+    ops.set_exact_prune("on")
+    out["routes"] = np.array(routes)
+    return out
+
+
+def _flow_arch(arch):
+    from ogc_tpu_torch.models.flownet import FlowNetArch, SASpec
+
+    if isinstance(arch, str):
+        return arch
+    spec = {k: (tuple(SASpec(*s) for s in v) if k in ("enc_loc", "enc_glob",
+                                                       "corr_sa")
+                else SASpec(*v) if k in ("flow_conv1", "flow_conv2")
+                else tuple(v) if isinstance(v, list) else v)
+            for k, v in arch.items()}
+    return FlowNetArch(**spec)
+
+
+def _case_flownet(x, cfg, state):
+    """The port's FlowStep3D forward in each neighbour mode of
+    ``cfg["modes"]``; exact mode again with the pool gate at
+    ``interpret``."""
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.models.flownet import FlowStep3D
+
+    m = _load_module(FlowStep3D(arch=_flow_arch(cfg["arch"]),
+                                **cfg["model"]), state)
+    pc1, pc2 = torch.from_numpy(x["pc1"]), torch.from_numpy(x["pc2"])
+    out = {}
+    runs = [(mode, "off") for mode in cfg["modes"]] + [("exact", "interpret")]
+    for mode, pool in runs:
+        ops.set_exact_neighbors(mode == "exact")
+        ops.set_pool_mode(pool)
+        with torch.no_grad():
+            flows = m(pc1, pc2, pc1, pc2, cfg["iters"])
+        out[mode if pool == "off" else f"{mode}/{pool}"] = torch.stack(
+            flows).numpy()
+    ops.set_pool_mode("off")
+    return out
+
+
 CASES = {
     "kernels": _case_kernels,
     "core": _case_core,
@@ -458,6 +572,9 @@ CASES = {
     "blockmin": _case_blockmin,
     "symgrad": _case_symgrad,
     "train_mode": _case_train_mode,
+    "pool": _case_pool,
+    "pruned": _case_pruned,
+    "flownet": _case_flownet,
 }
 
 
@@ -480,8 +597,10 @@ def main(argv: List[str]) -> None:
         from ogc_tpu_torch.ops.knn import knn_exact
         from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
                                                     knn_blockmin)
+        from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
         from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                               scatter_add_rows_onehot)
+        from ogc_tpu_torch.ops.pool import rowgroup_pool
         from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
         out["launches"] = np.array([fps.launches, knn_exact.launches,
@@ -491,6 +610,8 @@ def main(argv: List[str]) -> None:
                                            scatter_add_rows_onehot.launches])
         out["launches_blockmin"] = np.array([knn_blockmin.launches,
                                              ball_query_blockmin.launches])
+        out["launches_flow"] = np.array([rowgroup_pool.launches,
+                                         knn_exact_pruned.launches])
         np.savez(out_path, **out)
 
 
