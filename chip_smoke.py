@@ -83,12 +83,27 @@
 11. test_flow on SAPIEN (B=48, 4 iterations, --save, pool gate on) over
    the synthetic test scenes; the saved flows, read back through
    SapienDataset(predflow_path="flowstep3d"), equal the same forward.
+12. The mxu smooth edge engine (a main path of its own): phase 4 on a copy
+   of kittisf_unsup_fast.yaml with symmetric_grad false and edge_engine
+   mxu (bf16, approximate), with the derived launches (MXU_STEP: #9 and
+   #10 once per frame) and the count of tiles over the cap; the
+   determinism, card-vs-CPU (f32) and bf16 checks of phase 8; a profile as
+   in phase 5.
+13. #6's entry point: ogc_tpu_torch.tools.bench_knn_pruned.main (#3
+   against #6 at its four settings, scene-like clouds) with the counts set
+   to 0 before it.
 The kernel phase also holds the row-group pool (#12) at every pool shape of
 phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group
 add, ReLU on and off) and the bound-pruned exact KNN (#4) at every shape
 its gate admits on the flow path and the seg parity path, a ragged M and
 k = 64 over 32-point blocks, bit-equal to their plain versions and #4 to
-#2.
+#2; the block-sparse gather and scatter (#9/#10) on the mxu path's tables
+(sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11), SAPIEN's, a
+ragged N with an odd S and a uniform table over the cap, #9 bit-equal to
+advanced indexing and #10 to its plain version and #11, with the blocks
+per tile; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes
+on grid clouds, bit-equal to its plain version, beside #3 and #2 with its
+recall.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -157,7 +172,8 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 # And of one val batch (8 clouds forward, loss on 2 frames, no backward).
 KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
            "scatter_onehot", "knn_blockmin", "ball_blockmin", "pool",
-           "knn_exact_pruned")
+           "knn_exact_pruned", "gather_blocksparse", "scatter_blocksparse",
+           "knn_cand_pruned")
 
 
 def launch_counts(**kw):
@@ -191,6 +207,30 @@ FAST_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9,
                           ball_blockmin=4, scatter_add=5)
 FAST_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2)
 FAST_EVAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=5)
+# The mxu smooth edge engine (a main path of its own): a copy of
+# kittisf_unsup_fast.yaml with symmetric_grad false and edge_engine mxu, in
+# train_seg's default approximate mode, B=4 x 4 frames x 8192.  Each smooth
+# call (one per frame) sorts its 4 clouds by Morton code, builds the KNN
+# (k 32, r 1) and ball (ns 64, r 2) tables of the sorted clouds (#3 against
+# the stride-shuffled copy) and groups both in one block-sparse call: #9
+# forward, #10 backward, 4 x 8192 x 96 edges x 11 channels (10 slots and
+# the original index).  Derived launches of one step:
+#   fps 1, knn_exact 1, knn_blockmin 9, ball_blockmin 4  as in fast mode;
+#   scatter_add 9  SA1, SA2, the 3 FP groups, and per frame the backward of
+#     the mask's gather into Morton order;
+#   gather_blocksparse 4, scatter_blocksparse 4  one of each per frame.
+# A val batch (2 frames, no backward): fast mode's and 2 #9.  No tile
+# routes a call away: a tile over the cap of 32 blocks reads its rows from
+# device memory inside the kernels, and run_train prints their count.
+MXU_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9, ball_blockmin=4,
+                         scatter_add=9, gather_blocksparse=4,
+                         scatter_blocksparse=4)
+MXU_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2,
+                        gather_blocksparse=2)
+MXU_C = 11
+# #6's entry point (ogc_tpu_torch.tools.bench_knn_pruned, 10 timed calls
+# after one warm-up): per shape #3 once and #6 once per (n_cand, blk).
+BENCH_REPS = 10
 # KITTI-SF OA-ICP (the blockwise path at 8192): per batch two forwards and
 # the k=1 KNN of the mask interpolation.
 KITTI_ICP_BATCH = 20
@@ -864,6 +904,165 @@ def check_onehot(reports, gen):
             f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
+def check_blocksparse(report, gen):
+    """#9/#10 on the mxu path's own table (mxu_tables of sorted synthetic
+    KITTI-SF scenes, approximate as train_seg runs it: 4 x 8192 x 96, C 11),
+    on SAPIEN's (512 points, 8 slots, exact routes below 1024 points), a
+    ragged N = 1500 with an odd S = 17, and a uniform table whose every tile
+    reaches more than the cap's 32 blocks (the in-kernel route).  The
+    forward bit-equal to advanced indexing (its plain version and the
+    route without the kernel), the backward to its plain version and to
+    #11.  Timed beside those, the library calls (torch.gather;
+    index_add_, deterministic) and the bytes bound; the forward as the
+    path calls it (with its prologue, whose time is also given alone), the
+    backward without (it reuses the forward's)."""
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, mxu_tables
+    from ogc_tpu_torch.ops import blocksparse as bs
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
+
+    rng = np.random.RandomState(SEED)
+    kitti = torch.from_numpy(np.stack([kitti_scene(rng)[0]
+                                       for _ in range(TRAIN_B)])).cuda()
+    sap = grid_cloud(gen, SAP_B, SAP_N, 1.2, 1 / 64)
+    ragged = grid_cloud(gen, 2, 1500, 8.0)
+    tables = [
+        ("KITTI-SF smooth tables", kitti,
+         (SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R), MXU_C, TRAIN_T),
+        ("SAPIEN smooth tables", sap,
+         (SAP_KNN_K, SAP_KNN_R, SAP_BALL_NS, SAP_BALL_R), SAP_K + 1, 0),
+        ("ragged N 1500, odd S 17", ragged, (8, 1.0, 9, 1.0), MXU_C, 0)]
+    cases = []
+    for name, pc, (k, r, ns, rb), C, per_step in tables:
+        _, cat = mxu_tables(pc, OGCLossConfig(knn_k=k, knn_radius=r,
+                                              ball_q_k=ns, ball_q_radius=rb,
+                                              smooth_exact=False))
+        cases.append((name, cat, pc.shape[1], C, per_step))
+    cases.append(("uniform table", torch.randint(
+        0, N_POINT, (1, 1024, 16), generator=gen, device="cuda",
+        dtype=torch.int32), N_POINT, MXU_C, 0))
+    for name, idx, n, C, per_step in cases:
+        b, M, S = idx.shape
+        src = torch.softmax(torch.randn((b, n, C), generator=gen,
+                                        device="cuda") * 4, -1)
+        src[..., -1] = torch.arange(n, device="cuda")  # the index column
+        cot = torch.randn((b, M, S, C), generator=gen, device="cuda")
+        flat, cflat = idx.reshape(b, M * S), cot.reshape(b, M * S, C)
+        pro = bs.bs_prologue(idx, n)
+        got = bs.gather_blocksparse(src, idx, pro)
+        want = bs.gather_blocksparse_plain(src, idx)
+        grad = bs.scatter_add_blocksparse(idx, cot, n, pro)
+        plain = bs.scatter_add_blocksparse_plain(idx, cot, n)
+        general = scatter_add_rows(flat, cflat, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather_blocksparse {name}: kernel != "
+                                 f"indexing at {(got != want).sum().item()}")
+        if not (torch.equal(grad, plain) and torch.equal(grad, general)):
+            raise AssertionError(
+                f"scatter_blocksparse {name}: kernel != plain or #11, max "
+                f"diff {(grad - plain).abs().max().item()}")
+        nblk = pro.nblk.float()
+        units = pro.presence.sum(1, dtype=torch.int32).float()
+        deg = torch.zeros((b, n), dtype=torch.int64, device="cuda")
+        deg.scatter_add_(1, flat.long(),
+                         torch.ones_like(flat, dtype=torch.int64))
+        over = int((pro.nblk > bs.CAP).sum().item())
+        if name == "uniform table" and over != pro.nblk.numel():
+            raise AssertionError(f"uniform table: {over} of "
+                                 f"{pro.nblk.numel()} tiles over the cap")
+        gms = cuda_ms(lambda: bs.gather_blocksparse(src, idx), 20)
+        kms = cuda_ms(lambda: bs.gather_blocksparse(src, idx, pro), 20)
+        pro_ms = cuda_ms(lambda: bs.bs_prologue(idx, n), 20)
+        gpl = cuda_ms(lambda: bs.gather_blocksparse_plain(src, idx), 20)
+        lidx = flat.long()[..., None].expand(b, M * S, C)
+        glib = cuda_ms(lambda: torch.gather(src, 1, lidx), 20)
+        sms = cuda_ms(lambda: bs.scatter_add_blocksparse(idx, cot, n, pro),
+                      20)
+        spl = cuda_ms(lambda: bs.scatter_add_blocksparse_plain(idx, cot, n),
+                      3)
+        s11 = cuda_ms(lambda: scatter_add_rows(flat, cflat, n), 20)
+        key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n
+               ).reshape(-1)
+        acc = torch.zeros((b * n, C), device="cuda")
+        slib = cuda_ms(lambda: acc.zero_().index_add_(
+            0, key, cflat.reshape(-1, C)), 20)
+        gb, gby = bound_ms(b * (n * C * 4 + M * S * 4 + M * S * C * 4), 0)
+        sb, sby = bound_ms(b * (M * S * 4 + M * S * C * 4 + n * C * 4),
+                           b * M * S * C)
+        if per_step:
+            report.add("gather_blocksparse", 0, gms, gpl, gb, gby, glib,
+                       per_step=per_step, general=gpl)
+            report.add("scatter_blocksparse", 0, sms, spl, sb, sby, slib,
+                       per_step=per_step, general=s11)
+        log(f"blocksparse {name} ({b},{n},C={C}) x {M} rows x S={S} "
+            f"x{per_step}/step: blocks per 256-row tile max "
+            f"{int(nblk.max().item())} mean {nblk.mean().item():.4f}, "
+            f"{over} of {pro.nblk.numel()} tiles over the cap (in-kernel "
+            f"route); 32-row units reaching a block max "
+            f"{int(units.max().item())} mean {units.mean().item():.4f} of "
+            f"{pro.presence.shape[1]}; row in-degree max "
+            f"{int(deg.max().item())} mean {deg.float().mean().item():.4f}; "
+            f"#9 bit-equal to indexing: with prologue {gms:.4f} ms "
+            f"(kernel {kms:.4f}, prologue {pro_ms:.4f}), plain = general "
+            f"route (indexing) {gpl:.4f} ms, torch.gather {glib:.4f} ms, "
+            f"bound {gb:.4f} ms ({gby}); #10 bit-equal to plain and #11: "
+            f"{sms:.4f} ms, plain {spl:.4f} ms, general route (#11 + sort) "
+            f"{s11:.4f} ms, index_add_ {slib:.4f} ms, bound {sb:.4f} ms "
+            f"({sby})")
+
+
+def check_knn_cand(report, gen):
+    """#6 at ogc_tpu_torch.tools.bench_knn_pruned's shapes and candidate
+    settings on grid clouds, bit-equal to its plain version; timed (with
+    its prologue) beside the plain version, #3 at the same shape (the
+    bench's other arm, "general"), and #2's exact route; recall of #6 and
+    of #3 against #2 (a report, not a gate).  Bound: 8 f32 operations per
+    (query, candidate) pair the candidate blocks hold, or the bytes.  No
+    single PyTorch call computes it: no library time.  Weighted once per
+    (shape, setting): one pass of the bench's calls."""
+    from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.knn_blockmin import knn_blockmin
+    from ogc_tpu_torch.ops.knn_cand import (CB, knn_cand, knn_cand_plain,
+                                            prologue, resolve)
+    from ogc_tpu_torch.tools.bench_knn_pruned import CASES
+
+    def recall(i, ref):
+        return (i[..., :, None] == ref[..., None, :]).any(-1).float().mean(
+            ).item()
+
+    for B, N, M, k, cfgs in CASES:
+        q, p = grid_cloud(gen, B, N), grid_cloud(gen, B, M)
+        _, ei = knn_exact(q, p, k)
+        _, fi = knn_blockmin(q, p, k, 0.95)
+        fms = cuda_ms(lambda: knn_blockmin(q, p, k, 0.95), 10)
+        ems = cuda_ms(lambda: knn_exact(q, p, k), 10)
+        for bc, blk in cfgs:
+            (d, i) = knn_cand(q, p, k, bc, blk=blk)
+            (pd, pi) = knn_cand_plain(q, p, k, bc, blk=blk)
+            torch.cuda.synchronize()
+            if not (torch.equal(i, pi) and torch.equal(d, pd)):
+                raise AssertionError(
+                    f"knn_cand B{B} N{N} M{M} k{k} ({bc},{blk}): kernel != "
+                    f"plain at {(i != pi).sum().item()} indices, max dist "
+                    f"diff {(d - pd).abs().max().item()}")
+            ms = cuda_ms(lambda: knn_cand(q, p, k, bc, blk=blk), 10)
+            n_cand = resolve(M, k, bc, blk)[0]
+            pro_ms = cuda_ms(lambda: prologue(q, p, n_cand), 10)
+            pms = cuda_ms(lambda: knn_cand_plain(q, p, k, bc, blk=blk), 3)
+            bnd, by = bound_ms(B * ((N + M) * 12 + N * k * 8),
+                               B * N * n_cand * CB * 8)
+            report.add("knn_cand_pruned", 0, ms, pms, bnd, by, general=fms)
+            log(f"knn_cand_pruned B{B} N{N} M{M} k{k} (n_cand {bc}, blk "
+                f"{blk}): idx and dist bit-equal to plain; kernel {ms:.4f} "
+                f"ms with its prologue ({pro_ms:.4f} ms of it), plain "
+                f"{pms:.4f} ms, #3 {fms:.4f} ms, "
+                f"#2 {ems:.4f} ms, bound {bnd:.4f} ms ({by}); recall against "
+                f"#2: #6 {recall(i, ei):.4f}, #3 {recall(fi, ei):.4f}")
+    # Where the prologue's time goes (the last setting's).
+    profile_steps(f"#6 prologues (B{B} N{N} M{M}, n_cand {n_cand})",
+                  lambda _: prologue(q, p, n_cand))
+
+
 def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     eval_report, train_report = Report(), Report()
@@ -933,7 +1132,26 @@ def check_kernels():
             f"plain {e['plain_ms']:.4f} ms, general route "
             f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library {e['library_ms']}")
-    return train_report, sapien["full"][0], fast_report, flow_report
+    log(f"-- mxu edge engine: #9/#10 (KITTI-SF B={TRAIN_B} x {N_POINT} per "
+        f"frame; SAPIEN; ragged; uniform)")
+    mxu_report = Report()
+    check_blocksparse(mxu_report, gen)
+    log("-- #6 at ogc_tpu_torch.tools.bench_knn_pruned's shapes")
+    cand_report = Report()
+    check_knn_cand(cand_report, gen)
+    for rep, what, names in (
+            (mxu_report, "mxu train step",
+             ("gather_blocksparse", "scatter_blocksparse")),
+            (cand_report, "bench pass", ("knn_cand_pruned",))):
+        for name in names:
+            e = rep.entry(name)
+            log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.4f} ms, general route "
+                f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), library {e['library_ms']}")
+    return {"parity": train_report, "sapien": sapien["full"][0],
+            "fast": fast_report, "flow": flow_report, "mxu": mxu_report,
+            "cand": cand_report}
 
 
 def kitti_scene(rng):
@@ -985,7 +1203,10 @@ def write_kittisf(root, ids, seed):
 
 def counters():
     from ogc_tpu_torch.ops.ball import ball_query_exact
+    from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
+                                               scatter_add_blocksparse)
     from ogc_tpu_torch.ops.fps import fps
+    from ogc_tpu_torch.ops.knn_cand import knn_cand
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
                                                 knn_blockmin)
@@ -1000,12 +1221,17 @@ def counters():
             "gather_onehot": gather_rows_onehot,
             "scatter_onehot": scatter_add_rows_onehot,
             "knn_blockmin": knn_blockmin, "ball_blockmin": ball_query_blockmin,
-            "pool": rowgroup_pool, "knn_exact_pruned": knn_exact_pruned}
+            "pool": rowgroup_pool, "knn_exact_pruned": knn_exact_pruned,
+            "gather_blocksparse": gather_blocksparse,
+            "scatter_blocksparse": scatter_add_blocksparse,
+            "knn_cand_pruned": knn_cand}
 
 
 def reset_counts():
+    """Every launch count, and #9's count of tiles over the cap, to 0."""
     for fn in counters().values():
         fn.launches = 0
+    counters()["gather_blocksparse"].overflow_tiles = 0
 
 
 def read_counts():
@@ -1013,8 +1239,11 @@ def read_counts():
 
 
 def setup_data(tmp):
-    """Synthetic KITTI-SF root, mapping files, and copies of the parity and
-    the fast config pointing at them: {"parity" | "fast": (cfg, path)}."""
+    """Synthetic KITTI-SF root, mapping files, and copies of the parity, the
+    fast and the mxu config pointing at them: {"parity" | "fast" | "mxu":
+    (cfg, path)}.  The mxu config is the fast one with symmetric_grad false
+    and edge_engine mxu (the JAX package takes the mxu engine only without
+    the symmetric gradient)."""
     import yaml
 
     with open("data_prepare/kittisf/splits/train.txt") as f:
@@ -1031,9 +1260,14 @@ def setup_data(tmp):
             f.write("\n".join(ids))
     out = {}
     for mode, name in (("parity", "kittisf_unsup"),
-                       ("fast", "kittisf_unsup_fast")):
+                       ("fast", "kittisf_unsup_fast"),
+                       ("mxu", "kittisf_unsup_fast")):
         with open(f"config/seg/kittisf/{name}.yaml") as f:
             cfg = yaml.safe_load(f)
+        if mode == "mxu":
+            cfg["loss"]["smooth_loss_params"].update(symmetric_grad=False,
+                                                     edge_engine="mxu")
+            name = "kittisf_unsup_fast_mxu"
         cfg["data"].update(root=root, train_mapping=maps["train"],
                            val_mapping=maps["val"])
         cfg["save_path"] = osp.join(tmp, "ckpt", name)
@@ -1121,6 +1355,14 @@ def run_train(tmp, cfg, cfg_path, exact, per_step, per_val):
     res = train_seg.main([cfg_path, "--round", "1", "--device", DEVICE])
     wall = time.perf_counter() - t0
     launches = read_counts()
+    if launches["gather_blocksparse"]:
+        from ogc_tpu_torch.ops.blocksparse import gather_blocksparse
+
+        log(f"mxu engine: {int(gather_blocksparse.overflow_tiles)} of "
+            f"{launches['gather_blocksparse'] * TRAIN_B * N_POINT // 256} "
+            f"tiles of the run's #9/#10 calls over the cap of 32 blocks "
+            f"(read from device memory inside the kernels; no call routed "
+            f"away)")
     trainer = res["trainer"]
     steps = len(trainer.step_seconds)
     n_val = -(-N_VAL_IDS // TRAIN_B)
@@ -1914,8 +2156,21 @@ def main():
     log(f"kernels built from {_build.CSRC_DIR} in {_build.build_seconds:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
-    report, sap_report, fast_report, flow_report = check_kernels()
+    reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    # #6's entry point, with the counts set to 0 just before it.
+    from ogc_tpu_torch.tools import bench_knn_pruned
+
+    reset_counts()
+    bench_knn_pruned.main(["--reps", str(BENCH_REPS)])
+    cand_launches = read_counts()
+    calls = sum(len(c[-1]) for c in bench_knn_pruned.CASES) * (BENCH_REPS + 1)
+    want = launch_counts(knn_cand_pruned=calls, knn_blockmin=len(
+        bench_knn_pruned.CASES) * (BENCH_REPS + 1))
+    log(f"bench_knn_pruned: launches {cand_launches}")
+    if cand_launches != want:
+        raise AssertionError(f"bench_knn_pruned: launches {cand_launches}, "
+                             f"derived {want}")
     with tempfile.TemporaryDirectory() as tmp:
         cfgs = setup_data(tmp)
         # The parity phases pin exact neighbours, as protocol_sapien's
@@ -1937,6 +2192,13 @@ def main():
         profile_train(fcfg, tmp, fixed_batch(fcfg, TRAIN_B))
         run_eval(tmp, fcfg, fcfg_path, approx=True)
         log(f"fast phase done at {time.perf_counter() - t_start:.1f} s")
+        # The mxu edge engine: the fast config without the symmetric
+        # gradient, smooth groups through #9/#10.
+        mcfg, mcfg_path = cfgs["mxu"]
+        mxu_launches = run_train(tmp, mcfg, mcfg_path, False, MXU_STEP,
+                                 MXU_VAL)
+        profile_train(mcfg, tmp, fixed_batch(mcfg, TRAIN_B))
+        log(f"mxu phase done at {time.perf_counter() - t_start:.1f} s")
         sap_cfgs, sap_launches = run_sapien(tmp)
         log(f"SAPIEN alternation done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -1956,8 +2218,10 @@ def main():
 
     # name: (source, the TPU kernel it replaces); launches come from the
     # KITTI-SF train run, for #7/#8 from the SAPIEN alternation, for #3
-    # from the fast KITTI-SF train run, and for #12/#4 from the gates-on
-    # KITTI-SF flow forwards (exact and approximate) and test_flow.
+    # from the fast KITTI-SF train run, for #12/#4 from the gates-on
+    # KITTI-SF flow forwards (exact and approximate) and test_flow, for
+    # #9/#10 from the mxu KITTI-SF train run, and for #6 from
+    # bench_knn_pruned.
     meta = {
         "fps": ("ogc_tpu_torch/csrc/fps.cu",
                 "ogc_tpu/ops/pallas_kernels.py:24"),
@@ -1979,15 +2243,25 @@ def main():
                  "ogc_tpu/ops/pallas_pool.py:112"),
         "knn_exact_pruned": ("ogc_tpu_torch/csrc/knn_exact_pruned.cu",
                              "ogc_tpu/ops/pallas_knn.py:757"),
+        "gather_blocksparse": ("ogc_tpu_torch/csrc/onehot_bs.cu",
+                               "ogc_tpu/ops/pallas_onehot.py:258"),
+        "scatter_blocksparse": ("ogc_tpu_torch/csrc/onehot_bs.cu",
+                                "ogc_tpu/ops/pallas_onehot.py:288"),
+        "knn_cand_pruned": ("ogc_tpu_torch/csrc/knn_cand_pruned.cu",
+                            "ogc_tpu/ops/pallas_knn.py:1164"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
-        rep_, counts = ((sap_report, sap_launches) if name.endswith("_onehot")
-                        else (fast_report, fast_launches)
-                        if name.endswith("_blockmin")
-                        else (flow_report, flow_launches)
-                        if name in ("pool", "knn_exact_pruned")
-                        else (report, launches))
+        rep_, counts = (
+            (reports["sapien"], sap_launches) if name.endswith("_onehot")
+            else (reports["fast"], fast_launches) if name.endswith("_blockmin")
+            else (reports["flow"], flow_launches)
+            if name in ("pool", "knn_exact_pruned")
+            else (reports["mxu"], mxu_launches)
+            if name.endswith("_blocksparse")
+            else (reports["cand"], cand_launches)
+            if name == "knn_cand_pruned"
+            else (reports["parity"], launches))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": counts[name],
                         **rep_.entry(name)})

@@ -9,22 +9,28 @@ after Hungarian matching by IoU, plus the entropy and rank monitors
 The smooth terms differentiate through ``ops.group``, whose backward is the
 deterministic scatter-add kernel; with ``symmetric_grad`` (the fast configs)
 their backward is the scatter-free symmetric-graph formula instead.  The
-Hungarian matching runs on the host (utils/lap.py, the JAX package's solver
-step for step).  Options of the JAX package that no shipped config of the
-port's paths uses -- the mutual graph, the MXU edge engine, lean/remat
-smooth backwards, the opt-in scatter routing flag and ``monitor_terms:
-false`` -- are not ported (ROADMAP A.13): asking for them raises.
+``mxu`` edge engine (``smooth_loss_params.edge_engine``) sorts the cloud by
+Morton code and groups both edge tables in one block-sparse call
+(``_smooth_mxu``, kernels #9/#10).  The Hungarian matching runs on the host
+(utils/lap.py, the JAX package's solver step for step).  Options of the JAX
+package that no shipped config of the port's paths uses -- the mutual graph,
+lean/remat smooth backwards, the opt-in scatter routing flag and
+``monitor_terms: false`` -- are not ported (ROADMAP A.13): asking for them
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ogc_tpu_torch import ops
+from ogc_tpu_torch.ops.blocksparse import group_blocksparse
+from ogc_tpu_torch.ops.knn_pruned import _argsort_rows, morton_codes
 from ogc_tpu_torch.utils.lap import linear_sum_assignment
 
 
@@ -147,24 +153,128 @@ def _smooth_term(mask: torch.Tensor, idx: torch.Tensor, loss_norm: int,
 
 def knn_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
                     radius: float, loss_norm: int = 1,
-                    symmetric_grad: bool = False) -> torch.Tensor:
+                    symmetric_grad: bool = False,
+                    exact: Optional[bool] = None) -> torch.Tensor:
     """KNN smoothness with the radius clamp (reference KnnLoss,
     losses/seg_loss_unsup.py:101-129): neighbours farther than ``radius``
-    are replaced by the nearest one."""
+    are replaced by the nearest one.  ``exact``: the search's neighbour
+    mode (None: the global one)."""
     with torch.no_grad():
-        dist, idx = ops.knn(k, pc, pc)
+        dist, idx = ops.knn(k, pc, pc, exact=exact)
         idx = torch.where(dist > radius, idx[..., :1], idx)
     return _smooth_term(mask, idx, loss_norm, symmetric_grad)
 
 
 def ball_q_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
                        radius: float, loss_norm: int = 1,
-                       symmetric_grad: bool = False) -> torch.Tensor:
+                       symmetric_grad: bool = False,
+                       exact: Optional[bool] = None) -> torch.Tensor:
     """Ball-query smoothness (reference BallQLoss,
     losses/seg_loss_unsup.py:132-158)."""
     with torch.no_grad():
-        idx = ops.ball_query(radius, k, pc, pc)
+        idx = ops.ball_query(radius, k, pc, pc, exact=exact)
     return _smooth_term(mask, idx, loss_norm, symmetric_grad)
+
+
+# The MXU edge engine (ogc_tpu/losses/seg_unsup.py:450-571).  The cloud and
+# mask are permuted into Morton order inside the loss, so both edge tables
+# become block-coherent and one block-sparse grouping call (#9 forward, #10
+# backward) serves them; the loss is a mean over edges, so the order only
+# changes which tied or filling edges are picked.  Approximate search runs
+# against a stride-shuffled copy of the sorted cloud (j -> j * s mod N, s
+# coprime to N): on the sorted order the block-min thinning would collapse
+# a neighbourhood into a couple of runs.
+
+
+def _coprime_stride(n: int) -> int:
+    """The shuffle stride: ~0.618 n, odd, coprime to n."""
+    s = max(3, int(n * 0.618) | 1)
+    while math.gcd(s, n) != 1:
+        s += 2
+    return s
+
+
+def _shuffled_approx_tables(pc_s: torch.Tensor, knn_k: int, ball_k: int,
+                            ball_radius: float):
+    """Approximate KNN and ball tables of a sorted cloud (B, N, 3), searched
+    against its stride-shuffled copy and mapped back by the same closed
+    form.  :return: (knn_dist, knn_idx, ball_idx), indices in sorted
+    order."""
+    N = pc_s.shape[1]
+    s = _coprime_stride(N)
+    pos = torch.arange(N, device=pc_s.device) * s % N
+    shuffled = pc_s[:, pos]
+    dist, idx_shuf = ops.knn(knn_k, pc_s, shuffled, exact=False)
+    ball_shuf = ops.ball_query(ball_radius, ball_k, shuffled, pc_s,
+                               exact=False)
+    return dist, idx_shuf * s % N, ball_shuf * s % N
+
+
+def _edge_phi(diff: torch.Tensor, loss_norm: int) -> torch.Tensor:
+    """Per-edge norm over the mask channels: (..., S, K) -> (..., S)."""
+    if loss_norm == 1:
+        return diff.abs().sum(-1)
+    return torch.sqrt(torch.clamp((diff * diff).sum(-1), min=1e-24))
+
+
+@torch.no_grad()
+def mxu_tables(pc: torch.Tensor, cfg: "OGCLossConfig"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mxu engine's Morton order and edge table of ``pc`` (B, N, 3).
+
+    :return: (perm (B, N) int64, the stable Morton argsort; cat (B, N,
+        knn_k + ball_q_k) int32, the radius-clamped KNN table and the ball
+        table of the sorted cloud, in sorted indices)."""
+    B, N, _ = pc.shape
+    perm = _argsort_rows(morton_codes(pc.float()))
+    pc_s = torch.gather(pc.float(), 1, perm[..., None].expand(B, N, 3))
+    exact = (ops.exact_neighbors() if cfg.smooth_exact is None
+             else bool(cfg.smooth_exact))
+    if exact:
+        dist, idx_raw = ops.knn(cfg.knn_k, pc_s, pc_s, exact=True)
+        ball_idx = ops.ball_query(cfg.ball_q_radius, cfg.ball_q_k, pc_s, pc_s,
+                                  exact=True)
+    else:
+        dist, idx_raw, ball_idx = _shuffled_approx_tables(
+            pc_s, cfg.knn_k, cfg.ball_q_k, cfg.ball_q_radius)
+    knn_idx = torch.where(dist > cfg.knn_radius, idx_raw[..., :1], idx_raw)
+    return perm, torch.cat([knn_idx, ball_idx], -1).to(torch.int32)
+
+
+def _smooth_mxu(pc: torch.Tensor, mask: torch.Tensor,
+                cfg: "OGCLossConfig") -> torch.Tensor:
+    """w_knn * KnnLoss + w_ball_q * BallQLoss on the reference graphs with
+    both tables through one ``group_blocksparse`` call
+    (ogc_tpu/losses/seg_unsup.py::_smooth_mxu).
+
+    The ball fill: an under-full ball repeats its first member, and on the
+    sorted cloud "first" is another point than on the original one.  The
+    original index rides the gather as one more channel (a float, exact
+    below 2^24), and the fill's weight moves to the member of least
+    original index, as the reference fills.  The mask reaches the sorted
+    order through ``ops.gather``, whose backward is the deterministic
+    scatter-add (#11)."""
+    K = mask.shape[-1]
+    perm, cat = mxu_tables(pc, cfg)
+    mask_s = ops.gather(mask, perm)
+    src = torch.cat([mask_s, perm.to(mask_s.dtype)[..., None]], -1)
+    nn = group_blocksparse(src, cat)  # (B, N, S1 + S2, K + 1)
+    k1, S2 = cfg.knn_k, cfg.ball_q_k
+    l_knn = _neighbor_discrepancy(mask_s, nn[:, :, :k1, :K],
+                                  cfg.knn_loss_norm)
+    phi = _edge_phi(mask_s[:, :, None, :] - nn[:, :, k1:, :K],
+                    cfg.ball_q_loss_norm)  # (B, N, S2)
+    with torch.no_grad():
+        bidx = cat[:, :, k1:]
+        fills = (bidx[..., 1:] == bidx[..., :1]).float().sum(-1)
+        # The member of least original index; a one-hot pick of its phi
+        # (no gather: its backward would scatter with atomics).
+        star = (torch.argmin(nn[:, :, k1:, K], -1, keepdim=True)
+                == torch.arange(S2, device=pc.device))
+    phi_star = torch.where(star, phi, 0.0).sum(-1)
+    row = phi.sum(-1) + fills * (phi_star - phi[..., 0])
+    l_bq = row.mean() / S2
+    return cfg.smooth_w_knn * l_knn + cfg.smooth_w_ball_q * l_bq
 
 
 def interpolate_mask_by_flow(pc1: torch.Tensor, pc2: torch.Tensor,
@@ -263,12 +373,18 @@ class OGCLossConfig:
     invariance_loss_norm: int = 2
     # Scatter-free symmetric-graph smooth gradient (_SymGradDiscrepancy).
     symmetric_smooth_grad: bool = False
+    # Neighbour mode of the smooth-loss tables only (None: the global one).
+    smooth_exact: Optional[bool] = None
+    # Smooth-loss edge engine: "gather" groups on the original point order;
+    # "mxu" is _smooth_mxu (Morton order, kernels #9/#10), taken only
+    # without symmetric_smooth_grad, as in the JAX package.
+    smooth_edge_engine: str = "gather"
 
     # Keys of the JAX package's extensions, with the only value the port
     # implements: smooth_loss_params keys, and the loss block's
     # monitor_terms (the port always computes the entropy/rank monitors).
-    _UNPORTED = {"graph": "reference", "edge_engine": "gather",
-                 "ref_bwd": "autodiff", "scatter_kernel": False}
+    _UNPORTED = {"graph": "reference", "ref_bwd": "autodiff",
+                 "scatter_kernel": False}
 
     @classmethod
     def from_dict(cls, loss_cfg: dict) -> "OGCLossConfig":
@@ -285,6 +401,10 @@ class OGCLossConfig:
                 raise NotImplementedError(
                     f"{key}={got!r} is not ported: the port runs "
                     f"{want!r} only (ROADMAP.md A.13)")
+        engine = s.get("edge_engine", "gather")
+        if engine not in ("gather", "mxu"):
+            raise ValueError(f"smooth_loss_params.edge_engine must be "
+                             f"'gather' or 'mxu', got {engine!r}")
         kp = s.get("knn_loss_params", {})
         bp = s.get("ball_q_loss_params", {})
         return cls(
@@ -301,6 +421,7 @@ class OGCLossConfig:
             ball_q_loss_norm=bp.get("loss_norm", 1),
             invariance_loss_norm=i.get("loss_norm", 2),
             symmetric_smooth_grad=s.get("symmetric_grad", False),
+            smooth_edge_engine=engine,
         )
 
 
@@ -308,10 +429,14 @@ def smooth_loss(pc: torch.Tensor, mask: torch.Tensor,
                 cfg: OGCLossConfig) -> torch.Tensor:
     """w_knn * KnnLoss + w_ball_q * BallQLoss (reference SmoothLoss,
     losses/seg_loss_unsup.py:161-180)."""
+    if cfg.smooth_edge_engine == "mxu" and not cfg.symmetric_smooth_grad:
+        return _smooth_mxu(pc, mask, cfg)
     l_knn = knn_smooth_loss(pc, mask, cfg.knn_k, cfg.knn_radius,
-                            cfg.knn_loss_norm, cfg.symmetric_smooth_grad)
+                            cfg.knn_loss_norm, cfg.symmetric_smooth_grad,
+                            cfg.smooth_exact)
     l_bq = ball_q_smooth_loss(pc, mask, cfg.ball_q_k, cfg.ball_q_radius,
-                              cfg.ball_q_loss_norm, cfg.symmetric_smooth_grad)
+                              cfg.ball_q_loss_norm, cfg.symmetric_smooth_grad,
+                              cfg.smooth_exact)
     return cfg.smooth_w_knn * l_knn + cfg.smooth_w_ball_q * l_bq
 
 

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "ogc_rowgroup_pool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P],
+    "ogc_bs_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_bs_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                     _P, _P],
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,8 @@ Counterpart of ogc_tpu/ops/core.py: features are (B, N, C) and groups
 
 Neighbour mode, as in the JAX package: ``OGC_EXACT_NEIGHBORS`` in ("1",
 "on") at import pins exact search; otherwise search is approximate, and
-``set_exact_neighbors`` switches it.  Exact search is ops/knn.py (#2) and
+``set_exact_neighbors`` switches it; ``knn`` and ``ball_query`` take a
+per-call ``exact`` that overrides it.  Exact search is ops/knn.py (#2) and
 ops/ball.py (#5).  Approximate search takes the block-min kernel
 (ops/knn_blockmin.py, #3) behind the JAX package's gates: KNN where the
 searched cloud has M >= 1024 points and ceil(M / 4) >= k, ball query where
@@ -133,21 +134,24 @@ def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, M, S, C)
 
 
-def knn(k: int, query: torch.Tensor,
-        points: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn(k: int, query: torch.Tensor, points: torch.Tensor,
+        exact: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of ``query`` (B, N, 3) in ``points`` (B, M, 3).
 
+    :param exact: this call's neighbour mode; None takes the global one.
     :return: (dist, idx), each (B, N, k): sqrt distances and int32 indices,
         ascending, ties to the lower index (in approximate mode on the gate,
         #3's winners and truncated distances).  For k > M the row is padded
         with its farthest neighbour (ogc_tpu/ops/core.py::_pad_k).
     """
     M = points.shape[1]
-    if not _EXACT and M >= 1024 and -(-M // 4) >= k:
+    exact = _EXACT if exact is None else bool(exact)
+    if not exact and M >= 1024 and -(-M // 4) >= k:
         recall = _RECALL_LARGE_K if k >= 8 else _RECALL_SMALL_K
         return knn_blockmin(query.float(), points.float(), k, recall)
-    if (_EXACT and _EXACT_PRUNE == "knn" and _PRUNE_MIN_M <= M <= _PRUNE_MAX_M
-            and M >= k and query.shape[1] >= _PRUNE_MIN_N):
+    if (exact and _EXACT_PRUNE == "knn"
+            and _PRUNE_MIN_M <= M <= _PRUNE_MAX_M and M >= k
+            and query.shape[1] >= _PRUNE_MIN_N):
         return knn_exact_pruned(query.float(), points.float(), k)
     k_eff = min(k, M)
     dist, idx = knn_exact(query.float(), points.float(), k_eff)
@@ -187,12 +191,15 @@ def upsample_feat(pc: torch.Tensor, pc_sub: torch.Tensor,
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
-               new_xyz: torch.Tensor) -> torch.Tensor:
+               new_xyz: torch.Tensor,
+               exact: Optional[bool] = None) -> torch.Tensor:
     """Fixed-size in-radius neighbour lists of the centres ``new_xyz``
     (B, M, 3) among ``xyz`` (B, N, 3): (B, M, nsample) int32
-    (ogc_tpu/ops/core.py::ball_query, with _fill_balls)."""
+    (ogc_tpu/ops/core.py::ball_query, with _fill_balls).  ``exact`` is this
+    call's neighbour mode; None takes the global one."""
     N = xyz.shape[1]
-    if not _EXACT and N >= 1024 and -(-N // 4) >= nsample:
+    exact = _EXACT if exact is None else bool(exact)
+    if not exact and N >= 1024 and -(-N // 4) >= nsample:
         return ball_query_blockmin(xyz.float(), new_xyz.float(), radius,
                                    nsample)
     return ball_query_exact(xyz.float(), new_xyz.float(), radius, nsample)

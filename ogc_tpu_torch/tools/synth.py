@@ -1,6 +1,7 @@
-"""Synthetic SAPIEN scenes with spatially coherent parts (the port's copy of
-tests/synth.py::make_sapien_root_coherent and ::rand_se3; numpy and scipy
-only).  The same seed writes byte-identical scenes.
+"""Synthetic scenes (the port's copy of tests/synth.py::
+make_sapien_root_coherent, ::rand_se3 and ::scene_like_cloud; numpy and
+scipy only): SAPIEN scenes with spatially coherent parts, and outdoor-like
+clouds.  The same seed gives byte-identical data.
 """
 
 import json
@@ -75,3 +76,15 @@ def make_sapien_root_coherent(root, n_scenes=60, n_views=4, n_points=512,
     with open(osp.join(root, "meta.json"), "w") as f:
         json.dump(meta, f)
     return root
+
+
+def scene_like_cloud(rng, n, extent=30.0):
+    """Surface-like outdoor cloud: a ground plane and 8 clusters, the
+    regime where Morton blocking is informative (n, 3) float32."""
+    ground = np.c_[extent * rng.rand(n // 2, 2), 0.2 * rng.rand(n // 2, 1)]
+    ks = [
+        extent * rng.rand(3) * np.array([1, 1, 0.1])
+        + rng.randn(n // 14, 3) * np.array([1.5, 1.5, 0.8])
+        for _ in range(8)
+    ]
+    return np.vstack([ground] + ks)[:n].astype(np.float32)

@@ -11,7 +11,9 @@ Every case also reports the kernel launch counters (FPS, exact KNN, ball
 query, scatter-add; the small-source gather and scatter as
 ``launches_onehot``; the block-min KNN and ball query as
 ``launches_blockmin``; the row-group pool and the bound-pruned KNN as
-``launches_flow``), which must stay at 0 on CPU tensors.  The torch side
+``launches_flow``; the block-sparse gather and scatter and the
+candidate-pruned KNN as ``launches_cand``), which must stay at 0 on CPU
+tensors.  The torch side
 runs with exact neighbours (``OGC_EXACT_NEIGHBORS=1``) unless a test asks
 for the environment without it; a case's ``compute_dtype: bf16`` runs it in
 the bf16 compute mode.
@@ -515,6 +517,94 @@ def _case_pruned(x, cfg, state):
     return out
 
 
+def _case_blocksparse(x, cfg, state):
+    """#9/#10's plain versions through ``group_blocksparse`` (forward, and
+    the backward of a cotangent), the prologue's lists, and #11's plain
+    version on the flattened table."""
+    import torch
+
+    from ogc_tpu_torch.ops.blocksparse import bs_prologue, group_blocksparse
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows_plain
+
+    out = {}
+    for name in cfg["cases"]:
+        src = torch.from_numpy(x[name + "/src"]).requires_grad_(True)
+        idx = torch.from_numpy(x[name + "/idx"])
+        cot = torch.from_numpy(x[name + "/cot"])
+        B, M, S = idx.shape
+        pro = bs_prologue(idx, src.shape[1])
+        got = group_blocksparse(src, idx)
+        got.backward(cot)
+        out.update({name + "/order": pro.order.numpy(),
+                    name + "/count": pro.count.numpy(),
+                    name + "/overflow": pro.overflow.numpy(),
+                    name + "/out": got.detach().numpy(),
+                    name + "/grad": src.grad.numpy(),
+                    name + "/scatter11": scatter_add_rows_plain(
+                        idx.reshape(B, M * S), cot.reshape(B, M * S, -1),
+                        src.shape[1]).numpy()})
+    return out
+
+
+def _case_smooth_mxu(x, cfg, state):
+    """``smooth_loss`` (value and mask gradient) for each named
+    OGCLossConfig of ``cfg["runs"]`` on its cloud and mask, with whether
+    it took the mxu engine; and ``from_dict`` on each smooth block of
+    ``cfg["from_dict"]`` (its engine, or the error it raised)."""
+    import torch
+
+    from ogc_tpu_torch.losses import seg_unsup as SU
+
+    taken = []
+    mxu = SU._smooth_mxu
+    SU._smooth_mxu = lambda *a: taken.append(1) or mxu(*a)
+    out = {}
+    for name, (data, fields) in cfg["runs"].items():
+        mask = torch.from_numpy(x[data + "/mask"]).requires_grad_(True)
+        taken.clear()
+        loss = SU.smooth_loss(torch.from_numpy(x[data + "/pc"]), mask,
+                              SU.OGCLossConfig(**fields))
+        loss.backward()
+        out.update({name + "/loss": loss.detach().numpy(),
+                    name + "/grad": mask.grad.numpy(),
+                    name + "/mxu": np.array(bool(taken))})
+    SU._smooth_mxu = mxu
+    parsed = []
+    for smooth in cfg["from_dict"]:
+        try:
+            lc = SU.OGCLossConfig.from_dict({"smooth_loss_params": smooth})
+            parsed.append(lc.smooth_edge_engine)
+        except (NotImplementedError, ValueError) as e:
+            parsed.append(type(e).__name__)
+    out["from_dict"] = np.array(parsed)
+    return out
+
+
+def _case_knn_cand(x, cfg, state):
+    """#6's plain version through ``knn_cand`` for each named case, whether
+    it routed to #3, and ``resolve`` on each (M, k, n_cand, blk) of
+    ``cfg["resolve"]``."""
+    import torch
+
+    from ogc_tpu_torch.ops import knn_cand as KC
+
+    routed = []
+    blockmin = KC.knn_blockmin
+    KC.knn_blockmin = lambda *a: routed.append(1) or blockmin(*a)
+    out = {}
+    for name, (k, n_cand, blk) in cfg["cases"].items():
+        routed.clear()
+        d, i = KC.knn_cand(torch.from_numpy(x[name + "/q"]),
+                           torch.from_numpy(x[name + "/p"]), k, n_cand,
+                           blk=blk)
+        out.update({name + "/dist": d.numpy(), name + "/idx": i.numpy(),
+                    name + "/blockmin": np.array(bool(routed))})
+    KC.knn_blockmin = blockmin
+    out["resolve"] = np.array([KC.resolve(m, k, n, b)
+                               for m, k, n, b in cfg["resolve"]])
+    return out
+
+
 def _flow_arch(arch):
     from ogc_tpu_torch.models.flownet import FlowNetArch, SASpec
 
@@ -575,6 +665,9 @@ CASES = {
     "pool": _case_pool,
     "pruned": _case_pruned,
     "flownet": _case_flownet,
+    "blocksparse": _case_blocksparse,
+    "smooth_mxu": _case_smooth_mxu,
+    "knn_cand": _case_knn_cand,
 }
 
 
@@ -593,7 +686,10 @@ def main(argv: List[str]) -> None:
         apply_compute_dtype({"compute_dtype": cfg.pop("compute_dtype", None)})
         out = CASES[case](x, cfg, state)
         from ogc_tpu_torch.ops.ball import ball_query_exact
+        from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
+                                                   scatter_add_blocksparse)
         from ogc_tpu_torch.ops.fps import fps
+        from ogc_tpu_torch.ops.knn_cand import knn_cand
         from ogc_tpu_torch.ops.knn import knn_exact
         from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
                                                     knn_blockmin)
@@ -612,6 +708,9 @@ def main(argv: List[str]) -> None:
                                              ball_query_blockmin.launches])
         out["launches_flow"] = np.array([rowgroup_pool.launches,
                                          knn_exact_pruned.launches])
+        out["launches_cand"] = np.array([gather_blocksparse.launches,
+                                         scatter_add_blocksparse.launches,
+                                         knn_cand.launches])
         np.savez(out_path, **out)
 
 
