@@ -86,9 +86,8 @@
 12. The mxu smooth edge engine (a main path of its own): phase 4 on a copy
    of kittisf_unsup_fast.yaml with symmetric_grad false and edge_engine
    mxu (bf16, approximate), with the derived launches (MXU_STEP: #9 and
-   #10 once per frame) and the count of tiles over the cap; the
-   determinism, card-vs-CPU (f32) and bf16 checks of phase 8; a profile as
-   in phase 5.
+   #10 once per frame); the determinism, card-vs-CPU (f32) and bf16 checks
+   of phase 8; a profile as in phase 5.
 13. #6's entry point: ogc_tpu_torch.tools.bench_knn_pruned.main (#3
    against #6 at its four settings, scene-like clouds) with the counts set
    to 0 before it.
@@ -99,11 +98,15 @@ its gate admits on the flow path and the seg parity path, a ragged M and
 k = 64 over 32-point blocks, bit-equal to their plain versions and #4 to
 #2; the block-sparse gather and scatter (#9/#10) on the mxu path's tables
 (sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11), SAPIEN's, a
-ragged N with an odd S and a uniform table over the cap, #9 bit-equal to
-advanced indexing and #10 to its plain version and #11, with the blocks
-per tile; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes
-on grid clouds, bit-equal to its plain version, beside #3 and #2 with its
-recall.
+ragged N with an odd S and a uniform table (every 256-row tile reaches 64
+blocks), #9 bit-equal to advanced indexing with the presence it writes
+equal to bs_prologue's, #10 fed that presence bit-equal to its plain
+version and #11, with the blocks per tile, and #9 at every C from 1 to 16
+from an aligned and an unaligned source; #7 also at every C from 1 to 16,
+N 1 and 1024 and a ragged E; #7 and #9 timed by single call and by device
+time beside torch.gather; and the candidate-pruned KNN (#6) at
+bench_knn_pruned's shapes on grid clouds, bit-equal to its plain version,
+beside #3 and #2 with its recall.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -219,15 +222,15 @@ FAST_EVAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=5)
 #   scatter_add 9  SA1, SA2, the 3 FP groups, and per frame the backward of
 #     the mask's gather into Morton order;
 #   gather_blocksparse 4, scatter_blocksparse 4  one of each per frame.
-# A val batch (2 frames, no backward): fast mode's and 2 #9.  No tile
-# routes a call away: a tile over the cap of 32 blocks reads its rows from
-# device memory inside the kernels, and run_train prints their count.
+# A val batch (2 frames, no backward): fast mode's and 2 #9.
 MXU_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9, ball_blockmin=4,
                          scatter_add=9, gather_blocksparse=4,
                          scatter_blocksparse=4)
 MXU_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2,
                         gather_blocksparse=2)
 MXU_C = 11
+# The channel counts #7 and #9 are compiled for (a template instance each).
+KERNEL_MAX_C = 16
 # #6's entry point (ogc_tpu_torch.tools.bench_knn_pruned, 10 timed calls
 # after one warm-up): per shape #3 once and #6 once per (n_cand, blk).
 BENCH_REPS = 10
@@ -345,6 +348,35 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def device_ms(fn, reps=20, rounds=5):
+    """Device milliseconds per launch: ``reps`` back-to-back calls of
+    ``fn`` captured in a CUDA graph, replayed ``rounds`` times between two
+    CUDA events.  The replay enqueues no host work, so unlike cuda_ms this
+    holds no wrapper or launch time of the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * rounds)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound_ms(nbytes, nops):
     """(least ms, what bounds it): bytes over HBM rate vs f32 operations
     over the f32 peak."""
@@ -372,16 +404,17 @@ def box_pairs(q, p, half, last=None):
 class Report:
     """Per kernel: max abs error, and per call kernel ms, plain ms, bound ms
     (with what bounds it) and library ms, weighted by the call's launches
-    per train step."""
+    per train step; for #7 and #9 also the device times of kernel and
+    library call (device_ms)."""
 
     def __init__(self):
         self.rows = {}
 
     def add(self, name, err, ms, plain, bound, by, lib=None, per_step=1,
-            general=None):
+            general=None, device=None):
         r = self.rows.setdefault(name, {"err": 0.0, "ms": 0.0, "plain": 0.0,
                                         "bound": 0.0, "by": {}, "lib": None,
-                                        "general": None})
+                                        "general": None, "device": None})
         r["err"] = max(r["err"], float(err))
         r["ms"] += per_step * ms
         r["plain"] += per_step * plain
@@ -391,6 +424,9 @@ class Report:
             r["lib"] = (r["lib"] or 0.0) + per_step * lib
         if general is not None:
             r["general"] = (r["general"] or 0.0) + per_step * general
+        if device is not None:
+            r["device"] = [a + per_step * b for a, b in
+                           zip(r["device"] or (0.0, 0.0), device)]
 
     def entry(self, name):
         r = self.rows[name]
@@ -400,6 +436,8 @@ class Report:
              "library_ms": r["lib"]}
         if r["general"] is not None:
             e["general_ms"] = r["general"]
+        if r["device"] is not None:
+            e["device_ms"], e["library_device_ms"] = r["device"]
         return e
 
 
@@ -828,8 +866,10 @@ def check_onehot(reports, gen):
     timed beside the plain version, the general route (advanced indexing
     for the gather, #11 with its sort prologue for the scatter), the
     library call (torch.gather; deterministic index_add_) and the bytes
-    bound.  ``reports`` maps a config to (Report, frames): each call is
-    weighted by its calls per step of that config."""
+    bound; #7 and torch.gather also by device time (device_ms).  Then #7
+    at every C from 1 to 16, at N 1 and 1024 and with E*C not a multiple
+    of the 16-byte store.  ``reports`` maps a config to (Report, frames):
+    each call is weighted by its calls per step of that config."""
     from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                           gather_rows_onehot_plain,
                                           scatter_add_rows_onehot)
@@ -861,18 +901,25 @@ def check_onehot(reports, gen):
         if not torch.equal(got, want):
             raise AssertionError(f"gather {name}: kernel != plain at "
                                  f"{(got != want).sum().item()} elements")
-        ms = cuda_ms(lambda: gather_rows_onehot(src, flat), 20)
-        pms = cuda_ms(lambda: gather_rows_onehot_plain(src, flat), 20)
         lidx = flat.long()[..., None].expand(b, E, C)
-        lib = cuda_ms(lambda: torch.gather(src, 1, lidx), 20)
+        # Kernel and torch.gather in turns, each timed twice.
+        ms, lib = [], []
+        for _ in range(2):
+            ms.append(cuda_ms(lambda: gather_rows_onehot(src, flat), 20))
+            lib.append(cuda_ms(lambda: torch.gather(src, 1, lidx), 20))
+        ms, lib = float(np.median(ms)), float(np.median(lib))
+        dev = (device_ms(lambda: gather_rows_onehot(src, flat)),
+               device_ms(lambda: torch.gather(src, 1, lidx)))
+        pms = cuda_ms(lambda: gather_rows_onehot_plain(src, flat), 20)
         bnd, by = bound_ms(b * (n * C * 4 + E * 4 + E * C * 4), 0)
         for cfg, k in per_step.items():
             reports[cfg][0].add("gather_onehot", 0, ms, pms, bnd, by, lib,
-                                per_step=k)
+                                per_step=k, device=dev)
         log(f"gather_onehot {name} ({b},{n},C={C}) x {E} rows x{per_step}/"
-            f"step: bit-equal; kernel {ms:.4f} ms, plain = general route "
-            f"(advanced indexing) {pms:.4f} ms, torch.gather {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
+            f"step: bit-equal; single call: kernel {ms:.4f} ms, "
+            f"torch.gather {lib:.4f} ms; device: kernel {dev[0]:.4f} ms, "
+            f"torch.gather {dev[1]:.4f} ms; plain = general route (advanced "
+            f"indexing) {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
         if not scatter:
             continue
         g = torch.randn((b, E, C), generator=gen, device="cuda")
@@ -903,19 +950,37 @@ def check_onehot(reports, gen):
             f"{pms:.4f} ms, general route (#11 + sort) {gms:.4f} ms, "
             f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
+    # Every C instance, N at both ends, ragged E (E * C % 4 != 0 for odd C:
+    # later clouds start off the 16-byte grid, and the stores take the
+    # word-by-word head and tail).
+    for C in range(1, KERNEL_MAX_C + 1):
+        for N, E in ((1, 37), (1024, 4099), (SAP_N, 16385)):
+            src = torch.randn((3, N, C), generator=gen, device="cuda")
+            idx = torch.randint(0, N, (3, E), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            got = gather_rows_onehot(src, idx)
+            if not torch.equal(got, gather_rows_onehot_plain(src, idx)):
+                raise AssertionError(f"gather_onehot C={C} N={N} E={E}: "
+                                     f"kernel != plain")
+    log(f"gather_onehot C 1..{KERNEL_MAX_C} at (N, E) (1, 37), (1024, 4099), "
+        f"({SAP_N}, 16385): bit-equal")
+
 
 def check_blocksparse(report, gen):
     """#9/#10 on the mxu path's own table (mxu_tables of sorted synthetic
     KITTI-SF scenes, approximate as train_seg runs it: 4 x 8192 x 96, C 11),
     on SAPIEN's (512 points, 8 slots, exact routes below 1024 points), a
-    ragged N = 1500 with an odd S = 17, and a uniform table whose every tile
-    reaches more than the cap's 32 blocks (the in-kernel route).  The
-    forward bit-equal to advanced indexing (its plain version and the
-    route without the kernel), the backward to its plain version and to
-    #11.  Timed beside those, the library calls (torch.gather;
-    index_add_, deterministic) and the bytes bound; the forward as the
-    path calls it (with its prologue, whose time is also given alone), the
-    backward without (it reuses the forward's)."""
+    ragged N = 1500 with an odd S = 17, and a uniform table whose every
+    tile reaches more blocks than the JAX package's cap of 32.  #9 bit-equal
+    to advanced indexing (its plain version and the route without the
+    kernel) and the presence it writes bit-equal to bs_prologue's; #10 fed
+    that presence bit-equal to its plain version and to #11.  Timed beside
+    those, the library calls (torch.gather; index_add_, deterministic) and
+    the bytes bound: #9 as the mxu forward calls it (bs_pad and the one
+    launch), as a single call and by device time (device_ms), as
+    torch.gather; #10 with #9's table.  Then #9 at every C from 1 to 16 on
+    the ragged table, from an aligned source and from one at a storage
+    offset of one float (not 16-byte aligned)."""
     from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, mxu_tables
     from ogc_tpu_torch.ops import blocksparse as bs
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
@@ -948,15 +1013,20 @@ def check_blocksparse(report, gen):
         cot = torch.randn((b, M, S, C), generator=gen, device="cuda")
         flat, cflat = idx.reshape(b, M * S), cot.reshape(b, M * S, C)
         pro = bs.bs_prologue(idx, n)
-        got = bs.gather_blocksparse(src, idx, pro)
+        got, table = bs.gather_blocksparse(src, idx)
         want = bs.gather_blocksparse_plain(src, idx)
-        grad = bs.scatter_add_blocksparse(idx, cot, n, pro)
+        grad = bs.scatter_add_blocksparse(idx, cot, n, table)
         plain = bs.scatter_add_blocksparse_plain(idx, cot, n)
         general = scatter_add_rows(flat, cflat, n)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"gather_blocksparse {name}: kernel != "
                                  f"indexing at {(got != want).sum().item()}")
+        if not (torch.equal(table.presence, pro.presence)
+                and torch.equal(table.idx, pro.idx)):
+            raise AssertionError(f"gather_blocksparse {name}: presence != "
+                                 f"bs_prologue's at "
+                                 f"{(table.presence != pro.presence).sum()}")
         if not (torch.equal(grad, plain) and torch.equal(grad, general)):
             raise AssertionError(
                 f"scatter_blocksparse {name}: kernel != plain or #11, max "
@@ -970,13 +1040,17 @@ def check_blocksparse(report, gen):
         if name == "uniform table" and over != pro.nblk.numel():
             raise AssertionError(f"uniform table: {over} of "
                                  f"{pro.nblk.numel()} tiles over the cap")
-        gms = cuda_ms(lambda: bs.gather_blocksparse(src, idx), 20)
-        kms = cuda_ms(lambda: bs.gather_blocksparse(src, idx, pro), 20)
-        pro_ms = cuda_ms(lambda: bs.bs_prologue(idx, n), 20)
-        gpl = cuda_ms(lambda: bs.gather_blocksparse_plain(src, idx), 20)
         lidx = flat.long()[..., None].expand(b, M * S, C)
-        glib = cuda_ms(lambda: torch.gather(src, 1, lidx), 20)
-        sms = cuda_ms(lambda: bs.scatter_add_blocksparse(idx, cot, n, pro),
+        # #9 and torch.gather in turns, each timed twice.
+        gms, glib = [], []
+        for _ in range(2):
+            gms.append(cuda_ms(lambda: bs.gather_blocksparse(src, idx), 20))
+            glib.append(cuda_ms(lambda: torch.gather(src, 1, lidx), 20))
+        gms, glib = float(np.median(gms)), float(np.median(glib))
+        gdev = (device_ms(lambda: bs.gather_blocksparse(src, idx)),
+                device_ms(lambda: torch.gather(src, 1, lidx)))
+        gpl = cuda_ms(lambda: bs.gather_blocksparse_plain(src, idx), 20)
+        sms = cuda_ms(lambda: bs.scatter_add_blocksparse(idx, cot, n, table),
                       20)
         spl = cuda_ms(lambda: bs.scatter_add_blocksparse_plain(idx, cot, n),
                       3)
@@ -986,29 +1060,58 @@ def check_blocksparse(report, gen):
         acc = torch.zeros((b * n, C), device="cuda")
         slib = cuda_ms(lambda: acc.zero_().index_add_(
             0, key, cflat.reshape(-1, C)), 20)
-        gb, gby = bound_ms(b * (n * C * 4 + M * S * 4 + M * S * C * 4), 0)
+        # #9 reads the source and the padded table and writes the rows and
+        # the presence.
+        gb, gby = bound_ms(b * (n * C * 4 + table.idx.shape[1] * 4
+                                + M * S * C * 4)
+                           + table.presence.numel(), 0)
         sb, sby = bound_ms(b * (M * S * 4 + M * S * C * 4 + n * C * 4),
                            b * M * S * C)
         if per_step:
             report.add("gather_blocksparse", 0, gms, gpl, gb, gby, glib,
-                       per_step=per_step, general=gpl)
+                       per_step=per_step, general=gpl, device=gdev)
             report.add("scatter_blocksparse", 0, sms, spl, sb, sby, slib,
                        per_step=per_step, general=s11)
         log(f"blocksparse {name} ({b},{n},C={C}) x {M} rows x S={S} "
             f"x{per_step}/step: blocks per 256-row tile max "
             f"{int(nblk.max().item())} mean {nblk.mean().item():.4f}, "
-            f"{over} of {pro.nblk.numel()} tiles over the cap (in-kernel "
-            f"route); 32-row units reaching a block max "
-            f"{int(units.max().item())} mean {units.mean().item():.4f} of "
-            f"{pro.presence.shape[1]}; row in-degree max "
-            f"{int(deg.max().item())} mean {deg.float().mean().item():.4f}; "
-            f"#9 bit-equal to indexing: with prologue {gms:.4f} ms "
-            f"(kernel {kms:.4f}, prologue {pro_ms:.4f}), plain = general "
-            f"route (indexing) {gpl:.4f} ms, torch.gather {glib:.4f} ms, "
-            f"bound {gb:.4f} ms ({gby}); #10 bit-equal to plain and #11: "
-            f"{sms:.4f} ms, plain {spl:.4f} ms, general route (#11 + sort) "
-            f"{s11:.4f} ms, index_add_ {slib:.4f} ms, bound {sb:.4f} ms "
-            f"({sby})")
+            f"{over} of {pro.nblk.numel()} tiles over 32; 32-row units "
+            f"reaching a block max {int(units.max().item())} mean "
+            f"{units.mean().item():.4f} of {pro.presence.shape[1]}; row "
+            f"in-degree max {int(deg.max().item())} mean "
+            f"{deg.float().mean().item():.4f}; #9 bit-equal to indexing, "
+            f"its presence to bs_prologue's: single call {gms:.4f} ms, "
+            f"torch.gather {glib:.4f} ms; device {gdev[0]:.4f} ms, "
+            f"torch.gather {gdev[1]:.4f} ms; plain = general route "
+            f"(indexing) {gpl:.4f} ms, bound {gb:.4f} ms ({gby}); #10 with "
+            f"#9's presence bit-equal to plain and #11: {sms:.4f} ms, plain "
+            f"{spl:.4f} ms, general route (#11 + sort) {s11:.4f} ms, "
+            f"index_add_ {slib:.4f} ms, bound {sb:.4f} ms ({sby})")
+    # Every C instance on the ragged table and on a wide one (rows of 202
+    # padded edges: a unit of 32 rows is more than one piece of 4096), from
+    # an aligned source and from one whose data pointer is 4 bytes past the
+    # 16-byte grid.
+    wide = torch.randint(0, 700, (2, 300, 201), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    for tname, idx, n in (("ragged", cases[2][1], cases[2][2]),
+                          ("wide S 201", wide, 700)):
+        b, M, S = idx.shape
+        presence = bs.bs_prologue(idx, n).presence
+        for C in range(1, KERNEL_MAX_C + 1):
+            store = torch.randn((b * n * C + 1,), generator=gen,
+                                device="cuda")
+            for src in (store[:-1].view(b, n, C), store[1:].view(b, n, C)):
+                got, table = bs.gather_blocksparse(src, idx)
+                if not (torch.equal(got,
+                                    bs.gather_blocksparse_plain(src, idx))
+                        and torch.equal(table.presence, presence)):
+                    raise AssertionError(
+                        f"gather_blocksparse {tname} C={C} (source at byte "
+                        f"{src.data_ptr() % 16} of 16): kernel != indexing "
+                        f"or presence != bs_prologue's")
+        log(f"gather_blocksparse C 1..{KERNEL_MAX_C} on the {tname} table "
+            f"({b},{n}) x {M} x S={S}, source 16-byte aligned and 4 bytes "
+            f"off: bit-equal, presence equal")
 
 
 def check_knn_cand(report, gen):
@@ -1115,7 +1218,10 @@ def check_kernels():
             e = rep.entry(name)
             log(f"per SAPIEN {cfg} train step: {name} {e['ms']:.4f} ms, "
                 f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}), library {e['library_ms']:.4f} ms")
+                f"({e['bound_by']}), library {e['library_ms']:.4f} ms"
+                + (f"; device: kernel {e['device_ms']:.4f} ms, library "
+                   f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+                   else ""))
     log(f"-- flow path shapes (KITTI-SF B={FLOW_B} x {N_POINT}, "
         f"{FLOW_ITERS} iterations; SAPIEN test_flow B={SAP_FLOW_B} x "
         f"{SAP_N}, {SAP_FLOW_ITERS} iterations)")
@@ -1148,7 +1254,10 @@ def check_kernels():
             log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
                 f"{e['plain_ms']:.4f} ms, general route "
                 f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}), library {e['library_ms']}")
+                f"({e['bound_by']}), library {e['library_ms']}"
+                + (f"; device: kernel {e['device_ms']:.4f} ms, library "
+                   f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+                   else ""))
     return {"parity": train_report, "sapien": sapien["full"][0],
             "fast": fast_report, "flow": flow_report, "mxu": mxu_report,
             "cand": cand_report}
@@ -1228,10 +1337,9 @@ def counters():
 
 
 def reset_counts():
-    """Every launch count, and #9's count of tiles over the cap, to 0."""
+    """Every launch count to 0."""
     for fn in counters().values():
         fn.launches = 0
-    counters()["gather_blocksparse"].overflow_tiles = 0
 
 
 def read_counts():
@@ -1355,14 +1463,6 @@ def run_train(tmp, cfg, cfg_path, exact, per_step, per_val):
     res = train_seg.main([cfg_path, "--round", "1", "--device", DEVICE])
     wall = time.perf_counter() - t0
     launches = read_counts()
-    if launches["gather_blocksparse"]:
-        from ogc_tpu_torch.ops.blocksparse import gather_blocksparse
-
-        log(f"mxu engine: {int(gather_blocksparse.overflow_tiles)} of "
-            f"{launches['gather_blocksparse'] * TRAIN_B * N_POINT // 256} "
-            f"tiles of the run's #9/#10 calls over the cap of 32 blocks "
-            f"(read from device memory inside the kernels; no call routed "
-            f"away)")
     trainer = res["trainer"]
     steps = len(trainer.step_seconds)
     n_val = -(-N_VAL_IDS // TRAIN_B)

@@ -15,13 +15,18 @@
 // #11), so this kernel is bit-equal to scatter_add_rows_plain and
 // ops.group gives the same bits whichever route it takes.
 //
-// Gather design: one block per (cloud, edge chunk).  The block stages the
-// whole source cloud (N x C f32, at most 64 KiB) in shared memory with
-// coalesced loads, then each thread writes output elements (edge, channel)
-// in order, reading the source row from shared memory.  Reads and writes of
-// device memory are coalesced; the random access is in shared memory.
-// Bound on the H100: bytes (src + idx read once, out written once); the
-// re-staging of the source by every chunk of a cloud reads L2, not HBM.
+// Gather design: a cloud's source is at most 64 KiB and the whole batch's
+// at most a few MiB, so it stays in L2 (50 MB) and, for the rows a block
+// reaches, in L1: nothing is staged.  One block of 8 warps per (cloud, run
+// of 256 to 4096 edges, about 8 blocks per SM).  It reads the run's indices
+// once, 16 bytes at a time, into shared memory (clamped), then copies rows
+// with C fixed at compile time (a template over 1..16, so f / C is a
+// multiply): ogc::copy_rows (gather_rows.cuh) loads consecutive channels on
+// consecutive lanes and writes the contiguous output with 16-byte
+// streaming stores, word by word only at a ragged head and tail.  Bound on
+// the H100: bytes (src + idx read once, out written once, 4-50 MB at
+// SAPIEN's shapes), and at the smallest calls the launch and the host's
+// enqueue.  The launcher sets no attribute: 20 KiB of static shared memory.
 //
 // Scatter design: the one-hot product done as compares.  One block per
 // (cloud, 128 destination rows); each thread owns one destination row and
@@ -42,15 +47,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_rows.cuh"
+
 namespace {
 
 constexpr int kMaxN = 1024;
 constexpr int kMaxC = 16;
 constexpr int kGatherThreads = 256;
+constexpr int kGatherWarps = kGatherThreads / 32;
 constexpr int kScatterRows = 128;
 constexpr int kTile = 1024;
-// Enough gather blocks to cover the card a few times over (132 SMs).
-constexpr int kTargetBlocks = 528;
+// Gather blocks: about 8 per SM of the card's 132, each 256 to 4096 edges.
+constexpr int kTargetBlocks = 1056;
+constexpr int kMinEdges = 256;
+constexpr int kMaxEdges = 4096;
 
 // Copy n 4-byte words from device to shared memory with the block's
 // threads: 16-byte loads, four in flight per thread, when the source is
@@ -74,31 +84,46 @@ __device__ __forceinline__ void stage(uint32_t* __restrict__ dst,
   }
 }
 
-__global__ void __launch_bounds__(kGatherThreads)
-    gather_rows_kernel(const float* __restrict__ src,
-                       const int32_t* __restrict__ idx, int N, int C, int E,
-                       int epb, float* __restrict__ out) {
-  extern __shared__ uint4 smem_g[];  // N * C floats
-  float* s_src = reinterpret_cast<float*>(smem_g);
-  const int b = blockIdx.y;
-  const int nc = N * C;
-  stage<kGatherThreads>(reinterpret_cast<uint32_t*>(s_src),
-                        reinterpret_cast<const uint32_t*>(src) +
-                            (int64_t)b * nc,
-                        nc);
-  __syncthreads();
-  const int e0 = blockIdx.x * epb;
-  const int e1 = min(E, e0 + epb);
-  const int32_t* idxb = idx + (int64_t)b * E;
-  float* outb = out + (int64_t)b * E * C;
-  for (int t = e0 * C + threadIdx.x; t < e1 * C; t += kGatherThreads) {
-    const int e = t / C;
-    const int c = t - e * C;
-    // Indices are in [0, N) by contract; the clamp keeps a bad one inside
-    // shared memory (the JAX gather clips the same way).
-    const int i = min(max(__ldg(idxb + e), 0), N - 1);
-    outb[t] = s_src[i * C + c];
+// Stage the clamped indices src[0, n) into dst (shared memory): 16-byte
+// loads once src is 16-byte aligned, word loads for the ragged ends.
+__device__ __forceinline__ void stage_rows(int32_t* __restrict__ dst,
+                                           const int32_t* __restrict__ src,
+                                           int n, int N) {
+  int head = (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) >> 2;
+  head = head < n ? head : n;
+  const int n4 = (n - head) >> 2;
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  for (int t = threadIdx.x; t < n4; t += blockDim.x) {
+    const int4 v = __ldcs(s4 + t);
+    int32_t* d = dst + head + 4 * t;
+    d[0] = min(max(v.x, 0), N - 1);
+    d[1] = min(max(v.y, 0), N - 1);
+    d[2] = min(max(v.z, 0), N - 1);
+    d[3] = min(max(v.w, 0), N - 1);
   }
+  const int body_end = head + 4 * n4;
+  for (int t = threadIdx.x; t < head + n - body_end; t += blockDim.x) {
+    const int f = t < head ? t : body_end + t - head;
+    dst[f] = min(max(__ldcs(src + f), 0), N - 1);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows_kernel(const uint32_t* __restrict__ src,
+                       const int32_t* __restrict__ idx, int N, int E,
+                       int epb, uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t s_buf[kGatherWarps * ogc::kWarpWords];
+  __shared__ int32_t s_rows[kMaxEdges];
+  const int b = blockIdx.y;
+  const int e0 = blockIdx.x * epb;
+  const int n = min(E, e0 + epb) - e0;
+  // Indices are in [0, N) by contract; the clamp keeps a bad one in bounds
+  // (the JAX gather clips the same way).
+  stage_rows(s_rows, idx + (int64_t)b * E + e0, n, N);
+  __syncthreads();
+  ogc::copy_rows<C>(out + ((int64_t)b * E + e0) * C, src + (int64_t)b * N * C,
+                    s_rows, n, s_buf + (threadIdx.x >> 5) * ogc::kWarpWords);
 }
 
 __global__ void __launch_bounds__(kScatterRows)
@@ -174,19 +199,33 @@ extern "C" int ogc_gather_rows_onehot(const void* src, const void* idx, int B,
   if (B < 1 || N < 1 || N > kMaxN || C < 1 || C > kMaxC || E < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  // Set on every launch: the attribute is per device, and the call is cheap.
-  const int smem = N * C * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int max_chunks = (E + kGatherThreads - 1) / kGatherThreads;
-  int chunks = (kTargetBlocks + B - 1) / B;
-  chunks = chunks < 1 ? 1 : (chunks > max_chunks ? max_chunks : chunks);
-  const int epb = (E + chunks - 1) / chunks;
+  // Edges per block: a multiple of 128 from kMinEdges to kMaxEdges, so that
+  // the grid covers the card about kTargetBlocks / 132 times.
+  int64_t epb = ((int64_t)B * E + kTargetBlocks - 1) / kTargetBlocks;
+  epb = (epb + 127) / 128 * 128;
+  epb = epb < kMinEdges ? kMinEdges : (epb > kMaxEdges ? kMaxEdges : epb);
   const dim3 grid((E + epb - 1) / epb, B);
-  gather_rows_kernel<<<grid, kGatherThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, (const int32_t*)idx, N, C, E, epb, (float*)out);
-  return (int)cudaGetLastError();
+  const uint32_t* s = (const uint32_t*)src;
+  const int32_t* i = (const int32_t*)idx;
+  uint32_t* o = (uint32_t*)out;
+  int e = (int)epb;
+  void* args[] = {&s, &i, &N, &E, &e, &o};
+  // cudaLaunchKernel returns the launch's own error: no second call.
+  switch (C) {
+#define OGC_GATHER_CASE(c)                                                 \
+  case c:                                                                  \
+    return (int)cudaLaunchKernel((const void*)gather_rows_kernel<c>, grid, \
+                                 dim3(kGatherThreads), args, 0,            \
+                                 (cudaStream_t)stream);
+    OGC_GATHER_CASE(1) OGC_GATHER_CASE(2) OGC_GATHER_CASE(3)
+    OGC_GATHER_CASE(4) OGC_GATHER_CASE(5) OGC_GATHER_CASE(6)
+    OGC_GATHER_CASE(7) OGC_GATHER_CASE(8) OGC_GATHER_CASE(9)
+    OGC_GATHER_CASE(10) OGC_GATHER_CASE(11) OGC_GATHER_CASE(12)
+    OGC_GATHER_CASE(13) OGC_GATHER_CASE(14) OGC_GATHER_CASE(15)
+    OGC_GATHER_CASE(16)
+#undef OGC_GATHER_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // idx (B, E) int32, cot (B, E, C) f32; out (B, n, C) f32, every row written
@@ -197,10 +236,9 @@ extern "C" int ogc_scatter_add_rows_onehot(const void* idx, const void* cot,
   if (B < 1 || n < 1 || n > kMaxN || C < 1 || C > kMaxC || E < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  // Set on every launch: the attribute is per device, and the call is cheap.
+  static int done[ogc::kMaxDevices];
   const int smem = kTile * (1 + C) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      scatter_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = ogc::smem_opt_in(scatter_rows_kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + kScatterRows - 1) / kScatterRows, B);
   scatter_rows_kernel<<<grid, kScatterRows, smem, (cudaStream_t)stream>>>(

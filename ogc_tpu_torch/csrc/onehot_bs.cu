@@ -18,22 +18,25 @@
 // The scatter order is the port's scatter contract (ops/scatter.py, #11),
 // so #10 is bit-equal to #11 and to scatter_add_rows_plain.  The wrapper
 // (ops/blocksparse.py) pads the table to 256-row tiles and an even S with
-// index 0, as the JAX package does, and computes per tile the ascending
-// list of blocks it reaches (`order`, the first min(count, 32) entries
-// valid), the unclamped count, and which blocks each 32 rows reach.  Pad
-// edges are skipped here: the output is (B, M, S, C), the cotangent is read
-// unpadded.
+// index 0, as the JAX package does.  Pad edges are not gathered or
+// scattered: the output is (B, M, S, C), the cotangent is read unpadded.
 //
-// Gather design: one CTA per (cloud, tile).  A tile of at most 32 blocks
-// stages them in shared memory (32 x 128 rows x C f32; C = 11 is 176 KiB,
-// wider sources go in channel slabs that fit), coalesced.  Then, 2048 edges
-// at a time, the threads resolve each edge's staged row (a binary search of
-// its block in the tile's ascending list) and write the output in (edge,
-// channel) order, coalesced, reading shared memory.  A tile past the cap
-// reads its rows straight from device memory (L2): the JAX package sends
-// the whole call to the plain gather then, the port only that tile, with
-// the same bits.  Bound on the H100: bytes, the output above all (B x M x S
-// x C x 4; 138 MB at the KITTI-SF smooth tables), written once.
+// Gather design: the gather writes B x M x S x C f32 once (138 MB at the
+// KITTI-SF smooth tables) and reads a source of 1.4 MB, which stays in L2;
+// the rows of a Morton-sorted unit of 32 query rows come mostly from L1.
+// So the bound is bytes, the output above all, and the design stages no
+// source block and has no cap: one block of 8 warps per (cloud, unit of 32
+// padded table rows), about 16 KiB of shared memory, so that eight blocks
+// share an SM and one's stores overlap another's loads.  The block walks
+// its unit in pieces of at most 4096 padded edges (one piece at KITTI-SF):
+// it reads each index once, 16 bytes at a time, clamps it, marks its block
+// in the unit's presence row in shared memory, and puts the real edges'
+// rows in order; ogc::copy_rows (gather_rows.cuh, C fixed at compile time,
+// a template over 1..16) then writes the piece's output, which is
+// contiguous, with 16-byte streaming stores.  Last the block writes its
+// presence row whole: (B, nu, nb) uint8, whether rows [32 u, 32 u + 32) of
+// the padded table reach block j, which is what #10 reads.  So the forward
+// is one launch after bs_pad, with no torch prologue.
 //
 // Scatter design: one CTA per (cloud, block of 128 destination rows), 16
 // warps: warp w sums rows (w % 4) * 32 + lane of the block in channels
@@ -56,15 +59,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_rows.cuh"
+
 namespace {
 
 constexpr int kCB = 128;
-constexpr int kQT = 256;
-constexpr int kCap = 32;
-constexpr int kRQ = 32;  // query rows per unit of the scatter's presence
+constexpr int kRQ = 32;  // query rows per unit of the presence
 constexpr int kMaxC = 16;
-constexpr int kGatherThreads = 512;
-constexpr int kChunk = 2048;
+constexpr int kGatherThreads = 256;
+constexpr int kGatherWarps = kGatherThreads / 32;
 constexpr int kScatterThreads = 512;
 constexpr int kWarps = kScatterThreads / 32;
 constexpr int kRowWarps = kCB / 32;               // 4 warps cover the rows
@@ -74,88 +77,74 @@ constexpr int kSub = 4096;                        // edges staged at a time
 constexpr int kPerWarp = kSub / kWarps;
 constexpr int kPiece = 1024;                      // hits staged at a time
 constexpr int kScatterSmem = (2 * kSub + kWarps) * 4 + kPiece * kMaxC * 4;
-constexpr int kSmemLimit = 232448;    // opt-in dynamic shared memory, H100
-constexpr int kGatherFixed = (kCap + 2 * kChunk) * 4;
 
+// The output position of padded edge e (row e / s_pad, slot e % s_pad) of a
+// cloud: the count of real edges (slot < S) before it, row-major.
+__device__ __forceinline__ int out_edge(int e, int s_pad, int S) {
+  const int m = e / s_pad;
+  return m * S + min(e - m * s_pad, S);
+}
+
+template <int C>
 __global__ void __launch_bounds__(kGatherThreads)
-    bs_gather_kernel(const float* __restrict__ src,
-                     const int32_t* __restrict__ idx,
-                     const int32_t* __restrict__ order,
-                     const int32_t* __restrict__ nblk, int N, int C, int M,
-                     int S, int s_pad, int nt, int cs,
-                     float* __restrict__ out) {
+    bs_gather_kernel(const uint32_t* __restrict__ src,
+                     const int32_t* __restrict__ idx, int N, int M, int S,
+                     int s_pad, int nu, int nb, int piece,
+                     uint32_t* __restrict__ out,
+                     uint8_t* __restrict__ presence) {
   extern __shared__ uint4 smem_g[];
-  int32_t* s_order = reinterpret_cast<int32_t*>(smem_g);  // kCap
-  int32_t* s_row = s_order + kCap;                         // kChunk
-  int32_t* s_out = s_row + kChunk;                         // kChunk
-  float* s_src = reinterpret_cast<float*>(s_out + kChunk);
-  const int t = blockIdx.x;
+  uint32_t* s_buf = reinterpret_cast<uint32_t*>(smem_g);  // warps x 128
+  int32_t* s_row = reinterpret_cast<int32_t*>(
+      s_buf + kGatherWarps * ogc::kWarpWords);             // piece
+  uint8_t* s_pres = reinterpret_cast<uint8_t*>(s_row + piece);  // nb
+  const int u = blockIdx.x;
   const int b = blockIdx.y;
-  const int cnt = nblk[b * nt + t];
-  const bool staged = cnt <= kCap;
-  if (staged) {
-    for (int j = threadIdx.x; j < cnt; j += kGatherThreads) {
-      s_order[j] = order[((int64_t)b * nt + t) * kCap + j];
+  const int unit_edges = kRQ * s_pad;
+  const int e_unit = u * unit_edges;  // padded edge index in the cloud
+  const int q_end = M * S;            // real edges of the cloud
+  const int32_t* idxb = idx + (int64_t)b * nu * unit_edges;
+  const uint32_t* srcb = src + (int64_t)b * N * C;
+  uint32_t* outb = out + (int64_t)b * q_end * C;
+  for (int j = threadIdx.x; j < nb; j += kGatherThreads) s_pres[j] = 0;
+  for (int p0 = 0; p0 < unit_edges; p0 += piece) {
+    const int e0 = e_unit + p0;
+    const int len = min(piece, unit_edges - p0);  // a multiple of 4
+    const int q0 = min(out_edge(e0, s_pad, S), q_end);
+    const int q1 = min(out_edge(e0 + len, s_pad, S), q_end);
+    __syncthreads();  // s_pres is zeroed; the last piece is consumed
+    // Each index once, four at a time where the table is 16-byte aligned
+    // (then every piece is: e0 is a multiple of 4).  Indices are in [0, N)
+    // by contract; the clamp keeps a bad one in bounds, as bs_prologue
+    // clamps.  Every padded edge marks its block; the real ones go to
+    // s_row at their output position.
+    const bool wide = (reinterpret_cast<uintptr_t>(idxb) & 15) == 0;
+    for (int t = threadIdx.x; t < len / 4; t += kGatherThreads) {
+      int v[4];
+      if (wide) {
+        const int4 w = __ldcs(reinterpret_cast<const int4*>(idxb + e0) + t);
+        v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldcs(idxb + e0 + 4 * t + j);
+      }
+      int e = e0 + 4 * t;
+      int m = e / s_pad;
+      int s = e - m * s_pad;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = min(max(v[j], 0), N - 1);
+        s_pres[i / kCB] = 1;  // every writer stores the same 1
+        if (s < S && m < M) s_row[m * S + s - q0] = i;
+        if (++s == s_pad) s = 0, ++m;
+      }
     }
+    __syncthreads();
+    ogc::copy_rows<C>(outb + (int64_t)q0 * C, srcb, s_row, q1 - q0,
+                      s_buf + (threadIdx.x >> 5) * ogc::kWarpWords);
   }
-  const int tile_edges = kQT * s_pad;
-  const int e_tile = t * tile_edges;
-  const int32_t* idxb = idx + (int64_t)b * nt * tile_edges;
-  const float* srcb = src + (int64_t)b * N * C;
-  float* outb = out + (int64_t)b * M * S * C;
-  const int width = staged ? cs : C;
-  for (int c0 = 0; c0 < C; c0 += width) {
-    const int w = min(width, C - c0);
-    __syncthreads();  // s_order is written; the previous slab is consumed
-    if (staged) {
-      const int per_block = kCB * w;
-      for (int u = threadIdx.x; u < cnt * per_block; u += kGatherThreads) {
-        const int j = u / per_block;
-        const int rem = u - j * per_block;
-        const int r = rem / w;
-        const int row = s_order[j] * kCB + r;
-        const int c = rem - r * w;
-        s_src[u] = row < N ? srcb[(int64_t)row * C + c0 + c] : 0.0f;
-      }
-    }
-    for (int e0 = 0; e0 < tile_edges; e0 += kChunk) {
-      const int len = min(kChunk, tile_edges - e0);
-      __syncthreads();  // the slab is staged; the last chunk is consumed
-      for (int j = threadIdx.x; j < len; j += kGatherThreads) {
-        const int e = e_tile + e0 + j;  // padded edge index in the cloud
-        const int m = e / s_pad;
-        const int s = e - m * s_pad;
-        s_out[j] = (m < M && s < S) ? m * S + s : -1;
-        // Indices are in [0, N) by contract; the clamp keeps a bad one in
-        // bounds (the prologue clamps the same way, so its block is listed).
-        int i = min(max(idxb[e], 0), N - 1);
-        if (staged) {
-          const int blk = i / kCB;
-          int lo = 0, hi = cnt - 1;  // lower bound: the block is listed
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (s_order[mid] < blk) {
-              lo = mid + 1;
-            } else {
-              hi = mid;
-            }
-          }
-          i = lo * kCB + (i - blk * kCB);
-        }
-        s_row[j] = i;
-      }
-      __syncthreads();
-      for (int u = threadIdx.x; u < len * w; u += kGatherThreads) {
-        const int j = u / w;
-        const int c = u - j * w;
-        const int o = s_out[j];
-        if (o < 0) continue;
-        outb[(int64_t)o * C + c0 + c] =
-            staged ? s_src[s_row[j] * w + c]
-                   : srcb[(int64_t)s_row[j] * C + c0 + c];
-      }
-    }
-  }
+  __syncthreads();
+  uint8_t* pres = presence + ((int64_t)b * nu + u) * nb;
+  for (int j = threadIdx.x; j < nb; j += kGatherThreads) pres[j] = s_pres[j];
 }
 
 __global__ void __launch_bounds__(kScatterThreads)
@@ -277,32 +266,46 @@ __global__ void __launch_bounds__(kScatterThreads)
 
 }  // namespace
 
-// src (B, N, C) f32; idx (B, nt * 256 * s_pad) int32, the padded table;
-// order (B, nt, 32) int32, each tile's blocks ascending; nblk (B, nt) int32,
-// their unclamped count; out (B, M, S, C) f32.  Requires N >= 1,
-// 1 <= C <= 16, M <= nt * 256, S <= s_pad, nt * 256 * s_pad < 2^31.
-// Launches on `stream` and returns the CUDA error (0 on success).
-extern "C" int ogc_bs_gather(const void* src, const void* idx,
-                             const void* order, const void* nblk, int B,
-                             int N, int C, int M, int S, int s_pad, int nt,
-                             void* out, void* stream) {
-  if (B < 1 || N < 1 || C < 1 || C > kMaxC || nt < 1 || M > nt * kQT ||
-      S > s_pad || (int64_t)nt * kQT * s_pad >= ((int64_t)1 << 31)) {
+// src (B, N, C) f32; idx (B, nu * 32 * s_pad) int32, the padded table;
+// out (B, M, S, C) f32; presence (B, nu, nb) uint8, nb = ceil(N / 128),
+// written whole: whether rows [32 u, 32 u + 32) of the table reach block j.
+// piece (a multiple of 4) padded edges are staged at a time in smem bytes
+// of dynamic shared memory, at least the kernel's need (ops/blocksparse.py::
+// bs_gather_plan).  Requires N >= 1, 1 <= C <= 16, s_pad even, M <= nu *
+// 32, S <= s_pad, nu * 32 * s_pad < 2^31, N * C < 2^31.  Launches on
+// `stream` and returns the CUDA error (0 on success).
+extern "C" int ogc_bs_gather(const void* src, const void* idx, int B, int N,
+                             int C, int M, int S, int s_pad, int nu,
+                             int piece, int smem, void* out, void* presence,
+                             void* stream) {
+  const int nb = (N + kCB - 1) / kCB;
+  if (B < 1 || N < 1 || C < 1 || C > kMaxC || nu < 1 || M > nu * kRQ ||
+      S > s_pad || s_pad % 2 || piece < 4 || piece % 4 ||
+      (int64_t)nu * kRQ * s_pad >= ((int64_t)1 << 31) ||
+      (int64_t)N * C >= ((int64_t)1 << 31) ||
+      smem < (kGatherWarps * ogc::kWarpWords + piece) * 4 + nb) {
     return (int)cudaErrorInvalidValue;
   }
-  const int nb = (N + kCB - 1) / kCB;
-  const int slots = nb < kCap ? nb : kCap;
-  int cs = (kSmemLimit - kGatherFixed) / (slots * kCB * 4);
-  cs = cs < C ? cs : C;
-  const int smem = kGatherFixed + slots * kCB * cs * 4;
-  // Set on every launch: the attribute is per device, and the call is cheap.
-  cudaError_t err = cudaFuncSetAttribute(
-      bs_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nt, B);
-  bs_gather_kernel<<<grid, kGatherThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)src, (const int32_t*)idx, (const int32_t*)order,
-      (const int32_t*)nblk, N, C, M, S, s_pad, nt, cs, (float*)out);
+  const dim3 grid(nu, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+#define OGC_BS_CASE(c)                                                     \
+  case c: {                                                                \
+    static int done[ogc::kMaxDevices];                                     \
+    const cudaError_t err =                                                \
+        ogc::smem_opt_in(bs_gather_kernel<c>, smem, done);                 \
+    if (err != cudaSuccess) return (int)err;                               \
+    bs_gather_kernel<c><<<grid, kGatherThreads, smem, st>>>(               \
+        (const uint32_t*)src, (const int32_t*)idx, N, M, S, s_pad, nu, nb, \
+        piece, (uint32_t*)out, (uint8_t*)presence);                        \
+    break;                                                                 \
+  }
+    OGC_BS_CASE(1) OGC_BS_CASE(2) OGC_BS_CASE(3) OGC_BS_CASE(4)
+    OGC_BS_CASE(5) OGC_BS_CASE(6) OGC_BS_CASE(7) OGC_BS_CASE(8)
+    OGC_BS_CASE(9) OGC_BS_CASE(10) OGC_BS_CASE(11) OGC_BS_CASE(12)
+    OGC_BS_CASE(13) OGC_BS_CASE(14) OGC_BS_CASE(15) OGC_BS_CASE(16)
+#undef OGC_BS_CASE
+  }
   return (int)cudaGetLastError();
 }
 
@@ -320,10 +323,9 @@ extern "C" int ogc_bs_scatter(const void* idx, const void* cot,
       (int64_t)nu * kRQ * s_pad >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  // Set on every launch: the attribute is per device, and the call is cheap.
-  const cudaError_t err = cudaFuncSetAttribute(
-      bs_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kScatterSmem);
+  static int done[ogc::kMaxDevices];
+  const cudaError_t err =
+      ogc::smem_opt_in(bs_scatter_kernel, kScatterSmem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, B);
   bs_scatter_kernel<<<grid, kScatterThreads, kScatterSmem,

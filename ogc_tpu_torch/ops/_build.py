@@ -4,8 +4,10 @@ At first use, one nvcc process per source compiles it to an object, all
 of them started together, and a last nvcc links the objects into one shared
 library with a plain C interface,
 ``ogc_tpu_torch/_build/libogc_kernels-<hash>.so``, keyed by a hash of the
-sources; ctypes loads it.  No PyTorch headers are included, so a build takes
-seconds.  There is no fallback: a failed build raises.
+sources and the headers they include (csrc/*.cuh); ctypes loads it.  No
+PyTorch headers are included, so a build takes seconds.  There is no
+fallback: a failed build raises.  ``empty`` and ``raw_stream`` serve the
+wrappers' launches.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` (``sqrtf`` stays
 correctly rounded), and ``-fmad=false`` on top of the ``__fmul_rn`` /
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(_PKG, "csrc")
@@ -50,12 +54,15 @@ _SIGNATURES = {
     "ogc_rowgroup_pool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P],
-    "ogc_bs_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_bs_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P],
     "ogc_bs_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                      _P, _P],
 }
 
+_get_fill = torch._C._get_deterministic_fill_uninitialized_memory
+_set_fill = torch._C._set_deterministic_fill_uninitialized_memory
 _lock = threading.Lock()
 _lib = None
 #: Seconds the last build took (0.0 when the library came from the cache).
@@ -64,6 +71,10 @@ build_seconds = 0.0
 
 def _sources():
     return sorted(glob.glob(osp.join(CSRC_DIR, "*.cu")))
+
+
+def _headers():
+    return sorted(glob.glob(osp.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -75,7 +86,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             h.update(osp.basename(src).encode())
             h.update(f.read())
@@ -126,8 +137,11 @@ def build() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; later calls take no
+    lock).  ctypes keeps each entry point's function object once fetched."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -137,6 +151,27 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.empty`` for an output that a kernel writes whole: without the
+    NaN fill that deterministic mode gives ``torch.empty``
+    (``torch.utils.deterministic.fill_uninitialized_memory``), a pass over
+    the output's memory and one more launch that would buy nothing.  The
+    setting is process-wide and is restored at once."""
+    if not _get_fill():
+        return torch.empty(shape, dtype=dtype, device=device)
+    _set_fill(False)
+    try:
+        return torch.empty(shape, dtype=dtype, device=device)
+    finally:
+        _set_fill(True)
+
+
+def raw_stream(device: int) -> int:
+    """The current CUDA stream of device ``device`` (an index) as an integer
+    handle, without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(err: int, name: str) -> None:

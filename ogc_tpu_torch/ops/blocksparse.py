@@ -14,18 +14,23 @@ table itself, as the JAX package's ``_bs_prologue`` does.
   product turns -0.0 into +0.0 and spreads a NaN over its block; the port
   copies values, so a -0.0 or a NaN stays where it was.  The smooth loss
   gathers finite positive masks and original indices (floats exact below
-  2^24), where both give the same bits.
+  2^24), where both give the same bits.  On the card the same launch also
+  writes which blocks each ``RQ`` rows of the padded table reach (the
+  ``presence`` of ``bs_prologue``), the input of #10.
 * ``scatter_add_blocksparse`` (B, M, S) x (B, M, S, C) -> (B, N, C), each
   destination row summed in ascending edge order from 0.0f: the contract of
   ops/scatter.py (#11), whose ``scatter_add_rows_plain`` is its plain
   version.
-* ``group_blocksparse`` the pair as an autograd function.
+* ``group_blocksparse`` the pair as an autograd function: the forward runs
+  ``bs_pad`` (no work when M is a multiple of ``QT``, S is even and the
+  table is int32, as on the KITTI-SF smooth tables) and #9, and keeps the
+  padded table and its presence for #10.
 
-The JAX package sends a whole call to the plain gather and XLA's scatter
-when any tile reaches more than ``CAP`` blocks.  The port routes per tile
-inside the kernels instead: a tile over the cap reads its rows straight from
-device memory, with the same result.  Such tiles are counted on the device
-in ``gather_blocksparse.overflow_tiles`` (no host sync).
+The TPU stages a tile's blocks because it gathers random rows slowly, and
+the JAX package sends a whole call to the plain gather when a tile reaches
+more than ``CAP`` blocks.  The H100 keeps a cloud's source in L2, so #9
+stages no blocks and has no cap; ``order``, ``count`` and ``overflow`` of
+``bs_prologue`` are what the JAX package computes, and no kernel reads them.
 
 Each wrapper routes by the tensors' device: CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.  ``.launches`` counts
@@ -45,8 +50,13 @@ from ogc_tpu_torch.ops.scatter import scatter_add_rows_plain
 CB = 128    # source rows per candidate block (pallas_onehot.py::_BS_CB)
 QT = 256    # query rows per tile (_BS_QT)
 CAP = 32    # candidate blocks a tile stages (_BS_CAP)
-RQ = 32     # query rows per unit of the scatter's presence matrix
+RQ = 32     # query rows per unit of the presence matrix
 MAX_C = 16
+# #9's launch (csrc/onehot_bs.cu): a block of GATHER_WARPS warps per RQ-row
+# unit stages at most PIECE padded edges' indices at a time, beside a
+# 128-word buffer per warp and the unit's presence row, in at most
+# SMEM_LIMIT bytes of shared memory (the H100's opt-in maximum).
+GATHER_WARPS, PIECE, SMEM_LIMIT = 8, 4096, 232448
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -65,6 +75,33 @@ def bs_pad(idx: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
     return idx_p, m_pad, s_pad
 
 
+class Table(NamedTuple):
+    """What #10 reads: the padded table and its presence."""
+    idx: torch.Tensor       # (B, m_pad * s_pad) int32, the padded table
+    s_pad: int
+    presence: torch.Tensor  # (B, m_pad / RQ, nb) uint8: rows [u RQ, (u+1)
+    #                         RQ) of the table reach block j
+
+
+class GatherPlan(NamedTuple):
+    """#9's launch: a grid of (units, B) blocks, each owning the ``RQ``
+    padded rows of one unit of one cloud and walking them ``piece`` padded
+    edges at a time, with ``smem`` bytes of dynamic shared memory."""
+    m_pad: int
+    s_pad: int
+    units: int
+    piece: int
+    smem: int
+
+
+def bs_gather_plan(n: int, M: int, S: int) -> GatherPlan:
+    """#9's launch for a source of ``n`` rows and a (M, S) table."""
+    m_pad, s_pad = _pad_to(M, QT), _pad_to(S, 2)
+    piece = min(RQ * s_pad, PIECE)
+    smem = (GATHER_WARPS * 128 + piece) * 4 + -(-n // CB)
+    return GatherPlan(m_pad, s_pad, m_pad // RQ, piece, smem)
+
+
 class Prologue(NamedTuple):
     idx: torch.Tensor       # (B, m_pad * s_pad) int32, the padded table
     s_pad: int
@@ -80,10 +117,11 @@ def bs_prologue(idx: torch.Tensor, n: int) -> Prologue:
     """Per-tile candidate-block lists of ``idx`` (B, M, S) into a source of
     ``n`` rows (pallas_onehot.py::_bs_pad and ::_bs_prologue): ``order``,
     ``count`` and ``overflow`` as the JAX package computes them (``order``
-    lists the present blocks ascending, then the absent ones); ``nblk`` and
-    ``presence`` (per RQ rows: the scatter walks only the units that reach
-    its block) are what the kernels read.  Indices are clamped into [0, n)
-    first, as the kernels clamp them."""
+    lists the present blocks ascending, then the absent ones); ``nblk``, the
+    unclamped counts; and ``presence`` per RQ rows, which #9 writes on the
+    card and #10 reads (the scatter walks only the units that reach its
+    block).  Indices are clamped into [0, n) first, as the kernels clamp
+    them."""
     B = idx.shape[0]
     idx_p, m_pad, s_pad = bs_pad(idx)
     nb, nt = -(-n // CB), m_pad // QT
@@ -121,14 +159,14 @@ def scatter_add_blocksparse_plain(idx: torch.Tensor, cot: torch.Tensor,
                                   cot.reshape(B, M * S, cot.shape[-1]), n)
 
 
-def gather_blocksparse(points: torch.Tensor, idx: torch.Tensor,
-                       pro: Optional[Prologue] = None) -> torch.Tensor:
+def gather_blocksparse(points: torch.Tensor, idx: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[Table]]:
     """(B, N, C) float32 x (B, M, S) int in [0, N) -> (B, M, S, C),
-    bit-equal to the plain version.  ``pro`` is ``bs_prologue(idx, N)``,
-    computed here when not given."""
-    if points.device.type == "cpu" and idx.device.type == "cpu":
-        return gather_blocksparse_plain(points, idx)
-    _check("gather_blocksparse", ("points", points), ("idx", idx))
+    bit-equal to the plain version, and on the card the ``Table`` that #10
+    reads (its presence written by the same launch); None on the CPU."""
+    if points.is_cpu and idx.is_cpu:
+        return gather_blocksparse_plain(points, idx), None
+    dev = _check("gather_blocksparse", ("points", points), ("idx", idx))
     if (points.dim() != 3 or idx.dim() != 3 or idx.shape[0] != points.shape[0]
             or points.dtype != torch.float32
             or idx.dtype not in (torch.int32, torch.int64)):
@@ -138,34 +176,41 @@ def gather_blocksparse(points: torch.Tensor, idx: torch.Tensor,
             f"{tuple(idx.shape)} {idx.dtype}")
     B, N, C = points.shape
     M, S = idx.shape[1:]
-    if not (N >= 1 and 1 <= C <= MAX_C):
+    plan = bs_gather_plan(N, M, S)
+    if not (N >= 1 and 1 <= C <= MAX_C and plan.smem <= SMEM_LIMIT):
         raise ValueError(f"gather_blocksparse: N={N} C={C}; the kernel takes "
-                         f"N >= 1, C <= {MAX_C}")
-    out = torch.empty((B, M, S, C), dtype=torch.float32, device=points.device)
+                         f"N >= 1, C <= {MAX_C} and at most {SMEM_LIMIT} "
+                         f"bytes of shared memory (here {plan.smem})")
+    idx_p = bs_pad(idx)[0].reshape(B, plan.m_pad * plan.s_pad)
+    if not idx_p.is_contiguous():
+        idx_p = idx_p.contiguous()
+    out = _build.empty((B, M, S, C), torch.float32, points.device)
+    presence = _build.empty((B, plan.units, -(-N // CB)), torch.uint8,
+                            points.device)
+    table = Table(idx_p, plan.s_pad, presence)
     if B * M * S == 0:
-        return out
-    pro = pro or bs_prologue(idx, N)
-    points = points.contiguous()
-    stream = torch.cuda.current_stream(points.device).cuda_stream
+        presence.zero_()
+        return out, table
+    if not points.is_contiguous():
+        points = points.contiguous()
     err = _build.lib().ogc_bs_gather(
-        points.data_ptr(), pro.idx.data_ptr(), pro.order.data_ptr(),
-        pro.nblk.data_ptr(), B, N, C, M, S, pro.s_pad, pro.nblk.shape[1],
-        out.data_ptr(), stream)
+        points.data_ptr(), idx_p.data_ptr(), B, N, C, M, S, plan.s_pad,
+        plan.units, plan.piece, plan.smem, out.data_ptr(),
+        presence.data_ptr(), _build.raw_stream(dev))
     _build.check(err, "ogc_bs_gather")
     gather_blocksparse.launches += 1
-    gather_blocksparse.overflow_tiles = (gather_blocksparse.overflow_tiles
-                                         + (pro.nblk > CAP).sum())
-    return out
+    return out, table
 
 
 def scatter_add_blocksparse(idx: torch.Tensor, cot: torch.Tensor, n: int,
-                            pro: Optional[Prologue] = None) -> torch.Tensor:
+                            table: Optional[Table] = None) -> torch.Tensor:
     """(B, M, S) int in [0, n) x (B, M, S, C) float32 -> (B, n, C) float32,
-    each row summed in ascending edge order.  ``pro`` is
-    ``bs_prologue(idx, n)``, computed here when not given."""
-    if idx.device.type == "cpu" and cot.device.type == "cpu":
+    each row summed in ascending edge order.  ``table`` is the one #9
+    returned for ``idx`` (or a ``bs_prologue(idx, n)``), computed here when
+    not given."""
+    if idx.is_cpu and cot.is_cpu:
         return scatter_add_blocksparse_plain(idx, cot, n)
-    _check("scatter_add_blocksparse", ("idx", idx), ("cot", cot))
+    dev = _check("scatter_add_blocksparse", ("idx", idx), ("cot", cot))
     if (idx.dim() != 3 or cot.dim() != 4 or cot.shape[:3] != idx.shape
             or cot.dtype != torch.float32
             or idx.dtype not in (torch.int32, torch.int64)):
@@ -183,41 +228,39 @@ def scatter_add_blocksparse(idx: torch.Tensor, cot: torch.Tensor, n: int,
         return out
     if M * S == 0:
         return out.zero_()
-    pro = pro or bs_prologue(idx, n)
+    table = table or bs_prologue(idx, n)
     cot = cot.contiguous()
-    stream = torch.cuda.current_stream(cot.device).cuda_stream
     err = _build.lib().ogc_bs_scatter(
-        pro.idx.data_ptr(), cot.data_ptr(), pro.presence.data_ptr(), B, n, C,
-        M, S, pro.s_pad, pro.presence.shape[1], pro.presence.shape[2],
-        out.data_ptr(), stream)
+        table.idx.data_ptr(), cot.data_ptr(), table.presence.data_ptr(), B,
+        n, C, M, S, table.s_pad, table.presence.shape[1],
+        table.presence.shape[2], out.data_ptr(), _build.raw_stream(dev))
     _build.check(err, "ogc_bs_scatter")
     scatter_add_blocksparse.launches += 1
     return out
 
 
 gather_blocksparse.launches = 0
-gather_blocksparse.overflow_tiles = 0
 scatter_add_blocksparse.launches = 0
 
 
 class _GroupBlockSparse(torch.autograd.Function):
-    """#9 forward, #10 backward; the prologue is computed once (CUDA only)
-    and kept for the backward, as the JAX package keeps its residuals."""
+    """#9 forward, #10 backward; the table and presence #9 writes (CUDA
+    only) are kept for the backward, as the JAX package keeps its
+    residuals."""
 
     @staticmethod
     def forward(ctx, points, idx):
-        pro = None if points.device.type == "cpu" else bs_prologue(
-            idx, points.shape[1])
+        out, ctx.table = gather_blocksparse(points, idx)
         ctx.save_for_backward(idx)
-        ctx.pro, ctx.n = pro, points.shape[1]
-        return gather_blocksparse(points, idx, pro)
+        ctx.n = points.shape[1]
+        return out
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
             return None, None
         (idx,) = ctx.saved_tensors
-        d = scatter_add_blocksparse(idx, grad.float(), ctx.n, ctx.pro)
+        d = scatter_add_blocksparse(idx, grad.float(), ctx.n, ctx.table)
         return d.to(grad.dtype), None
 
 

@@ -9,7 +9,13 @@ launches these kernels at exactly the call sites where the JAX package
 launches #7/#8.
 
 * ``gather_rows_onehot`` (B, N, C) x (B, E) -> (B, E, C), bit-equal to
-  ``src[b, idx[b]]`` (the plain version, advanced indexing).
+  ``src[b, idx[b]]`` (the plain version, advanced indexing).  Its kernel
+  stages no source (the cloud stays in L2) and copies rows with C fixed at
+  compile time.  At SAPIEN's smooth-loss calls the device needs a few
+  microseconds, so the host path is kept to what the launch needs: no
+  conversion of an int32 contiguous ``idx``, the output allocated without
+  deterministic mode's fill (the kernel writes it whole), the library taken
+  without a lock, the stream as a raw handle.
 * ``scatter_add_rows_onehot`` (B, E) x (B, E, C) -> (B, n, C), each
   destination summed in ascending e from 0.0f: the contract of
   ops/scatter.py, whose ``scatter_add_rows_plain`` is its plain version.
@@ -50,41 +56,50 @@ def gather_rows_onehot_plain(src: torch.Tensor,
     return src[rows, idx.long()]
 
 
-def _check(name: str, *tensors) -> None:
+def _check(name: str, *tensors) -> int:
+    """Raise unless every tensor lies on one CUDA device; return its index."""
+    dev = tensors[0][1].get_device()
     for label, t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: {label} on {t.device}")
-    if len({t.device for _, t in tensors}) != 1:
-        raise ValueError(f"{name}: tensors on different devices")
+        if t.get_device() != dev or dev < 0:
+            raise ValueError(f"{name}: {label} on {t.device}, want the CUDA "
+                             f"device of {tensors[0][0]}")
+    return dev
 
 
 def gather_rows_onehot(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) float32 x (B, E) int in [0, N) -> (B, E, C), bit-equal to
-    the plain version; requires N <= 1024 and C <= 16 on the card."""
-    if src.device.type == "cpu" and idx.device.type == "cpu":
+    the plain version; requires N <= 1024 and C <= 16 on the card.  The host
+    path does only what the launch needs (the calls are small, and their
+    time is mostly the host's): an int32 contiguous ``idx`` and a contiguous
+    ``src`` go to the kernel as they are."""
+    if src.is_cpu and idx.is_cpu:
         return gather_rows_onehot_plain(src, idx)
-    _check("gather_rows_onehot", ("src", src), ("idx", idx))
-    if (src.dim() != 3 or idx.dim() != 2 or idx.shape[0] != src.shape[0]
-            or src.dtype != torch.float32
-            or idx.dtype not in (torch.int32, torch.int64)):
+    dev = src.get_device()
+    if (dev < 0 or idx.get_device() != dev or src.dim() != 3
+            or idx.dim() != 2 or src.dtype != torch.float32
+            or idx.dtype not in (torch.int32, torch.int64)
+            or idx.shape[0] != src.shape[0]):
         raise ValueError(
             f"gather_rows_onehot: want (B, N, C) float32 src and (B, E) int "
-            f"idx, got {tuple(src.shape)} {src.dtype}, {tuple(idx.shape)} "
-            f"{idx.dtype}")
+            f"idx on one CUDA device, got {tuple(src.shape)} {src.dtype} on "
+            f"{src.device}, {tuple(idx.shape)} {idx.dtype} on {idx.device}")
     B, N, C = src.shape
     E = idx.shape[1]
     if not (1 <= N <= MAX_N and 1 <= C <= MAX_C):
         raise ValueError(f"gather_rows_onehot: N={N} C={C} outside the "
                          f"kernel's N <= {MAX_N}, C <= {MAX_C}")
-    out = torch.empty((B, E, C), dtype=torch.float32, device=src.device)
+    out = _build.empty((B, E, C), torch.float32, dev)
     if B * E == 0:
         return out
-    src = src.contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    stream = torch.cuda.current_stream(src.device).cuda_stream
+    if not src.is_contiguous():
+        src = src.contiguous()
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
     err = _build.lib().ogc_gather_rows_onehot(
-        src.data_ptr(), idx.data_ptr(), B, N, C, E, out.data_ptr(), stream)
-    _build.check(err, "ogc_gather_rows_onehot")
+        src.data_ptr(), idx.data_ptr(), B, N, C, E, out.data_ptr(),
+        _build.raw_stream(dev))
+    if err:
+        _build.check(err, "ogc_gather_rows_onehot")
     gather_rows_onehot.launches += 1
     return out
 
@@ -93,9 +108,9 @@ def scatter_add_rows_onehot(idx: torch.Tensor, cot: torch.Tensor,
                             n: int) -> torch.Tensor:
     """(B, E) int in [0, n) x (B, E, C) float32 -> (B, n, C) float32, each
     row summed in ascending e; requires n <= 1024 and C <= 16 on the card."""
-    if idx.device.type == "cpu" and cot.device.type == "cpu":
+    if idx.is_cpu and cot.is_cpu:
         return scatter_add_rows_plain(idx, cot, n)
-    _check("scatter_add_rows_onehot", ("idx", idx), ("cot", cot))
+    dev = _check("scatter_add_rows_onehot", ("idx", idx), ("cot", cot))
     if (idx.dim() != 2 or cot.dim() != 3 or cot.shape[:2] != idx.shape
             or cot.dtype != torch.float32
             or idx.dtype not in (torch.int32, torch.int64)):
@@ -113,9 +128,9 @@ def scatter_add_rows_onehot(idx: torch.Tensor, cot: torch.Tensor,
         return out
     idx = idx.to(torch.int32).contiguous()
     cot = cot.contiguous()
-    stream = torch.cuda.current_stream(cot.device).cuda_stream
     err = _build.lib().ogc_scatter_add_rows_onehot(
-        idx.data_ptr(), cot.data_ptr(), B, E, C, n, out.data_ptr(), stream)
+        idx.data_ptr(), cot.data_ptr(), B, E, C, n, out.data_ptr(),
+        _build.raw_stream(dev))
     _build.check(err, "ogc_scatter_add_rows_onehot")
     scatter_add_rows_onehot.launches += 1
     return out

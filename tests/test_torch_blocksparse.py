@@ -5,14 +5,21 @@ kernels run in interpret mode here.
 On CPU tensors the port takes the plain versions (advanced indexing
 forward, #11's plain scatter-add backward), so this holds those and the
 prologue to the Pallas contract; chip_smoke.py holds the CUDA kernels to
-them on the card.  The four cases are tests/test_onehot_group.py's: a
-Morton-coherent-like table with an odd S, a uniform table at N = 8192
+them on the card.  The first four cases are tests/test_onehot_group.py's:
+a Morton-coherent-like table with an odd S, a uniform table at N = 8192
 whose every tile reaches more blocks than the cap, the vjp case, and
-integer data.  The forward is a copy and must be bit-equal; the backward
-sums each row in ascending edge order where XLA's scatter takes its own
-order, so it holds rtol 1e-5 / atol 1e-4 (the JAX test's tolerance) on
-float data and bit-equality on integer data, where every order gives the
-same sums.
+integer data (C 10, 4, 6, 5); the "c*" cases add C 1, 3, 8, 11 and 16,
+and "wide" has rows of more padded edges than #9 stages at once.  The forward is a copy and must be bit-equal; the backward sums
+each row in ascending edge order where XLA's scatter takes its own order,
+so it holds rtol 1e-5 / atol 1e-4 (the JAX test's tolerance) on float data
+and bit-equality on integer data, where every order gives the same sums.
+
+#9's presence (which blocks each 32 rows of the padded table reach, the
+input of #10) is held to JAX's per-tile lists; #9's launch plan
+(``bs_gather_plan``) to the kernel's needs by a numpy model of the walk
+csrc/onehot_bs.cu makes: every padded edge loaded once, every output edge
+written once, the rows and the presence equal to indexing and to
+``bs_prologue``'s.
 """
 
 import jax
@@ -29,7 +36,19 @@ from tests.torch_port_helper import pack, run_torch
 CASES = {"coherent": (5, 2, 1024, 10, 700, 7, 300, False),
          "overflow": (6, 1, 8192, 4, 512, 16, None, False),
          "vjp": (7, 2, 512, 6, 512, 8, 150, False),
-         "integer": (8, 1, 640, 5, 512, 6, 100, True)}
+         "integer": (8, 1, 640, 5, 512, 6, 100, True),
+         "c1": (9, 1, 512, 1, 256, 6, 60, False),
+         "c3": (10, 2, 640, 3, 300, 9, 80, False),
+         "c8": (11, 1, 1024, 8, 512, 12, 200, False),
+         "c11": (12, 1, 1500, 11, 600, 17, 150, False),
+         "c16": (13, 1, 768, 16, 256, 10, None, True),
+         "wide": (14, 1, 700, 11, 300, 201, 100, False)}
+# (n, M, S) launch plans beside the cases': the KITTI-SF, SAPIEN, ragged
+# and uniform tables of chip_smoke.py, tiny ones, and rows of more padded
+# edges than one piece (S 200: two pieces per unit; S 129: a 64-edge rest).
+PLANS = [(8192, 8192, 96), (512, 512, 24), (1500, 1500, 17),
+         (8192, 1024, 16), (1, 1, 1), (100, 3, 2), (300, 33, 200),
+         (1000, 300, 129), (2 ** 20, 64, 8)]
 
 
 def _coherent_idx(rng, B, M, S, N, width):
@@ -58,7 +77,8 @@ def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_blocksparse")
     x = {f"{case}/{k}": v for case in CASES
          for k, v in _inputs(case).items()}
-    inp = pack(str(tmp / "in.npz"), x, {"cases": list(CASES)})
+    inp = pack(str(tmp / "in.npz"), x, {"cases": list(CASES),
+                                        "plans": PLANS})
     (out,) = run_torch([("blocksparse", inp, str(tmp / "out.npz"))])
     return x, out
 
@@ -120,3 +140,91 @@ def test_backward_bit_equal_to_scatter_add_rows_plain(port, case):
     _, out = port
     np.testing.assert_array_equal(out[case + "/grad"],
                                   out[case + "/scatter11"])
+
+
+def _out_edge(e, s_pad, S):
+    """csrc/onehot_bs.cu::out_edge: real edges before padded edge e."""
+    m = e // s_pad
+    return m * S + np.minimum(e - m * s_pad, S)
+
+
+def _walk(plan, consts, n, M, S, padded=None):
+    """A numpy model of the walk bs_gather_kernel makes under ``plan``, for
+    one cloud: per unit, per piece, the padded edges loaded and the output
+    edges written, each counted; with ``padded`` (m_pad * s_pad,) also the
+    rows written per output edge and the presence rows."""
+    m_pad, s_pad, units, piece, smem = (int(v) for v in plan)
+    rq, cb, warps, limit = (int(v) for v in consts)
+    nb = -(-n // cb)
+    assert smem >= (warps * 128 + piece) * 4 + nb and smem <= limit
+    assert piece % 4 == 0 and units * rq == m_pad and s_pad % 2 == 0
+    loads = np.zeros(m_pad * s_pad, np.int64)
+    writes = np.zeros(M * S, np.int64)
+    rows = np.full(M * S, -1, np.int64)
+    presence = np.zeros((units, nb), np.uint8)
+    unit_edges = rq * s_pad
+    for u in range(units):
+        for p0 in range(0, unit_edges, piece):
+            e0 = u * unit_edges + p0
+            ln = min(piece, unit_edges - p0)
+            assert ln % 4 == 0 and ln <= piece
+            q0 = min(_out_edge(e0, s_pad, S), M * S)
+            q1 = min(_out_edge(e0 + ln, s_pad, S), M * S)
+            e = np.arange(e0, e0 + ln)
+            loads[e] += 1
+            m, s = e // s_pad, e % s_pad
+            real = (s < S) & (m < M)
+            pos = (m * S + s - q0)[real]
+            # The piece's real edges fill s_row[0, q1 - q0) exactly.
+            np.testing.assert_array_equal(np.sort(pos), np.arange(q1 - q0))
+            writes[q0:q1] += 1
+            if padded is not None:
+                i = np.clip(padded[e], 0, n - 1)
+                presence[u, i // cb] = 1
+                rows[q0 + pos] = i[real]
+    np.testing.assert_array_equal(loads, 1)
+    np.testing.assert_array_equal(writes, 1)
+    return rows, presence
+
+
+@pytest.mark.parametrize("k", range(len(PLANS)))
+def test_gather_plan_covers_every_edge_once(port, k):
+    _, out = port
+    n, M, S = PLANS[k]
+    _walk(out["plans"][k], out["plan_consts"], n, M, S)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_walk_matches_indexing_and_prologue(port, case):
+    """The modelled walk, run on the case's padded table, writes indexing's
+    rows and bs_prologue's presence."""
+    x, out = port
+    src, idx = x[case + "/src"], x[case + "/idx"]
+    B, M, S = idx.shape
+    n = src.shape[1]
+    for b in range(B):
+        rows, presence = _walk(out[case + "/plan"], out["plan_consts"], n, M,
+                               S, out[case + "/padded"][b])
+        np.testing.assert_array_equal(rows, idx[b].reshape(-1))
+        np.testing.assert_array_equal(presence, out[case + "/presence"][b])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_presence_matches_jax_tile_lists(port, case):
+    """bs_prologue's presence, per 32 rows, reduced over each 256-row tile
+    lists the blocks JAX's _bs_prologue lists for it (the first CAP of them
+    where the tile passes the cap), and counts them as it does."""
+    x, out = port
+    n = x[case + "/src"].shape[1]
+    idx_p, m_pad, _ = _bs_pad(jnp.asarray(x[case + "/idx"]))
+    order, count, _ = _bs_prologue(idx_p, _pad_to(n, 128))
+    order, count = np.asarray(order), np.asarray(count)[..., 0]
+    presence = out[case + "/presence"]
+    B, units, nb = presence.shape
+    assert (units, nb) == (m_pad // 32, -(-n // 128))
+    tiles = presence.reshape(B, m_pad // 256, 8, nb).any(2)
+    for b in range(B):
+        for t in range(tiles.shape[1]):
+            blocks = np.flatnonzero(tiles[b, t])[:_BS_CAP]
+            assert count[b, t] == len(blocks)
+            np.testing.assert_array_equal(order[b, t, :count[b, t]], blocks)

@@ -10,7 +10,8 @@ plain versions on the card.
   (n, rows, c), the JAX side with ``pallas_available`` patched to True (its
   gate is off away from a TPU) for the test only.
 * #7: bit-equal to ``gather_rows_onehot`` at (N, C) = (512, 6), (512, 8),
-  (130, 3).
+  (130, 3), (1, 1), (300, 11), (1024, 16): every channel count near the
+  paths' that the CUDA kernel is compiled for, and N at both ends.
 * #8: bit-equal to ``scatter_add_rows_onehot`` on integer-valued
   cotangents (any order sums them exactly), and within rtol 1e-6 / atol
   1e-6 on normal ones (the one-hot product sums in its own order; the
@@ -34,7 +35,8 @@ GATE_GRID = list(itertools.product(
     (1, 100, 128, 129, 500, 512, 896, 1000, 1024, 1025, 2048, 8192),
     (1, 512, 1023, 1024, 4096, 16384),
     (1, 3, 6, 8, 16, 17, 64, 300)))
-GATHER_CASES = {"g512x6": (512, 6), "g512x8": (512, 8), "g130x3": (130, 3)}
+GATHER_CASES = {"g512x6": (512, 6), "g512x8": (512, 8), "g130x3": (130, 3),
+                "g1x1": (1, 1), "g300x11": (300, 11), "g1024x16": (1024, 16)}
 # name: (N, C, E, integer-valued)
 SCATTER_CASES = {"s_int": (300, 7, 4097, True), "s_normal": (512, 8, 4096,
                                                              False),

@@ -519,14 +519,19 @@ def _case_pruned(x, cfg, state):
 
 def _case_blocksparse(x, cfg, state):
     """#9/#10's plain versions through ``group_blocksparse`` (forward, and
-    the backward of a cotangent), the prologue's lists, and #11's plain
-    version on the flattened table."""
+    the backward of a cotangent), the prologue's lists and presence, #9's
+    launch plan, and #11's plain version on the flattened table; and the
+    launch plans of ``cfg["plans"]`` (n, M, S) shapes."""
     import torch
 
+    from ogc_tpu_torch.ops import blocksparse as bs
     from ogc_tpu_torch.ops.blocksparse import bs_prologue, group_blocksparse
     from ogc_tpu_torch.ops.scatter import scatter_add_rows_plain
 
-    out = {}
+    out = {"plans": np.array([bs.bs_gather_plan(*shape)
+                              for shape in cfg["plans"]]),
+           "plan_consts": np.array([bs.RQ, bs.CB, bs.GATHER_WARPS,
+                                    bs.SMEM_LIMIT])}
     for name in cfg["cases"]:
         src = torch.from_numpy(x[name + "/src"]).requires_grad_(True)
         idx = torch.from_numpy(x[name + "/idx"])
@@ -538,6 +543,10 @@ def _case_blocksparse(x, cfg, state):
         out.update({name + "/order": pro.order.numpy(),
                     name + "/count": pro.count.numpy(),
                     name + "/overflow": pro.overflow.numpy(),
+                    name + "/presence": pro.presence.numpy(),
+                    name + "/padded": pro.idx.numpy(),
+                    name + "/plan": np.array(bs.bs_gather_plan(
+                        src.shape[1], M, S)),
                     name + "/out": got.detach().numpy(),
                     name + "/grad": src.grad.numpy(),
                     name + "/scatter11": scatter_add_rows_plain(
