@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
-2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc.
+2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc, and
+   prints ptxas's registers, shared memory and spills for #2's and #12's.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
    card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
@@ -16,6 +17,12 @@
    the small-source gather at SA0's two scales (C 6, 256 x 64 rows) and at
    the smooth KNN and ball groups (C 8, 4096 / 8192 rows), and the
    small-source scatter at the smooth groups, also bit-equal to #11.
+   #2 is also timed by device time (device_ms), its edge cases (every k
+   from 1 to 64 over a ragged M, M < 32 with k = M, N 1001 x M 1025 at B
+   16 on a 1/64 grid, tied rows, one site) hold its kernels (thread and
+   warp per query) bit-equal, and the two are timed against each other at
+   k 3, 4, 8 and at the paths' small-k searches (where knn_plan's
+   THREAD_MIN_QUERIES sits).
    Prints median CUDA-event times of kernel and plain version, the bound
    of each call, the library call on the same inputs (``index_add_`` in
    deterministic mode for a scatter, ``torch.gather`` for the small-source
@@ -39,8 +46,9 @@
    the CPU (plain versions): loss terms rtol 1e-4, gradients rtol 3e-3 per
    leaf.
 5. Profile: torch.profiler over 3 warm train steps, all terms on; prints
-   the device's busy share of the steps and the operators and kernels that
-   take the most device time.
+   the device's busy share of the steps, the device time of #2's and
+   #12's kernels, and the operators and kernels that take the most device
+   time.
 6. Eval phase: ogc_tpu_torch.test_seg.main on the 100 ids of
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
@@ -92,21 +100,22 @@
    against #6 at its four settings, scene-like clouds) with the counts set
    to 0 before it.
 The kernel phase also holds the row-group pool (#12) at every pool shape of
-phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group
-add, ReLU on and off) and the bound-pruned exact KNN (#4) at every shape
-its gate admits on the flow path and the seg parity path, a ragged M and
-k = 64 over 32-point blocks, bit-equal to their plain versions and #4 to
-#2; the block-sparse gather and scatter (#9/#10) on the mxu path's tables
-(sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11), SAPIEN's, a
-ragged N with an odd S and a uniform table (every 256-row tile reaches 64
-blocks), #9 bit-equal to advanced indexing with the presence it writes
-equal to bs_prologue's, #10 fed that presence bit-equal to its plain
-version and #11, with the blocks per tile, and #9 at every C from 1 to 16
-from an aligned and an unaligned source; #7 also at every C from 1 to 16,
-N 1 and 1024 and a ragged E; #7 and #9 timed by single call and by device
-time beside torch.gather; and the candidate-pruned KNN (#6) at
-bench_knn_pruned's shapes on grid clouds, bit-equal to its plain version,
-beside #3 and #2 with its recall.
+phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group add,
+ReLU on and off; timed by single call, device time and host enqueue beside
+torch.amax), on NaN and -0.0 rows with the scale and add absent, given, or a
+-0.0 add, and at its runtime-S and scalar instances, and the bound-pruned exact
+KNN (#4) at every shape its gate admits on the flow path and the seg parity
+path, a ragged M and k = 64 over 32-point blocks, bit-equal to their plain
+versions and #4 to #2; the block-sparse gather and scatter (#9/#10) on the mxu
+path's tables (sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11),
+SAPIEN's, a ragged N with an odd S and a uniform table (every 256-row tile
+reaches 64 blocks), #9 bit-equal to advanced indexing with the presence it
+writes equal to bs_prologue's, #10 fed that presence bit-equal to its plain
+version and #11, with the blocks per tile, and #9 at every C from 1 to 16 from
+an aligned and an unaligned source; #7 also at every C from 1 to 16, N 1 and
+1024 and a ragged E; #7 and #9 timed by single call and by device time beside
+torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
+grid clouds, bit-equal to its plain version, beside #3 and #2 with its recall.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -328,6 +337,11 @@ SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
                          gather_onehot=SAP_FLOW_ITERS)
 
 
+# The symbols of #2's and #12's kernels, summed per call in every profile.
+PROFILED_KERNELS = {"#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
+                    "#12 pool": ("rowgroup_pool_kernel",)}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -377,6 +391,48 @@ def device_ms(fn, reps=20, rounds=5):
     return ms
 
 
+def host_us(fn, reps=200):
+    """Host microseconds per call: ``reps`` calls enqueued back to back with
+    no synchronisation between them, host clock (the device's work is
+    queued, not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def ptxas_report(sources):
+    """nvcc -Xptxas -v on each source with the build's own flags, all
+    started together: every kernel's registers, shared memory and spill
+    bytes as ptxas prints them (mangled names)."""
+    from ogc_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(src, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             osp.join(tmp, f"{i}.o"), src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+            for i, src in enumerate(sources)]
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v {src}:\n{out}")
+            name, spill = None, ""
+            for line in out.splitlines():
+                if "Compiling entry function" in line:
+                    name = line.split("'")[1]
+                elif "spill" in line:
+                    spill = line.split(":", 1)[-1].strip()
+                elif "Used" in line and name:
+                    log(f"ptxas {osp.basename(src)} {name}: "
+                        f"{line.split('Used', 1)[1].strip()}; {spill}")
+                    name = None
+
+
 def bound_ms(nbytes, nops):
     """(least ms, what bounds it): bytes over HBM rate vs f32 operations
     over the f32 peak."""
@@ -404,8 +460,8 @@ def box_pairs(q, p, half, last=None):
 class Report:
     """Per kernel: max abs error, and per call kernel ms, plain ms, bound ms
     (with what bounds it) and library ms, weighted by the call's launches
-    per train step; for #7 and #9 also the device times of kernel and
-    library call (device_ms)."""
+    per train step; for #2, #7, #9 and #12 also the device times of the
+    kernel and of the library call where there is one (device_ms)."""
 
     def __init__(self):
         self.rows = {}
@@ -425,8 +481,10 @@ class Report:
         if general is not None:
             r["general"] = (r["general"] or 0.0) + per_step * general
         if device is not None:
-            r["device"] = [a + per_step * b for a, b in
-                           zip(r["device"] or (0.0, 0.0), device)]
+            kd, ld = r["device"] or (0.0, None)
+            r["device"] = (kd + per_step * device[0],
+                           ld if device[1] is None
+                           else (ld or 0.0) + per_step * device[1])
 
     def entry(self, name):
         r = self.rows[name]
@@ -479,28 +537,109 @@ def check_fps(report, gen, b, per_step):
             f"plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
 
 
+def knn_bits_equal(got, want):
+    """Indices equal and distances the same bits (grid clouds: no NaN)."""
+    (d, i), (pd, pi) = got, want
+    return torch.equal(i, pi) and torch.equal(d.view(torch.int32),
+                                              pd.view(torch.int32))
+
+
 def check_knn(report, gen, shapes, per_step):
-    from ogc_tpu_torch.ops.knn import knn_exact, knn_exact_plain
+    """#2 at the path's shapes, bit-equal to its plain version, timed by
+    single call (cuda_ms) and by device time (device_ms) beside the plain
+    version.  Bound: 9 f32 operations per pair a pruned search must test,
+    or the bytes, the larger; the all-pairs operations bound is logged
+    beside it."""
+    from ogc_tpu_torch.ops.knn import knn_exact, knn_exact_plain, knn_plan
 
     for b, nq, m, k, reps in shapes:
         q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
         (d, i), (pd, pi) = knn_exact(q, p, k), knn_exact_plain(q, p, k)
         torch.cuda.synchronize()
-        if not (torch.equal(i, pi) and torch.equal(d, pd)):
+        if not knn_bits_equal((d, i), (pd, pi)):
             raise AssertionError(
                 f"knn b{b} q{nq} p{m} k{k}: kernel != plain at "
                 f"{(i != pi).sum().item()} indices, "
                 f"max dist diff {(d - pd).abs().max().item()}")
         ms = cuda_ms(lambda: knn_exact(q, p, k), 20)
+        dev = device_ms(lambda: knn_exact(q, p, k), reps=5, rounds=4)
         pms = cuda_ms(lambda: knn_exact_plain(q, p, k), 3)
         # 9 f32 operations (3 sub, 3 mul, 2 add, a compare) per pair a pruned
         # search must test: the points within the k-th distance's cube.
         pairs = box_pairs(q, p, d[..., -1])
         bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * 9)
-        report.add("knn_exact", 0, ms, pms, bnd, by, per_step=reps)
-        log(f"knn_exact ({b},{nq} q,{m} p,k={k}) x{reps}/{per_step}: idx "
-            f"and dist bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}; {pairs} pairs a pruned search tests)")
+        all_pairs, _ = bound_ms(0, b * nq * m * 9)
+        report.add("knn_exact", 0, ms, pms, bnd, by, per_step=reps,
+                   device=(dev, None))
+        kernel = knn_plan(k, b * nq)[0]
+        log(f"knn_exact ({b},{nq} q,{m} p,k={k}, {kernel} kernel) "
+            f"x{reps}/{per_step}: idx and dist bit-equal; single call "
+            f"{ms:.4f} ms, device {dev:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; {pairs} pairs a pruned search tests; all "
+            f"pairs {all_pairs:.4f} ms)")
+
+
+def check_knn_cases(gen):
+    """#2's edge cases, each kernel that takes the k (the warp kernel every
+    k, the thread kernel k <= THREAD_MAX_K) bit-equal to the plain version:
+    every k from 1 to 64 over a ragged M; M < 32 with k = M; M = 32 and 33;
+    N not a multiple of the blocks; B = 16; grid clouds of 1/8 and 1/64
+    steps, and crowded ones where whole rows of d2 tie (a 1/8 grid in a
+    unit cube: 8192 points on 512 sites); every point the same."""
+    from ogc_tpu_torch.ops.knn import (THREAD_MAX_K, knn_exact,
+                                       knn_exact_plain)
+
+    cases = [(2, 300, 1500, k, 30.0, 1 / 8) for k in range(1, 65)]
+    cases += [(3, 77, m, m, 2.0, 1 / 8) for m in (1, 5, 20, 31)]
+    cases += [(3, 77, m, k, 2.0, 1 / 8) for m in (32, 33) for k in (1, 32)]
+    cases += [(16, 1001, 1025, k, 30.0, 1 / 64) for k in (3, 17, 64)]
+    cases += [(2, 513, 8192, k, 1.0, 1 / 8) for k in (8, 32, 64)]
+    cases += [(2, 100, 4100, k, 0.0, 1 / 8) for k in (1, 33, 64)]
+    for b, nq, m, k, extent, step in cases:
+        q = grid_cloud(gen, b, nq, extent, step)
+        p = grid_cloud(gen, b, m, extent, step)
+        want = knn_exact_plain(q, p, k)
+        for variant in ("thread", "warp")[k > THREAD_MAX_K:]:
+            if not knn_bits_equal(knn_exact(q, p, k, variant), want):
+                raise AssertionError(
+                    f"knn {variant} b{b} q{nq} p{m} k{k} extent {extent} "
+                    f"step {step}: kernel != plain")
+    log(f"knn_exact edge cases: {len(cases)} (k 1..64 over M 1500, M < 32 "
+        f"with k = M, M 32/33, N 1001 x M 1025 at B 16 on a 1/64 grid, "
+        f"tied rows, one site), each kernel bit-equal to plain")
+
+
+def knn_crossover(gen):
+    """The thread and the warp kernel at the same inputs for k 3, 4 and 8
+    and at the paths' searches with k <= THREAD_MAX_K (device time, CUDA
+    graphs): where knn_plan's THREAD_MIN_QUERIES sits."""
+    from ogc_tpu_torch.ops.knn import (THREAD_MAX_K, THREAD_MIN_QUERIES,
+                                       knn_exact, knn_plan)
+
+    for b, nq, m in ((16, 2048, 8192), (16, 8192, 2048)):
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        row = []
+        for k in (3, 4, 8):
+            t = device_ms(lambda: knn_exact(q, p, k, "thread"), reps=3,
+                          rounds=3)
+            w = device_ms(lambda: knn_exact(q, p, k, "warp"), reps=3,
+                          rounds=3)
+            row.append(f"k {k}: thread {t:.4f} / warp {w:.4f}")
+        log(f"knn_exact crossover ({b},{nq} q,{m} p) device ms: "
+            f"{'; '.join(row)} (THREAD_MAX_K {THREAD_MAX_K})")
+    # The searches with k <= THREAD_MAX_K the paths make: FP three_nn at
+    # B 16 and 8, SAPIEN's smooth KNN (k 8 over 512 points, B 32).
+    shapes = [(B, nq, m, k) for B in (16, 8) for nq, m, k in KNN_SHAPES
+              if k <= THREAD_MAX_K] + [(SAP_B, SAP_N, SAP_N, SAP_KNN_K)]
+    row = []
+    for b, nq, m, k in shapes:
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        t = device_ms(lambda: knn_exact(q, p, k, "thread"), reps=5, rounds=4)
+        w = device_ms(lambda: knn_exact(q, p, k, "warp"), reps=5, rounds=4)
+        row.append(f"({b},{nq},{m},k={k}) thread {t:.4f} / warp {w:.4f}, "
+                   f"planned {knn_plan(k, b * nq)[0]}")
+    log(f"knn_exact small-k path shapes, device ms: {'; '.join(row)} "
+        f"(THREAD_MIN_QUERIES {THREAD_MIN_QUERIES})")
 
 
 def check_ball(report, gen):
@@ -723,6 +862,18 @@ def pool_launches(sites):
                if supported(clouds * m, s, c))
 
 
+def bits_equal(a, b):
+    """Same shape, NaN at the same places, every other value the same bits
+    (so -0.0 and +0.0 differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(as_int[a.dtype]),
+        b.masked_fill(nb, 0).view(as_int[b.dtype]))
+
+
 def check_pool(report, gen, sites, what):
     """#12 at every supported pool shape of ``sites``, bit-equal to its
     plain version in every variant: max and mean, float32 and bf16, a
@@ -730,13 +881,15 @@ def check_pool(report, gen, sites, what):
     (float32 max, its add and activation) is timed beside the plain
     version, the route the gate's off position takes (pool_neighbors' plain
     chain: "general"), and torch.amax over S (the library call of a bare
-    max), weighted by the site's calls per forward.  Bound: bytes, every
-    row read once and every pooled row written once."""
+    max), by single call (cuda_ms, kernel and torch.amax in turns, each
+    twice), by device time (device_ms) and by host enqueue time (host_us),
+    weighted by the site's calls per forward.  Bound: bytes, every row
+    read once and every pooled row written once."""
     from ogc_tpu_torch import ops
-    from ogc_tpu_torch.ops.pool import (rowgroup_pool, rowgroup_pool_plain,
-                                        supported)
+    from ogc_tpu_torch.ops.pool import (pool_plan, rowgroup_pool,
+                                        rowgroup_pool_plain, supported)
 
-    done = {}
+    done, hosts = {}, []
     for site, clouds, m, s, c, per_group, relu, calls in sites:
         if not supported(clouds * m, s, c):
             log(f"pool {what} {site} ({clouds},{m},S={s},C={c}): S is not a "
@@ -746,7 +899,9 @@ def check_pool(report, gen, sites, what):
         if key in done:
             d = done[key]
             report.add("pool", 0, d["ms"], d["plain"], d["bound"], d["by"],
-                       d["lib"], per_step=calls, general=d["general"])
+                       d["lib"], per_step=calls, general=d["general"],
+                       device=d["device"])
+            hosts.append((calls, d["host"]))
             continue
         g = clouds * m
         x32 = torch.randn((g * s, c), generator=gen, device="cuda")
@@ -761,32 +916,120 @@ def check_pool(report, gen, sites, what):
                         got = rowgroup_pool(x, scale, add.to(dt), s, rl, mean)
                         want = rowgroup_pool_plain(x, scale, add.to(dt), s,
                                                    rl, mean)
-                        if not torch.equal(got, want):
+                        if not bits_equal(got, want):
                             raise AssertionError(
                                 f"pool {site} {dt} per-group {pg} relu {rl} "
                                 f"mean {mean}: kernel != plain, max diff "
                                 f"{(got.float() - want.float()).abs().max()}")
         add = adds[per_group]
-        ms = cuda_ms(lambda: rowgroup_pool(x32, scale, add, s, relu), 20)
+        x4 = x32.reshape(clouds, m, s, c)
+        ms, lib = [], []
+        for _ in range(2):
+            ms.append(cuda_ms(lambda: rowgroup_pool(x32, scale, add, s, relu),
+                              20))
+            lib.append(cuda_ms(lambda: torch.amax(x4, 2), 20))
+        ms, lib = float(np.median(ms)), float(np.median(lib))
+        dev = (device_ms(lambda: rowgroup_pool(x32, scale, add, s, relu)),
+               device_ms(lambda: torch.amax(x4, 2)))
+        host = (host_us(lambda: rowgroup_pool(x32, scale, add, s, relu)),
+                host_us(lambda: torch.amax(x4, 2)))
         pms = cuda_ms(lambda: rowgroup_pool_plain(x32, scale, add, s, relu),
                       5)
-        x4 = x32.reshape(clouds, m, s, c)
         ad4 = add.reshape(clouds, m, c) if per_group else add.reshape(c)
         ops.set_pool_mode("off")
         gms = cuda_ms(lambda: ops.pool_neighbors(
             x4, differentiable=False, scale=scale, add=ad4, relu=relu), 20)
-        lib = cuda_ms(lambda: torch.amax(x4, 2), 20)
-        bnd, by = bound_ms((g * s + g) * c * 4 + c * 4
-                           + (g * c * 4 if per_group else c * 4), 0)
+        nbytes = ((g * s + g) * c * 4 + c * 4
+                  + (g * c * 4 if per_group else c * 4))
+        bnd, by = bound_ms(nbytes, 0)
         done[key] = dict(ms=ms, plain=pms, bound=bnd, by=by, lib=lib,
-                         general=gms)
+                         general=gms, device=dev, host=host)
         report.add("pool", 0, ms, pms, bnd, by, lib, per_step=calls,
-                   general=gms)
+                   general=gms, device=dev)
+        s_t, vec = pool_plan(s, c, 4)
         log(f"pool {what} {site} ({clouds},{m},S={s},C={c}, "
-            f"{'per-group' if per_group else 'broadcast'} add, relu {relu}) "
-            f"x{calls}/forward: bit-equal in all 16 variants; kernel "
-            f"{ms:.4f} ms, plain {pms:.4f} ms, gate-off chain {gms:.4f} ms, "
-            f"torch.amax {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{'per-group' if per_group else 'broadcast'} add, relu {relu}; "
+            f"S {'compiled' if s_t else 'runtime'}, "
+            f"{'16-byte chunks' if vec else 'scalar'}) x{calls}/forward: "
+            f"bit-equal in all 16 variants; single call: kernel {ms:.4f} ms, "
+            f"torch.amax {lib:.4f} ms; device: kernel {dev[0]:.4f} ms, "
+            f"torch.amax {dev[1]:.4f} ms ({bnd / dev[0]:.4f} of the bound); "
+            f"host enqueue: kernel {host[0]:.2f} us, torch.amax "
+            f"{host[1]:.2f} us; plain {pms:.4f} ms, gate-off chain "
+            f"{gms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        hosts.append((calls, host))
+    log(f"pool {what} per forward ({sum(c for c, _ in hosts)} calls): host "
+        f"enqueue kernel {sum(c * h[0] for c, h in hosts):.2f} us, "
+        f"torch.amax {sum(c * h[1] for c, h in hosts):.2f} us")
+
+
+def negative_zeros(t):
+    return int((torch.signbit(t.float()) & (t == 0)).sum())
+
+
+def check_pool_cases(gen):
+    """#12 on NaN and -0.0 rows, bit-equal to its plain version (NaN at the
+    same places, zeros with the same sign): max and mean, ReLU on and off,
+    float32 and bf16, with no scale and no add (null pointers; the kernel
+    adds +0.0, so a -0.0 row pools to +0.0), with them given as ones and
+    zeros, and with a -0.0 add (a -0.0 group stays -0.0 without ReLU); and
+    the scalar and runtime-S instances (C = 12 and 6, S = 3, 5, 24, 64, a
+    source off the 16-byte grid).  The given scale and add come first, so
+    an entry point that takes no None meets the NaN rows first."""
+    from ogc_tpu_torch.ops.pool import rowgroup_pool, rowgroup_pool_plain
+
+    g, s, c = 4096, 8, 32
+    x = torch.randn((g * s, c), generator=gen, device="cuda")
+    rows = torch.randperm(g * s, generator=gen, device="cuda")
+    x[rows[:64]] = float("nan")
+    x[rows[64:80], :5] = float("nan")
+    groups = torch.randperm(g, generator=gen, device="cuda")[:64]
+    x.view(g, s, c)[groups] = -0.0  # whole groups of -0.0 rows
+    x[rows[80:400]] = -0.0
+    ones = torch.ones((c,), device="cuda")
+    zeros = torch.zeros((1, c), device="cuda")
+    negz = torch.full((1, c), -0.0, device="cuda")
+    forms = [("ones/zeros", ones, zeros), ("ones/-0.0 add", ones, negz),
+             ("none/none", None, None)]
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        for name, sc, ad in forms:
+            ad = None if ad is None else ad.to(dt)
+            for relu in (True, False):
+                for mean in (False, True):
+                    got = rowgroup_pool(xd, sc, ad, s, relu, mean)
+                    want = rowgroup_pool_plain(xd, sc, ad, s, relu, mean)
+                    n += 1
+                    if not bits_equal(got, want):
+                        raise AssertionError(
+                            f"pool NaN/-0.0 rows {dt} scale/add {name} relu "
+                            f"{relu} mean {mean}: kernel != plain; NaN at "
+                            f"{int(got.isnan().sum())} against "
+                            f"{int(want.isnan().sum())}, -0.0 at "
+                            f"{negative_zeros(got)} against "
+                            f"{negative_zeros(want)}")
+    # The other instances: runtime S, the scalar chunk (C * 4 % 16 != 0, or
+    # a source that starts 4 bytes off the grid).
+    for s_, c_, off in ((3, 12, 0), (5, 6, 0), (24, 32, 0), (64, 16, 0),
+                        (4, 32, 1), (16, 128, 1)):
+        base = torch.randn((512 * s_ * c_ + off,), generator=gen,
+                           device="cuda")
+        xs = base[off:].view(512 * s_, c_)
+        sc = torch.rand((c_,), generator=gen, device="cuda") + 0.5
+        ad = torch.randn((512, c_), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            for relu, mean in ((True, False), (False, True)):
+                got = rowgroup_pool(xs.to(dt), sc, ad.to(dt), s_, relu, mean)
+                want = rowgroup_pool_plain(xs.to(dt), sc, ad.to(dt), s_, relu,
+                                           mean)
+                n += 1
+                if not bits_equal(got, want):
+                    raise AssertionError(f"pool S={s_} C={c_} offset {off} "
+                                         f"{dt}: kernel != plain")
+    log(f"pool NaN / -0.0 rows ({g} groups x S={s}, C={c}; scale/add "
+        f"{', '.join(f[0] for f in forms)}) and the runtime-S and scalar "
+        f"instances: {n} cases bit-equal to plain")
 
 
 def check_pruned(report, gen):
@@ -1187,17 +1430,22 @@ def check_kernels():
     check_knn(train_report, gen,
               [(B, nq, m, k, 1) for nq, m, k in KNN_SHAPES]
               + [(TRAIN_B, N_POINT, N_POINT, SMOOTH_K, 4)], 10)
+    check_knn_cases(gen)
+    knn_crossover(gen)
     check_ball(train_report, gen)
     check_scatter(train_report, gen)
-    for name in ("fps", "knn_exact"):
-        e = eval_report.entry(name)
-        log(f"per eval forward: {name} kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms")
-    for name in ("fps", "knn_exact", "ball_query", "scatter_add"):
-        e = train_report.entry(name)
-        log(f"per train step: {name} kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}), library {e['library_ms']}")
+    for rep, what, names in ((eval_report, "eval forward",
+                              ("fps", "knn_exact")),
+                             (train_report, "train step",
+                              ("fps", "knn_exact", "ball_query",
+                               "scatter_add"))):
+        for name in names:
+            e = rep.entry(name)
+            log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), library {e['library_ms']}"
+                + (f"; device: kernel {e['device_ms']:.4f} ms"
+                   if "device_ms" in e else ""))
     log("-- fast path: #3 at the train shapes (16 clouds; smooth terms at "
         "B=4 per frame), then at the eval shapes (B=8)")
     fast_report, fast_eval_report = Report(), Report()
@@ -1231,13 +1479,17 @@ def check_kernels():
         "KITTI-SF")
     check_pool(Report(), gen, flow_pool_sites(
         "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, 8), "SAPIEN")
+    check_pool_cases(gen)
     check_pruned(flow_report, gen)
     for name in ("pool", "knn_exact_pruned"):
         e = flow_report.entry(name)
         log(f"per KITTI-SF flow forward: {name} kernel {e['ms']:.4f} ms, "
             f"plain {e['plain_ms']:.4f} ms, general route "
             f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}), library {e['library_ms']}")
+            f"({e['bound_by']}), library {e['library_ms']}"
+            + (f"; device: kernel {e['device_ms']:.4f} ms, library "
+               f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+               else ""))
     log(f"-- mxu edge engine: #9/#10 (KITTI-SF B={TRAIN_B} x {N_POINT} per "
         f"frame; SAPIEN; ragged; uniform)")
     mxu_report = Report()
@@ -1634,6 +1886,12 @@ def profile_steps(what, fn, steps=3):
         f"of {wall_us / 1e3:.4f} ms wall, busy share {dev_us / wall_us:.4f}; "
         f"{sum(e.count for e in kernels) // steps} device-side events per "
         f"call")
+    for label, symbols in PROFILED_KERNELS.items():
+        mine = [e for e in kernels if e.key.removeprefix("void ")
+                .removeprefix("(anonymous namespace)::").startswith(symbols)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+        log(f"  {label}: {ms:.4f} ms device time, "
+            f"{sum(e.count for e in mine) // steps} kernels per call")
     for title, rows, n in (("operators", ops, 12), ("kernels", kernels, 8)):
         log(f"  top {title} by device time (share, ms per call, count per "
             f"call):")
@@ -2256,6 +2514,8 @@ def main():
     log(f"kernels built from {_build.CSRC_DIR} in {_build.build_seconds:.3f} s "
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
+    ptxas_report([osp.join(_build.CSRC_DIR, f)
+                  for f in ("knn_exact.cu", "pool.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.

@@ -44,14 +44,14 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 _SIGNATURES = {
     "ogc_fps": [_P, _I, _I, _I, _P, _P],
-    "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "ogc_knn_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "ogc_ball_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "ogc_scatter_add_rows": [_P, _P, _P, _I, _I, _P, _P],
     "ogc_gather_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
     "ogc_scatter_add_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "ogc_rowgroup_pool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_rowgroup_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P],
     "ogc_bs_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
@@ -65,6 +65,7 @@ _get_fill = torch._C._get_deterministic_fill_uninitialized_memory
 _set_fill = torch._C._set_deterministic_fill_uninitialized_memory
 _lock = threading.Lock()
 _lib = None
+_devices = {}
 #: Seconds the last build took (0.0 when the library came from the cache).
 build_seconds = 0.0
 
@@ -158,12 +159,18 @@ def empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
     NaN fill that deterministic mode gives ``torch.empty``
     (``torch.utils.deterministic.fill_uninitialized_memory``), a pass over
     the output's memory and one more launch that would buy nothing.  The
-    setting is process-wide and is restored at once."""
+    setting is process-wide and is restored at once.  ``device`` is a
+    ``torch.device`` or a CUDA device index; the sizes go to ``torch.empty``
+    as separate integers and the device as a cached object, the call form
+    that costs the host least."""
+    if isinstance(device, int):
+        device = _devices.get(device) or _devices.setdefault(
+            device, torch.device("cuda", device))
     if not _get_fill():
-        return torch.empty(shape, dtype=dtype, device=device)
+        return torch.empty(*shape, dtype=dtype, device=device)
     _set_fill(False)
     try:
-        return torch.empty(shape, dtype=dtype, device=device)
+        return torch.empty(*shape, dtype=dtype, device=device)
     finally:
         _set_fill(True)
 

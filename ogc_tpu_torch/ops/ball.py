@@ -74,7 +74,7 @@ def ball_query_exact(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
         raise ValueError(f"ball_query_exact: nsample={nsample} must be >= 1")
     xyz = xyz.contiguous()
     new_xyz = new_xyz.contiguous()
-    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    idx = _build.empty((B, M, nsample), torch.int32, xyz.device)
     if B * M == 0:
         return idx
     stream = torch.cuda.current_stream(xyz.device).cuda_stream

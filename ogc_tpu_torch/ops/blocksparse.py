@@ -223,7 +223,7 @@ def scatter_add_blocksparse(idx: torch.Tensor, cot: torch.Tensor, n: int,
     if not (n >= 1 and 1 <= C <= MAX_C):
         raise ValueError(f"scatter_add_blocksparse: n={n} C={C}; the kernel "
                          f"takes n >= 1, C <= {MAX_C}")
-    out = torch.empty((B, n, C), dtype=torch.float32, device=cot.device)
+    out = _build.empty((B, n, C), torch.float32, cot.device)
     if B == 0:
         return out
     if M * S == 0:

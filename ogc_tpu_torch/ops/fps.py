@@ -54,7 +54,7 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if not 1 <= npoint <= N:
         raise ValueError(f"fps: npoint={npoint} must be in 1..N={N}")
     xyz = xyz.contiguous()
-    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    out = _build.empty((B, npoint), torch.int32, xyz.device)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     err = _build.lib().ogc_fps(xyz.data_ptr(), B, N, npoint, out.data_ptr(),
                                stream)

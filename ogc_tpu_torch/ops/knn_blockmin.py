@@ -143,8 +143,8 @@ def knn_blockmin(query: torch.Tensor, points: torch.Tensor, k: int,
     mp = -(-M // TILE) * TILE
     query = query.contiguous()
     points = points.contiguous()
-    dist = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
-    idx = torch.empty((B, N, k), dtype=torch.int32, device=query.device)
+    dist = _build.empty((B, N, k), torch.float32, query.device)
+    idx = _build.empty((B, N, k), torch.int32, query.device)
     if B * N == 0:
         return dist, idx
     stream = torch.cuda.current_stream(query.device).cuda_stream
@@ -173,7 +173,7 @@ def ball_query_blockmin(xyz: torch.Tensor, new_xyz: torch.Tensor,
     blk = block_size(N, nsample, 0.95)
     xyz = xyz.contiguous()
     new_xyz = new_xyz.contiguous()
-    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    idx = _build.empty((B, M, nsample), torch.int32, xyz.device)
     if B * M == 0:
         return idx
     stream = torch.cuda.current_stream(xyz.device).cuda_stream

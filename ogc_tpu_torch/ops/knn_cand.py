@@ -215,8 +215,8 @@ def knn_cand(query: torch.Tensor, points: torch.Tensor, k: int,
                          f"cb={cb}, qt={qt} outside the kernel's limits")
     pro = prologue(query.contiguous(), points.contiguous(), n_cand, cb, qt)
     np_ = pro.q_s.shape[1]
-    dist = torch.empty((B, np_, k), dtype=torch.float32, device=query.device)
-    idx = torch.empty((B, np_, k), dtype=torch.int32, device=query.device)
+    dist = _build.empty((B, np_, k), torch.float32, query.device)
+    idx = _build.empty((B, np_, k), torch.int32, query.device)
     if B * N == 0:
         return dist[:, :0], idx[:, :0]
     stream = torch.cuda.current_stream(query.device).cuda_stream

@@ -219,8 +219,8 @@ def knn_exact_pruned(query: torch.Tensor, points: torch.Tensor, k: int,
     pro = prologue(query.contiguous(), points.contiguous(), cb, qt)
     order, count = survivors(pro, points.contiguous(), k, qt)
     np_, mp = pro.q_s.shape[1], pro.p_s.shape[1]
-    dist = torch.empty((B, np_, k), dtype=torch.float32, device=query.device)
-    idx = torch.empty((B, np_, k), dtype=torch.int32, device=query.device)
+    dist = _build.empty((B, np_, k), torch.float32, query.device)
+    idx = _build.empty((B, np_, k), torch.int32, query.device)
     if B * N == 0:
         return dist[:, :0], idx[:, :0]
     stream = torch.cuda.current_stream(query.device).cuda_stream

@@ -123,7 +123,7 @@ def scatter_add_rows_onehot(idx: torch.Tensor, cot: torch.Tensor,
     if not (1 <= n <= MAX_N and 1 <= C <= MAX_C):
         raise ValueError(f"scatter_add_rows_onehot: n={n} C={C} outside the "
                          f"kernel's n <= {MAX_N}, C <= {MAX_C}")
-    out = torch.empty((B, n, C), dtype=torch.float32, device=cot.device)
+    out = _build.empty((B, n, C), torch.float32, cot.device)
     if B == 0:
         return out
     idx = idx.to(torch.int32).contiguous()

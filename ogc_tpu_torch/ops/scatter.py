@@ -83,7 +83,7 @@ def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor,
             f"{tuple(g.shape)} {g.dtype}")
     B, R = idx.shape
     C = g.shape[-1]
-    out = torch.empty((B, n_dest, C), dtype=torch.float32, device=g.device)
+    out = _build.empty((B, n_dest, C), torch.float32, g.device)
     if B * n_dest * C == 0:
         return out
     if R == 0:

@@ -21,6 +21,11 @@ product is exact and both forms give the same bits; with general scales
 the plain version is held bit-equal to a numpy oracle of the two-rounding
 arithmetic and to JAX within one float32 rounding of the product (|x *
 scale| < 8 here, so 1e-6 absolute).
+
+NaN and -0.0 rows go through the kernel's route of pool_neighbors in both
+packages with the scale and the add absent or given: NaN at the same
+places (ReLU and the max keep it), every zero with the same sign (an
+absent add is +0.0 added, so a -0.0 group pools to +0.0).
 """
 
 import jax.numpy as jnp
@@ -49,6 +54,14 @@ NEIGHBORS = [(2, 64, 8, 32, True, "c", False, True),
              (2, 64, 16, 32, False, None, False, False)]
 GRID = [(n, s, c) for n in (8, 24, 96, 512, 1000, 16384)
         for s in (1, 2, 4, 16, 24, 64, 2048) for c in (3, 8, 16, 128, 1024)]
+
+
+# pool_neighbors on NaN and -0.0 rows: (mean, relu, scale, add), the scale
+# and the add absent (the kernel's null pointers) or given.
+SPECIAL = [(mean, relu, scale, add) for mean in (False, True)
+           for relu in (True, False) for scale, add in ((False, None),
+                                                        (True, "c"),
+                                                        (False, "g"))]
 
 
 def _name(case):
@@ -82,7 +95,27 @@ def port(tmp_path_factory):
             x[name + "/add"] = rng.randn(b, m, c).astype(np.float32)
         cfg["neighbors"][name] = [mean, relu]
     inp = pack(str(tmp / "in.npz"), x, cfg)
-    (out,) = run_torch([("pool", inp, str(tmp / "out.npz"))])
+    sx, scfg = {}, {"cases": {}}
+    for i, (mean, relu, scale, add) in enumerate(SPECIAL):
+        name = f"sp{i}"
+        v = rng.randn(2, 64, 8, 16).astype(np.float32)
+        v.reshape(-1, 16)[rng.choice(2 * 64 * 8, 40, replace=False)] = np.nan
+        v[0, :6] = -0.0  # whole groups of -0.0 rows
+        v.reshape(-1, 16)[rng.choice(2 * 64 * 8, 200, replace=False)] = -0.0
+        sx[name + "/x"] = v
+        if scale:
+            sx[name + "/scale"] = (2.0 ** rng.randint(-2, 3, 16)).astype(
+                np.float32)
+        if add == "c":
+            sx[name + "/add"] = rng.randn(16).astype(np.float32)
+        elif add == "g":
+            sx[name + "/add"] = rng.randn(2, 64, 16).astype(np.float32)
+        scfg["cases"][name] = [mean, relu]
+    sinp = pack(str(tmp / "sp_in.npz"), sx, scfg)
+    out, sout = run_torch([("pool", inp, str(tmp / "out.npz")),
+                           ("pool_special", sinp, str(tmp / "sp_out.npz"))])
+    out.update(sout)
+    x.update(sx)
     return x, out
 
 
@@ -158,3 +191,37 @@ def test_supported_matches_jax(port):
 def test_pool_cpu_tensors_launch_no_kernel(port):
     _, out = port
     np.testing.assert_array_equal(out["launches_flow"], [0, 0])
+
+
+@pytest.mark.parametrize("i", range(len(SPECIAL)))
+def test_pool_neighbors_nan_and_negative_zero_match_jax(port, monkeypatch,
+                                                         i):
+    """NaN and -0.0 rows through the kernel's route (interpret) in both
+    packages: a NaN pools to NaN (ReLU and max keep it, the mean sums it),
+    and an absent add is +0.0 added, so a group of -0.0 rows pools to +0.0,
+    with the sign of every zero the same."""
+    from ogc_tpu.ops.pallas_pool import pool_neighbors
+
+    x, out = port
+    name = f"sp{i}"
+    mean, relu = SPECIAL[i][:2]
+    kw = {k: jnp.asarray(x[f"{name}/{k}"]) for k in ("scale", "add")
+          if f"{name}/{k}" in x}
+    monkeypatch.setenv("OGC_PALLAS_POOL", "interpret")
+    want = np.asarray(pool_neighbors(jnp.asarray(x[name + "/x"]), mean=mean,
+                                     differentiable=False, relu=relu, **kw))
+    got = out[name]
+    assert np.isnan(want).any()
+    if relu or "add" not in kw:
+        assert (want == 0).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    zero = want == 0
+    np.testing.assert_array_equal(got == 0, zero)
+    np.testing.assert_array_equal(np.signbit(got[zero]),
+                                  np.signbit(want[zero]))
+    if "add" not in kw:
+        assert not np.signbit(got[zero]).any()
+    if mean:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)

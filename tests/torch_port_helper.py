@@ -473,6 +473,80 @@ def _case_pool(x, cfg, state):
     return out
 
 
+def _case_pool_special(x, cfg, state):
+    """#12's route through pool_neighbors at OGC_PALLAS_POOL=interpret (on
+    CPU tensors the plain version) on NaN and -0.0 rows, with the scale and
+    the add absent or given."""
+    import torch
+
+    from ogc_tpu_torch import ops
+
+    ops.set_pool_mode("interpret")
+    out = {}
+    for name, (mean, relu) in cfg["cases"].items():
+        kw = {k: torch.from_numpy(x[f"{name}/{k}"]) for k in ("scale", "add")
+              if f"{name}/{k}" in x}
+        out[name] = ops.pool_neighbors(
+            torch.from_numpy(x[name + "/x"]), mean=mean, differentiable=False,
+            relu=relu, **kw).numpy()
+    ops.set_pool_mode("off")
+    return out
+
+
+def _case_knn_select(x, cfg, state):
+    """#2's key (csrc/knn_exact.cu: d2's float bits, which order d2 >= +0
+    as the float does, above the index) packed in an int64 and sorted, its
+    first k as (d2, index), beside knn_exact on CPU tensors
+    (knn_exact_plain)."""
+    import torch
+
+    from ogc_tpu_torch.ops.knn import knn_exact, pair_d2
+
+    out = {}
+    for name, k in cfg["cases"].items():
+        q = torch.from_numpy(x[name + "/q"])
+        p = torch.from_numpy(x[name + "/p"])
+        d, i = knn_exact(q, p, k)
+        d2 = pair_d2(q, p)
+        bits = d2.view(torch.int32).to(torch.int64)
+        packed = (bits << 32) | torch.arange(d2.shape[-1])
+        keys = torch.sort(packed, dim=-1).values[..., :k]
+        out[name + "/dist"], out[name + "/idx"] = d.numpy(), i.numpy()
+        out[name + "/key_idx"] = (keys & 0xFFFFFFFF).to(torch.int32).numpy()
+        out[name + "/key_d2"] = (keys >> 32).to(torch.int32).view(
+            torch.float32).numpy()
+    return out
+
+
+def _case_plans(x, cfg, state):
+    """The kernels' host-side dispatch at the sites chip_smoke.py drives:
+    ops/pool.py::pool_plan at every pool of flow_pool_sites (KITTI-SF and
+    SAPIEN) that the gate sends to #12, in float32 and bf16, and
+    ops/knn.py::knn_plan at every KNN_SHAPES search at B 16 and 8 and at
+    the other exact k's over 512 to 131072 queries."""
+    import chip_smoke as cs
+    from ogc_tpu_torch.ops.knn import knn_plan
+    from ogc_tpu_torch.ops.pool import pool_plan, supported
+
+    sites = (cs.flow_pool_sites("kitti", cs.N_POINT, cs.FLOW_B,
+                                cs.FLOW_ITERS, cs.FLOW_KW["loc_flow_nn"])
+             + cs.flow_pool_sites("sapien", cs.SAP_N, cs.SAP_FLOW_B,
+                                  cs.SAP_FLOW_ITERS, 8))
+    pools = []
+    for _, clouds, m, s, c, _, _, _ in sites:
+        if supported(clouds * m, s, c):
+            for size in (4, 2):
+                s_t, vec = pool_plan(s, c, size)
+                pools.append([s, c, size, s_t, int(vec)])
+    searches = [(b * nq, k) for b in (16, 8) for nq, _, k in cs.KNN_SHAPES]
+    searches += [(n, k) for n in (512, 16384, 65536, 131072)
+                 for k in (1, 4, cs.SAP_KNN_K, cs.FLOW_KW["loc_flow_nn"],
+                           cs.SMOOTH_K, cs.SA0_NS)]
+    knns = [[n, k, int(knn_plan(k, n)[0] == "warp"), knn_plan(k, n)[1]]
+            for n, k in searches]
+    return {"pool_plans": np.array(pools), "knn_plans": np.array(knns)}
+
+
 def _case_pruned(x, cfg, state):
     """#4's plain version, its prologue's survivors, and which shapes
     ops.knn routes to #4 under each gate setting (exact mode)."""
@@ -672,6 +746,9 @@ CASES = {
     "symgrad": _case_symgrad,
     "train_mode": _case_train_mode,
     "pool": _case_pool,
+    "pool_special": _case_pool_special,
+    "knn_select": _case_knn_select,
+    "plans": _case_plans,
     "pruned": _case_pruned,
     "flownet": _case_flownet,
     "blocksparse": _case_blocksparse,
