@@ -4,7 +4,8 @@
 
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc, and
-   prints ptxas's registers, shared memory and spills for #2's and #12's.
+   prints ptxas's registers, shared memory and spills for #1's, #2's,
+   #11's and #12's.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
    card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
@@ -13,7 +14,21 @@
    shapes at batch 16, the smooth KnnLoss KNN (4 x 8192 x 8192, k=32), the
    smooth BallQLoss ball query (4 x 8192 x 8192, ns 64, r 2), and the
    scatter-add of every grouping backward (5 model groups + 8 smooth-loss
-   groups).  SAPIEN path (B=32 items x 2 or 4 frames x 512, 1/64 grid):
+   groups).  #1 is also timed by device time (device_ms, with the time of
+   one greedy step) at the eval and train shapes and at the KITTI-SF flow
+   forward's five stages (16 clouds, 8192 -> 4096 down to 512 -> 256),
+   held bit-equal on every point the same, duplicated points, N 33, 1000,
+   1500 (npoint = N), 20, 8191, 8193 and MAX_N, B 1 and 64, and every
+   compiled instance that holds the cloud is timed against fps_plan's at
+   every path shape (fps_crossover).  #11 is held bit-equal with int32 and
+   int64 idx, its CSR equal to the torch sort's (segments), also on a hub,
+   a site where every row has one destination, one with empty
+   destinations and one of 20001 destinations (several windows of the CSR
+   build), at C 1, 3, 99, 131 and at B 1; it is timed by single call and
+   device time, split into the CSR build and the accumulation (both
+   accumulation kernels), beside the torch prologue (segments) and
+   index_add_.
+   SAPIEN path (B=32 items x 2 or 4 frames x 512, 1/64 grid):
    the small-source gather at SA0's two scales (C 6, 256 x 64 rows) and at
    the smooth KNN and ball groups (C 8, 4096 / 8192 rows), and the
    small-source scatter at the smooth groups, also bit-equal to #11.
@@ -28,7 +43,7 @@
    deterministic mode for a scatter, ``torch.gather`` for the small-source
    gather) and, for the small-source kernels, the general route
    ``ops.group`` would take without them (advanced indexing; #11 with its
-   sort prologue).  Fast path: the block-min KNN (#3) at its five model
+   CSR built in CUDA).  Fast path: the block-min KNN (#3) at its five model
    sites at batch 16 and 8 and the smooth KNN (4 x 8192 x 8192, k 32), the
    block-min ball query at the smooth shape (crowded and under-full), a
    ragged M = 1500 and a k = 3 case, each beside the exact route (#2, #5).
@@ -46,9 +61,9 @@
    the CPU (plain versions): loss terms rtol 1e-4, gradients rtol 3e-3 per
    leaf.
 5. Profile: torch.profiler over 3 warm train steps, all terms on; prints
-   the device's busy share of the steps, the device time of #2's and
-   #12's kernels, and the operators and kernels that take the most device
-   time.
+   the device's busy share of the steps, the device time of #1's, #2's,
+   #11's and #12's kernels, and the operators and kernels that take the
+   most device time.
 6. Eval phase: ogc_tpu_torch.test_seg.main on the 100 ids of
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
@@ -117,6 +132,9 @@ an aligned and an unaligned source; #7 also at every C from 1 to 16, N 1 and
 torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
 grid clouds, bit-equal to its plain version, beside #3 and #2 with its recall.
 
+``parent_ab(root)`` (not run by main) times #1 and #11 of another checkout
+of the port the same way, for an A/B on one card.
+
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -167,6 +185,10 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12
 # (N, npoint) of the three FPS calls and (n_query, n_points, k) of the six
 # KNN calls in one KITTI-SF forward (SA stages 8192 -> 2048 -> 1024 -> 512).
 FPS_SHAPES = [(8192, 2048), (2048, 1024), (1024, 512)]
+# (N, npoint) of the five FPS calls of the KITTI-SF flow forward (kitti
+# arch: enc_loc SA1, SA2, enc_glob's three stages; 2 x FLOW_B clouds each).
+FLOW_FPS_SHAPES = [(8192, 4096), (4096, 2048), (2048, 1024), (1024, 512),
+                   (512, 256)]
 KNN_SHAPES = [(2048, 8192, 64), (1024, 2048, 64), (512, 1024, 64),
               (8192, 2048, 3), (2048, 1024, 3), (1024, 512, 3)]
 # Smooth-loss shapes (kittisf_unsup.yaml): KNN k=32 r=1, ball ns=64 r=2.
@@ -337,8 +359,14 @@ SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
                          gather_onehot=SAP_FLOW_ITERS)
 
 
-# The symbols of #2's and #12's kernels, summed per call in every profile.
-PROFILED_KERNELS = {"#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
+# The symbols of #1's, #2's, #11's and #12's kernels, summed per call in
+# every profile.
+PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
+                    "#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
+                    "#11 scatter_add": ("csr_count_kernel", "csr_scan_kernel",
+                                        "csr_place_kernel",
+                                        "accumulate_warp_kernel",
+                                        "accumulate_thread_kernel"),
                     "#12 pool": ("rowgroup_pool_kernel",)}
 
 
@@ -516,10 +544,13 @@ def scene_cloud(rng, n):
     return np.vstack([ground] + clusters)[:n].astype(np.float32)
 
 
-def check_fps(report, gen, b, per_step):
+def check_fps(report, gen, b, per_step, shapes=FPS_SHAPES):
+    """#1 at ``shapes`` (N, npoint) over ``b`` grid clouds: bit-equal to its
+    plain version, timed by single call and by device time (device_ms), with
+    the device time of one greedy step."""
     from ogc_tpu_torch.ops.fps import fps, fps_plain
 
-    for n, npoint in FPS_SHAPES:
+    for n, npoint in shapes:
         x = grid_cloud(gen, b, n)
         got, want = fps(x, npoint), fps_plain(x, npoint)
         torch.cuda.synchronize()
@@ -527,14 +558,90 @@ def check_fps(report, gen, b, per_step):
             raise AssertionError(f"FPS ({b},{n})->{npoint}: kernel != plain "
                                  f"at {(got != want).sum().item()} indices")
         ms = cuda_ms(lambda: fps(x, npoint), 20)
+        dev = device_ms(lambda: fps(x, npoint))
         pms = cuda_ms(lambda: fps_plain(x, npoint), 3)
         # 10 f32 operations per point per step: 3 sub, 3 mul, 2 add, min,
-        # and the compare of the max.
+        # and the compare of the max.  The npoint - 1 steps are sequential.
         bnd, by = bound_ms(b * (n * 12 + npoint * 4),
                            b * (npoint - 1) * n * 10)
-        report.add("fps", 0, ms, pms, bnd, by, per_step=per_step)
+        report.add("fps", 0, ms, pms, bnd, by, per_step=per_step,
+                   device=(dev, None))
         log(f"fps ({b},{n},3)->{npoint}: bit-equal; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"device {dev:.4f} ms ({dev / (npoint - 1) * 1e6:.1f} ns per "
+            f"step), plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+
+
+def fps_candidates(n):
+    """Every compiled FPS instance (points a thread) that holds a cloud of
+    ``n`` points, each with the fewest threads that do, up to the threads
+    fps_plan gives that instance at the top of its range."""
+    from ogc_tpu_torch.ops.fps import MAX_N, PLAN, FpsPlan, fps_plan
+
+    plans = set()
+    for top in [t for t, _ in PLAN] + [MAX_N]:
+        ppt, most, reg = fps_plan(top)
+        threads = max(32, -(-n // (32 * ppt)) * 32)
+        if threads <= most:
+            plans.add(FpsPlan(ppt, threads, reg))
+    return sorted(plans)
+
+
+def fps_crossover(gen):
+    """#1's instances against each other (the probe behind fps_plan's
+    table): at every path shape over 16 clouds, every compiled instance
+    that holds the cloud (fps_candidates), bit-equal to fps_plan's, by
+    device time per greedy step."""
+    from ogc_tpu_torch.ops.fps import _launch, fps, fps_plan
+
+    for n, npoint in sorted(set(FPS_SHAPES) | set(FLOW_FPS_SHAPES)
+                            | {(SAP_N, SAP_N // 2)}, reverse=True):
+        x = grid_cloud(gen, 16, n)
+        want = fps(x, npoint)
+        row = []
+        for plan in fps_candidates(n):
+            if not torch.equal(_launch(x, npoint, plan), want):
+                raise AssertionError(f"FPS (16,{n})->{npoint}: {plan} != "
+                                     f"fps_plan's {fps_plan(n)}")
+            ns = device_ms(lambda: _launch(x, npoint, plan), 5, 3) / (
+                npoint - 1) * 1e6
+            row.append((ns, plan))
+        row.sort()
+        log(f"fps instances (16,{n})->{npoint}, ns per step (ppt, threads, "
+            f"reg_xyz; * planned): " + "; ".join(
+                f"{'*' if p == fps_plan(n) else ''}{tuple(p)} {ns:.1f}"
+                for ns, p in row))
+
+
+def check_fps_cases(gen):
+    """#1 bit-equal to its plain version on the CPU tests' clouds at card
+    sizes (every point the same, duplicated points, a 1/8 grid, N 33, 1000,
+    1500 with npoint = N, N < 32, N = 8191, 8193 and MAX_N, B = 1 and
+    64), each at fps_plan's instance."""
+    from ogc_tpu_torch.ops.fps import MAX_N, fps, fps_plain
+
+    same = grid_cloud(gen, 1, 1).expand(4, N_POINT, 3).contiguous()
+    dup = grid_cloud(gen, 4, N_POINT // 4).repeat(1, 4, 1)
+    dup = dup[:, torch.randperm(N_POINT, generator=gen, device="cuda")]
+    cases = [("same", same, 512), ("duplicated", dup, 2048),
+             ("grid", grid_cloud(gen, 16, N_POINT), 2048),
+             ("N 33", grid_cloud(gen, 8, 33, 2.0), 33),
+             ("N 1000", grid_cloud(gen, 8, 1000), 500),
+             ("N 1500", grid_cloud(gen, 4, 1500), 1500),
+             ("N 20", grid_cloud(gen, 8, 20, 2.0), 20),
+             ("N 8191", grid_cloud(gen, 4, 8191), 2048),
+             ("N 8193", grid_cloud(gen, 4, 8193), 2048),
+             ("N MAX_N", grid_cloud(gen, 2, MAX_N), 2048),
+             ("B 1", grid_cloud(gen, 1, N_POINT), 2048),
+             ("B 64", grid_cloud(gen, 64, 2048), 1024)]
+    for name, x, npoint in cases:
+        got, want = fps(x, npoint), fps_plain(x, npoint)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"FPS {name} {tuple(x.shape)}->{npoint}: "
+                                 f"kernel != plain at "
+                                 f"{(got != want).sum().item()} indices")
+    log("fps cases bit-equal: " + ", ".join(
+        f"{name} {tuple(x.shape)}->{npoint}" for name, x, npoint in cases))
 
 
 def knn_bits_equal(got, want):
@@ -672,21 +779,25 @@ def check_ball(report, gen):
         f"{bnd:.4f} ms ({by}; {pairs} pairs a pruned search tests)")
 
 
-def check_scatter(report, gen):
+def scatter_sites(gen):
+    """#11's calls on the KITTI-SF parity train path: (name, idx (B, R),
+    C, n_dest, calls per step).  The smooth-loss groups of the 10-slot mask
+    (B=4 per frame), the model's SA and FP groups (16 clouds); then, at no
+    call per step, a hub (the smooth ball with 32 more queries listing one
+    point 64 times), every row of 4 x 4096 to one destination, empty
+    destinations (the smooth ball listing every fourth point only), and
+    1 x 40000 rows into 20001 destinations (the CSR build over three
+    windows of 8192)."""
     from ogc_tpu_torch.ops import knn
     from ogc_tpu_torch.ops.ball import ball_query_exact
-    from ogc_tpu_torch.ops.scatter import (scatter_add_rows,
-                                           scatter_add_rows_plain)
 
     B = TRAIN_B * TRAIN_T
     x = grid_cloud(gen, TRAIN_B, N_POINT)
     d, i = knn(SMOOTH_K, x, x)
-    # (name, idx (B, M, S), C, n_dest, calls per step): the smooth-loss
-    # groups of the 10-slot mask, then the model's SA and FP groups.
-    cases = [("smooth knn", torch.where(d > SMOOTH_R, i[..., :1], i), 10,
+    ball = ball_query_exact(x, x, BALL_R, BALL_NS)
+    sites = [("smooth knn", torch.where(d > SMOOTH_R, i[..., :1], i), 10,
               N_POINT, 4),
-             ("smooth ball", ball_query_exact(x, x, BALL_R, BALL_NS), 10,
-              N_POINT, 4)]
+             ("smooth ball", ball, 10, N_POINT, 4)]
     for name, nq, m, k, radius, C in (("SA1", 1024, 2048, 64, 4.0, 99),
                                       ("SA2", 512, 1024, 64, 8.0, 131),
                                       ("FP2", 1024, 512, 3, None, 256),
@@ -697,32 +808,178 @@ def check_scatter(report, gen):
         d, i = knn(k, q, p)
         if radius is not None:
             i = torch.where(d > radius, i[..., :1], i)
-        cases.append((name, i, C, m, 1))
-    for name, idx, C, n_dest, calls in cases:
-        b = idx.shape[0]
-        flat = idx.reshape(b, -1)
-        R = flat.shape[1]
+        sites.append((name, i, C, m, 1))
+    hub = ball.clone()
+    hub[:, :32] = 7
+    sites += [("hub", hub, 10, N_POINT, 0),
+              ("one destination", torch.full((TRAIN_B, 4096), 3,
+                                             dtype=torch.int32,
+                                             device="cuda"), 10, N_POINT, 0),
+              ("empty destinations", (ball // 4) * 4, 10, N_POINT, 0),
+              ("windows", torch.randint(0, 20001, (1, 40000), generator=gen,
+                                        dtype=torch.int32, device="cuda"),
+               3, 20001, 0)]
+    return [(name, idx.reshape(idx.shape[0], -1), C, n, calls)
+            for name, idx, C, n, calls in sites]
+
+
+def check_scatter(report, gen):
+    """#11 at every scatter_sites site: bit-equal to its plain version with
+    int32 and int64 idx, its CSR (scatter_csr) equal to the torch prologue's
+    (segments); timed by single call and by device time, with the split
+    into the CSR build and the accumulation, beside the torch prologue the
+    parent commit ran (segments, device time) and index_add_ in
+    deterministic mode.  Then odd C (1, 3, 99, 131) and B = 1, bit-equal."""
+    from ogc_tpu_torch.ops import knn
+    from ogc_tpu_torch.ops.scatter import (accumulate_plan,
+                                           scatter_accumulate,
+                                           scatter_add_rows,
+                                           scatter_add_rows_plain,
+                                           scatter_csr, segments)
+
+    for name, flat, C, n_dest, calls in scatter_sites(gen):
+        b, R = flat.shape
         g = torch.randn((b, R, C), generator=gen, device="cuda")
         got = scatter_add_rows(flat, g, n_dest)
         want = scatter_add_rows_plain(flat, g, n_dest)
+        wide = scatter_add_rows(flat.long(), g, n_dest)
+        order, start = scatter_csr(flat, n_dest)
+        _, sorder, sstart = segments(flat, n_dest)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not (bits_equal(got, want) and bits_equal(wide, want)):
             raise AssertionError(
                 f"scatter {name}: kernel != plain, max diff "
                 f"{(got - want).abs().max().item()}")
+        if not (torch.equal(order.long(), sorder)
+                and torch.equal(start.long(), sstart)):
+            raise AssertionError(f"scatter {name}: CSR != segments'")
+        deg = torch.diff(sstart)
         ms = cuda_ms(lambda: scatter_add_rows(flat, g, n_dest), 20)
+        dev = device_ms(lambda: scatter_add_rows(flat, g, n_dest))
+        csr = device_ms(lambda: scatter_csr(flat, n_dest))
+        acc = device_ms(lambda: scatter_accumulate(order, start, g, n_dest))
+        other = "thread" if accumulate_plan(C) == "warp" else "warp"
+        if not bits_equal(scatter_accumulate(order, start, g, n_dest, other),
+                          want):
+            raise AssertionError(f"scatter {name}: the {other} kernel != "
+                                 f"plain")
+        oacc = device_ms(lambda: scatter_accumulate(order, start, g, n_dest,
+                                                    other))
+        sort = device_ms(lambda: segments(flat, n_dest))
         pms = cuda_ms(lambda: scatter_add_rows_plain(flat, g, n_dest), 3)
         key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n_dest
                ).reshape(-1)
         rows = g.reshape(-1, C)
-        acc = torch.zeros((b * n_dest, C), device="cuda")
-        lib = cuda_ms(lambda: acc.zero_().index_add_(0, key, rows), 20)
+        out = torch.zeros((b * n_dest, C), device="cuda")
+        lib = cuda_ms(lambda: out.zero_().index_add_(0, key, rows), 20)
+        try:
+            ldev = device_ms(lambda: out.zero_().index_add_(0, key, rows))
+        except RuntimeError as e:  # not capturable in a CUDA graph
+            ldev = None
+            log(f"index_add_ device time not measured: {str(e)[:120]}")
         bnd, by = bound_ms(b * (R * C * 4 + R * 4 + n_dest * C * 4),
                            b * R * C)
-        report.add("scatter_add", 0, ms, pms, bnd, by, lib, per_step=calls)
+        report.add("scatter_add", 0, ms, pms, bnd, by, lib, per_step=calls,
+                   device=(dev, ldev))
         log(f"scatter_add {name} ({b},{R} rows,C={C})->{n_dest} x{calls}/"
-            f"step: bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"step (in-degree max {int(deg.max().item())}, empty "
+            f"{int((deg == 0).sum().item())}): bit-equal (int32, int64 idx), "
+            f"CSR = segments'; single call {ms:.4f} ms, index_add_ {lib:.4f} "
+            f"ms; device {dev:.4f} ms (CSR {csr:.4f}, accumulate "
+            f"{accumulate_plan(C)} {acc:.4f}; {other} {oacc:.4f}), "
+            f"index_add_ {'not measured' if ldev is None else f'{ldev:.4f}'}"
+            f" ms; torch prologue (segments) {sort:.4f} ms; plain {pms:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by})")
+    x = grid_cloud(gen, 2, 1500)
+    _, i = knn(16, x, x)
+    for b, C in ((2, 1), (2, 3), (2, 99), (2, 131), (1, 10)):
+        flat = i[:b].reshape(b, -1)
+        g = torch.randn((b, flat.shape[1], C), generator=gen, device="cuda")
+        want = scatter_add_rows_plain(flat, g, 1500)
+        for idx in (flat, flat.long()):
+            if not bits_equal(scatter_add_rows(idx, g, 1500), want):
+                raise AssertionError(f"scatter B={b} C={C} {idx.dtype}: "
+                                     f"kernel != plain")
+        order, start = scatter_csr(flat, 1500)
+        for variant in ("thread", "warp"):
+            if not bits_equal(scatter_accumulate(order, start, g, 1500,
+                                                 variant), want):
+                raise AssertionError(f"scatter B={b} C={C} {variant} "
+                                     f"kernel != plain")
+    log("scatter_add C 1, 3, 99, 131 at B 2 and C 10 at B 1 (2 x 1500 "
+        "points, 16 neighbours), int32 and int64 idx, both accumulation "
+        "kernels: bit-equal")
+
+
+def parent_ab(root):
+    """#1 and #11 of another checkout of the port, timed as this tree's
+    check_fps and check_scatter time them, for an A/B on one card:
+
+        python3 -c 'import chip_smoke; chip_smoke.parent_ab("<root>")'
+
+    from this tree's root, in a process that has not imported the port.
+    The port is imported from ``root`` (its kernels build there): FPS at
+    FPS_SHAPES (B 8 and 16) and FLOW_FPS_SHAPES (16 clouds); the
+    scatter-add at every scatter_sites site, single call and device time,
+    split into its torch prologue (segments) and its kernel fed that
+    prologue's CSR (the port's ogc_scatter_add_rows up to commit 03c3005:
+    g, int64 order, int64 start, rows, C, out, stream)."""
+    if not torch.cuda.is_available():
+        sys.exit("parent_ab: no CUDA device")
+    root = osp.abspath(root)
+    sys.path.insert(0, root)
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows, segments
+    from ogc_tpu_torch.train_seg import set_deterministic
+
+    if not _build.__file__.startswith(root):
+        raise RuntimeError(f"parent_ab: the port came from {_build.__file__}")
+    set_deterministic(torch.device("cuda"))
+    _build.lib()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(f"parent kernels from {_build.library_path()}; "
+        f"{smi.stdout.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for b, shapes, what in ((BATCH, FPS_SHAPES, "eval forward"),
+                            (TRAIN_B * TRAIN_T, FPS_SHAPES, "train step"),
+                            (2 * FLOW_B, FLOW_FPS_SHAPES, "flow forward")):
+        rep = Report()
+        check_fps(rep, gen, b, 1, shapes)
+        e = rep.entry("fps")
+        log(f"parent per {what}: fps kernel {e['ms']:.4f} ms, device "
+            f"{e['device_ms']:.4f} ms")
+    total = {"single": 0.0, "device": 0.0, "prologue": 0.0, "kernel": 0.0}
+    for name, flat, C, n_dest, calls in scatter_sites(gen):
+        b, R = flat.shape
+        g = torch.randn((b, R, C), generator=gen, device="cuda")
+        _, order, start = segments(flat, n_dest)
+        out = torch.empty((b, n_dest, C), device="cuda")
+
+        def kernel():
+            _build.check(_build.lib().ogc_scatter_add_rows(
+                g.data_ptr(), order.data_ptr(), start.data_ptr(),
+                b * n_dest, C, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "parent kernel")
+
+        kernel()
+        if not bits_equal(out, scatter_add_rows(flat, g, n_dest)):
+            raise AssertionError(f"parent scatter {name}: kernel on the "
+                                 f"prologue's CSR != the wrapper's result")
+        t = {"single": cuda_ms(lambda: scatter_add_rows(flat, g, n_dest), 20),
+             "device": device_ms(lambda: scatter_add_rows(flat, g, n_dest)),
+             "prologue": device_ms(lambda: segments(flat, n_dest)),
+             "kernel": device_ms(kernel)}
+        for k in total:
+            total[k] += calls * t[k]
+        log(f"parent scatter_add {name} ({b},{R} rows,C={C})->{n_dest} "
+            f"x{calls}/step: single call {t['single']:.4f} ms; device "
+            f"{t['device']:.4f} ms (prologue {t['prologue']:.4f}, kernel "
+            f"{t['kernel']:.4f})")
+    log(f"parent per train step: scatter_add single {total['single']:.4f} "
+        f"ms; device {total['device']:.4f} ms (prologue "
+        f"{total['prologue']:.4f}, kernel {total['kernel']:.4f})")
 
 
 def check_blockmin(report, gen, b, shapes, ball=True):
@@ -1107,7 +1364,7 @@ def sapien_tables(gen, clouds):
 def check_onehot(reports, gen):
     """#7 and #8 at every SAPIEN shape, bit-equal to their plain versions,
     timed beside the plain version, the general route (advanced indexing
-    for the gather, #11 with its sort prologue for the scatter), the
+    for the gather, #11 with its CSR built in CUDA for the scatter), the
     library call (torch.gather; deterministic index_add_) and the bytes
     bound; #7 and torch.gather also by device time (device_ms).  Then #7
     at every C from 1 to 16, at N 1 and 1024 and with E*C not a multiple
@@ -1190,7 +1447,7 @@ def check_onehot(reports, gen):
                                 per_step=k)
         log(f"scatter_onehot {name} ({b},{E} rows,C={C})->{n} x{per_step}/"
             f"step: bit-equal to plain and to #11; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, general route (#11 + sort) {gms:.4f} ms, "
+            f"{pms:.4f} ms, general route (#11, CSR built in CUDA) {gms:.4f} ms, "
             f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
 
     # Every C instance, N at both ends, ragged E (E * C % 4 != 0 for odd C:
@@ -1328,7 +1585,7 @@ def check_blocksparse(report, gen):
             f"torch.gather {gdev[1]:.4f} ms; plain = general route "
             f"(indexing) {gpl:.4f} ms, bound {gb:.4f} ms ({gby}); #10 with "
             f"#9's presence bit-equal to plain and #11: {sms:.4f} ms, plain "
-            f"{spl:.4f} ms, general route (#11 + sort) {s11:.4f} ms, "
+            f"{spl:.4f} ms, general route (#11, CSR built in CUDA) {s11:.4f} ms, "
             f"index_add_ {slib:.4f} ms, bound {sb:.4f} ms ({sby})")
     # Every C instance on the ragged table and on a wide one (rows of 202
     # padded edges: a unit of 32 rows is more than one piece of 4096), from
@@ -1427,6 +1684,8 @@ def check_kernels():
     log("-- train path shapes (16 clouds; loss at B=4 per frame)")
     B = TRAIN_B * TRAIN_T
     check_fps(train_report, gen, B, 1)
+    check_fps_cases(gen)
+    fps_crossover(gen)
     check_knn(train_report, gen,
               [(B, nq, m, k, 1) for nq, m, k in KNN_SHAPES]
               + [(TRAIN_B, N_POINT, N_POINT, SMOOTH_K, 4)], 10)
@@ -1481,6 +1740,11 @@ def check_kernels():
         "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, 8), "SAPIEN")
     check_pool_cases(gen)
     check_pruned(flow_report, gen)
+    check_fps(flow_report, gen, 2 * FLOW_B, 1, FLOW_FPS_SHAPES)
+    e = flow_report.entry("fps")
+    log(f"per KITTI-SF flow forward: fps kernel {e['ms']:.4f} ms, device "
+        f"{e['device_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     for name in ("pool", "knn_exact_pruned"):
         e = flow_report.entry(name)
         log(f"per KITTI-SF flow forward: {name} kernel {e['ms']:.4f} ms, "
@@ -2515,7 +2779,8 @@ def main():
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
     ptxas_report([osp.join(_build.CSRC_DIR, f)
-                  for f in ("knn_exact.cu", "pool.cu")])
+                  for f in ("fps.cu", "knn_exact.cu", "pool.cu",
+                            "scatter_add.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.

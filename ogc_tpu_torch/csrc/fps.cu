@@ -10,122 +10,205 @@
 // pinned with __fmul_rn/__fadd_rn so that nvcc cannot contract it into FMAs:
 // the result is bit-equal to the plain PyTorch version (ops/fps.py).
 //
-// Design: one block of 1024 threads per cloud.  x, y, z and min_d2 live in
-// dynamic shared memory (16 B/point, 128 KB at N = 8192).  Each step is a
-// block-wide (max value, min index) reduction: warp shuffles, then one warp
-// over the per-warp winners.
+// Bound on the H100: the npoint steps are sequential, and each is an argmax
+// over the whole cloud, so the time is npoint x (the SM's issue time for
+// the cloud's ~12 instructions a point, plus the latency of one argmax
+// across the CTA), not bytes or FLOPs.  One CTA takes a cloud; the design
+// cuts the latency of a step:
 //
-// Bound on the H100: the npoint steps are sequential, and each one is a
-// block reduction with two __syncthreads, so the kernel is bound by the
-// latency of npoint block reductions, not by bytes or FLOPs.  Only B of the
-// 132 SMs are busy (8 at the eval batch).  The design keeps every step's
-// data in shared memory, so no step touches device memory except the one
-// index it writes; splitting a cloud across a thread-block cluster to use
-// more SMs per cloud is left for a later change.
+// * Points in registers.  Thread t owns points j = t + k * T (k < PPT),
+//   with x, y, z and min_d2 in registers (the loop fully unrolled); the
+//   CTA's shared copy of the cloud (12 B a point) serves only the winner's
+//   coordinates.  Above 8192 points (REG_XYZ false: 16 points a thread
+//   over up to 1024 threads) x, y, z are read from that copy and only
+//   min_d2 stays in registers.  The instances compiled are the ones
+//   ops/fps.py::fps_plan takes: 1, 4, 8 and 32 points a thread in
+//   registers, 16 from shared memory.
+// * A thread's argmax as a tree of log2 PPT levels, the lower k on the
+//   left of each merge (a strict > keeps it on a tie).
+// * A warp argmax in two redux.sync.  min_d2 >= +0, so its float bits
+//   order as unsigned integers: __reduce_max_sync takes the largest bits,
+//   then __reduce_min_sync the lowest index among the lanes that hold them.
+//   (A ballot of the holders and a shuffle from the first, with points
+//   laid out so that lane order is index order, measured slower.)
+// * One barrier a step.  Each warp's winner goes into a shared array
+//   double-buffered by the step's parity; after the one barrier every warp
+//   reduces the <= 32 winners itself, so no second barrier broadcasts the
+//   result.  A buffer is rewritten two steps later, after a barrier that
+//   every reader of it has passed.
+//
+// A cloud stays on one SM: spreading it over a thread-block cluster of
+// 2-8 CTAs (the winners exchanged through distributed shared memory, with
+// a cluster barrier or with mbarrier arrivals a step) measured slower at
+// every path shape, the exchange costing more than the issue time it
+// spreads.  Sorting the cloud by a Morton code so that a thread whose
+// points' bounding box lies beyond its largest min_d2 can skip a step
+// gained little at 8192 points on uniform clouds and nothing on
+// scene-like ones, for ~150 more lines; it was not kept.
+// ops/fps.py::fps_plan picks the instance.
+//
+// Padding points (j >= N) hold min_d2 = +0 and an index above every real
+// one, so they never win: a real point's value is >= +0 and its index lower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNoIndex = 0xffffffffu;
+// Dynamic shared memory a CTA may use, next to the static `red`.
+constexpr int kStaticSmem = 2 * 32 * 8;
+constexpr int kMaxSmem = 227 * 1024 - 1024;
 
 __device__ __forceinline__ float d2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
 
-// Larger value wins; on equal values the lower index wins.
-__device__ __forceinline__ void arg_max_merge(float& v, int& i, float ov,
-                                              int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// (largest bits, lowest index among the lanes that hold them) of the warp.
+__device__ __forceinline__ void warp_argmax(unsigned& bits, unsigned& idx) {
+  const unsigned top = __reduce_max_sync(kFull, bits);
+  idx = __reduce_min_sync(kFull, bits == top ? idx : kNoIndex);
+  bits = top;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Threads a CTA may have, as many as fps_plan gives the instance: 32
+// points a thread in registers need up to 255 registers (<= 256 threads).
+template <int PPT, bool REG_XYZ>
+constexpr int max_threads() {
+  return !REG_XYZ ? 1024 : PPT == 32 ? 256 : 512;
+}
+
+template <int PPT, bool REG_XYZ>
+__global__ void __launch_bounds__(max_threads<PPT, REG_XYZ>())
     fps_kernel(const float* __restrict__ xyz, int N, int npoint,
                int32_t* __restrict__ out) {
   extern __shared__ float smem[];
+  __shared__ uint2 red[2][32];
+  static_assert(sizeof(red) == kStaticSmem, "kStaticSmem");
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int P = T * PPT;
   float* sx = smem;
-  float* sy = sx + N;
-  float* sz = sy + N;
-  float* smin = sz + N;
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int s_last;
-
-  const int b = blockIdx.x;
-  const float* p = xyz + (size_t)b * N * 3;
-  int32_t* o = out + (size_t)b * npoint;
-  for (int j = threadIdx.x; j < N; j += kThreads) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
-    smin[j] = 1e10f;
+  float* sy = sx + P;
+  float* sz = sy + P;
+  const float* p = xyz + (size_t)blockIdx.x * N * 3;
+  for (int j = tid; j < P; j += T) {
+    const bool real = j < N;
+    sx[j] = real ? p[3 * j] : 0.0f;
+    sy[j] = real ? p[3 * j + 1] : 0.0f;
+    sz[j] = real ? p[3 * j + 2] : 0.0f;
   }
-  if (threadIdx.x == 0) o[0] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int last = 0;
+  float px[REG_XYZ ? PPT : 1], py[REG_XYZ ? PPT : 1], pz[REG_XYZ ? PPT : 1];
+  float pm[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    pm[k] = tid + k * T < N ? 1e10f : 0.0f;
+    if constexpr (REG_XYZ) {
+      px[k] = sx[tid + k * T];
+      py[k] = sy[tid + k * T];
+      pz[k] = sz[tid + k * T];
+    }
+  }
+  int32_t* o = out + (size_t)blockIdx.x * npoint;
+  if (tid == 0) o[0] = 0;
+  const int warps = T >> 5;
+
+  unsigned last = 0;
   for (int s = 1; s < npoint; ++s) {
     const float xl = sx[last], yl = sy[last], zl = sz[last];
-    // min_d2 >= 0, so (-1, N) loses to every real candidate.
-    float bv = -1.0f;
-    int bi = N;
-    for (int j = threadIdx.x; j < N; j += kThreads) {
-      const float m = fminf(smin[j], d2_rn(sx[j] - xl, sy[j] - yl, sz[j] - zl));
-      smin[j] = m;
-      if (m > bv) {  // j ascends: strict > keeps this thread's lowest index
-        bv = m;
-        bi = j;
+    float bv[PPT];
+    int bk[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      float xk, yk, zk;
+      if constexpr (REG_XYZ) {
+        xk = px[k];
+        yk = py[k];
+        zk = pz[k];
+      } else {
+        xk = sx[tid + k * T];
+        yk = sy[tid + k * T];
+        zk = sz[tid + k * T];
       }
+      pm[k] = fminf(pm[k], d2_rn(xk - xl, yk - yl, zk - zl));
+      bv[k] = pm[k];
+      bk[k] = k;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      arg_max_merge(bv, bi, ov, oi);
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = red_v[lane];
-      bi = red_i[lane];
+    for (int w = 1; w < PPT; w *= 2) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        arg_max_merge(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        s_last = bi;
-        o[s] = bi;
+      for (int k = 0; k + w < PPT; k += 2 * w) {
+        if (bv[k + w] > bv[k]) {
+          bv[k] = bv[k + w];
+          bk[k] = bk[k + w];
+        }
       }
     }
+    unsigned bits = __float_as_uint(bv[0]);
+    unsigned idx = (unsigned)(tid + bk[0] * T);
+    warp_argmax(bits, idx);
+    uint2* buf = red[s & 1];
+    if (lane == 0) buf[warp] = make_uint2(bits, idx);
     __syncthreads();
-    last = s_last;
+    const uint2 e = lane < warps ? buf[lane] : make_uint2(0u, kNoIndex);
+    bits = e.x;
+    idx = e.y;
+    warp_argmax(bits, idx);
+    last = idx;
+    if (tid == 0) o[s] = (int32_t)idx;
   }
+}
+
+template <int PPT, bool REG_XYZ>
+int launch(const float* xyz, int B, int N, int npoint, int T, int32_t* out,
+           cudaStream_t stream) {
+  static int done[ogc::kMaxDevices];
+  auto kernel = fps_kernel<PPT, REG_XYZ>;
+  if (T < 32 || T % 32 || T > max_threads<PPT, REG_XYZ>() || T * PPT < N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)12 * T * PPT;
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  // The opt-in counts `red` too: 48 KiB of dynamic memory plus the static
+  // 512 B is already over the default.
+  cudaError_t err = ogc::smem_opt_in(kernel, (int)smem + kStaticSmem, done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, T, smem, stream>>>(xyz, N, npoint, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// xyz: (B, N, 3) f32 contiguous; out: (B, npoint) int32.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int ogc_fps(const void* xyz, int B, int N, int npoint, void* out,
-                       void* stream) {
-  const size_t smem = (size_t)16 * N;
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fps_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)xyz, N, npoint, (int32_t*)out);
-  return (int)cudaGetLastError();
+// xyz: (B, N, 3) f32 contiguous; out: (B, npoint) int32.  The instance:
+// `ppt` points a thread, `threads` a CTA (a multiple of 32), `reg_xyz` 1
+// for x, y, z in registers (1, 4, 8 or 32 points a thread), 0 for x, y, z
+// from shared memory (16 points a thread).  Launches on `stream` and
+// returns the launch's CUDA error (0 on success).
+extern "C" int ogc_fps(const void* xyz, int B, int N, int npoint, int ppt,
+                       int threads, int reg_xyz, void* out, void* stream) {
+  if (B <= 0 || N <= 0 || npoint <= 0 || npoint > N) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* x = (const float*)xyz;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!reg_xyz) {
+    return ppt == 16 ? launch<16, false>(x, B, N, npoint, threads, o, st)
+                     : (int)cudaErrorInvalidValue;
+  }
+  switch (ppt) {
+    case 1: return launch<1, true>(x, B, N, npoint, threads, o, st);
+    case 4: return launch<4, true>(x, B, N, npoint, threads, o, st);
+    case 8: return launch<8, true>(x, B, N, npoint, threads, o, st);
+    case 32: return launch<32, true>(x, B, N, npoint, threads, o, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

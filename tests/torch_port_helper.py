@@ -547,6 +547,43 @@ def _case_plans(x, cfg, state):
     return {"pool_plans": np.array(pools), "knn_plans": np.array(knns)}
 
 
+def _case_fps_select(x, cfg, state):
+    """FPS on CPU tensors (fps_plain) for every cloud of the case, and
+    ops/fps.py::fps_plan for every N of ``cfg["plan_n"]`` as (N, ppt,
+    threads, reg_xyz) rows."""
+    import torch
+
+    from ogc_tpu_torch.ops.fps import fps, fps_plan
+
+    out = {name: fps(torch.from_numpy(x[name]), npoint).numpy()
+           for name, npoint in cfg["clouds"].items()}
+    out["plans"] = np.array([[n, *map(int, fps_plan(n))]
+                             for n in cfg["plan_n"]])
+    return out
+
+
+def _case_scatter_csr(x, cfg, state):
+    """The plain scatter-add (CPU tensors) and its prologue's (order, start)
+    for every case, int32 and int64 idx, and ops/scatter.py::csr_plan of
+    each case's (B, R, n_dest) and of ``cfg["plan_sites"]``."""
+    import torch
+
+    from ogc_tpu_torch.ops.scatter import csr_plan, scatter_add_rows, segments
+
+    out = {}
+    for name, n_dest in cfg["cases"].items():
+        idx = torch.from_numpy(x[name + "/idx"])
+        g = torch.from_numpy(x[name + "/g"])
+        out[name + "/sum"] = scatter_add_rows(idx, g, n_dest).numpy()
+        out[name + "/sum64"] = scatter_add_rows(idx.long(), g, n_dest).numpy()
+        _, order, start = segments(idx, n_dest)
+        out[name + "/order"], out[name + "/start"] = order.numpy(), start.numpy()
+        out[name + "/plan"] = np.array(csr_plan(*idx.shape, n_dest))
+    out["site_plans"] = np.array([[*site, *csr_plan(*site)]
+                                  for site in cfg["plan_sites"]])
+    return out
+
+
 def _case_pruned(x, cfg, state):
     """#4's plain version, its prologue's survivors, and which shapes
     ops.knn routes to #4 under each gate setting (exact mode)."""
@@ -749,6 +786,8 @@ CASES = {
     "pool_special": _case_pool_special,
     "knn_select": _case_knn_select,
     "plans": _case_plans,
+    "fps_select": _case_fps_select,
+    "scatter_csr": _case_scatter_csr,
     "pruned": _case_pruned,
     "flownet": _case_flownet,
     "blocksparse": _case_blocksparse,
