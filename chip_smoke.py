@@ -5,14 +5,16 @@
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc, and
    prints ptxas's registers, shared memory and spills for #1's, #2's,
-   #11's and #12's.
+   #3's, #5's, #11's and #12's.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
    card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
    bit-equal.  Eval path (B=8 x 8192): 3 FPS and 6 KNN shapes.  Train path
    (B=4 items x 4 frames = 16 clouds of 8192): the same FPS and model KNN
    shapes at batch 16, the smooth KnnLoss KNN (4 x 8192 x 8192, k=32), the
-   smooth BallQLoss ball query (4 x 8192 x 8192, ns 64, r 2), and the
+   smooth BallQLoss ball query (4 x 8192 x 8192, ns 64, r 2; also on a
+   continuous scene cloud, and SAPIEN's 32 x 512, ns 16, r 0.2; single
+   call and device time), and the
    scatter-add of every grouping backward (5 model groups + 8 smooth-loss
    groups).  #1 is also timed by device time (device_ms, with the time of
    one greedy step) at the eval and train shapes and at the KITTI-SF flow
@@ -45,8 +47,14 @@
    ``ops.group`` would take without them (advanced indexing; #11 with its
    CSR built in CUDA).  Fast path: the block-min KNN (#3) at its five model
    sites at batch 16 and 8 and the smooth KNN (4 x 8192 x 8192, k 32), the
-   block-min ball query at the smooth shape (crowded and under-full), a
-   ragged M = 1500 and a k = 3 case, each beside the exact route (#2, #5).
+   block-min ball query at the smooth shape (crowded and under-full) and
+   SAPIEN's, a ragged M = 1500 and a k = 3 case, on grid and continuous
+   clouds, each by single call and device time beside the exact route (#2,
+   #5); then #3 and #5 on the low-bit case (a run's full-d2 minimum against
+   the truncated one), every k from 1 to 64, blk 4 to 32, ragged M and N,
+   balls full within 32 candidates and empty ones, each kernel the plan
+   can take; and the crossover of #3's thread and warp kernels at every
+   path site, the flow forward's included.
 4. Train phase (the main path, pinned exact as every parity phase): writes
    a synthetic KITTI-SF root (the write_kittisf layout plus
    flow_preds/flowstep3d/<id>/flow{1,2}.npy), train/val mappings of 40 and
@@ -62,8 +70,8 @@
    leaf.
 5. Profile: torch.profiler over 3 warm train steps, all terms on; prints
    the device's busy share of the steps, the device time of #1's, #2's,
-   #11's and #12's kernels, and the operators and kernels that take the
-   most device time.
+   #3's, #5's, #11's and #12's kernels, and the operators and kernels that
+   take the most device time.
 6. Eval phase: ogc_tpu_torch.test_seg.main on the 100 ids of
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
@@ -132,8 +140,8 @@ an aligned and an unaligned source; #7 also at every C from 1 to 16, N 1 and
 torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
 grid clouds, bit-equal to its plain version, beside #3 and #2 with its recall.
 
-``parent_ab(root)`` (not run by main) times #1 and #11 of another checkout
-of the port the same way, for an A/B on one card.
+``parent_ab(root)`` (not run by main) times #1, #11, #3 and #5 of another
+checkout of the port the same way, for an A/B on one card.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -182,6 +190,10 @@ LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_FRAC = 1e-4, 3e-3, 2e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor)
 # operations/s.
 HBM_BPS, F32_OPS = 3.35e12, 67e12
+# f32 operations of one (query, candidate) pair's direct-form d2 in every
+# search bound: 3 subtractions, 3 products and 2 sums (the compare is not a
+# floating-point operation).
+D2_OPS = 8
 # (N, npoint) of the three FPS calls and (n_query, n_points, k) of the six
 # KNN calls in one KITTI-SF forward (SA stages 8192 -> 2048 -> 1024 -> 512).
 FPS_SHAPES = [(8192, 2048), (2048, 1024), (1024, 512)]
@@ -347,6 +359,19 @@ FLOW_PRUNED = 2 + 2 * (FLOW_ITERS - 1)
 # KNN per iteration; #2 at enc_glob SA3, corr SA1 and the first two corr FP.
 FLOW_APPROX = launch_counts(fps=1, knn_exact=4, gather_onehot=1,
                             knn_blockmin=8 + (FLOW_ITERS - 1))
+# Its #3 searches (clouds, queries, points, k, recall): enc_loc SA1 and SA2,
+# enc_glob SA1 and SA2 (2B clouds), corr SA2, the last corr FP, the 1/4-cloud
+# table, the stencil, and the FlowEmbedding KNN (once per refinement
+# iteration); blockmin_crossover times each.
+FLOW_BLOCKMIN_SITES = [(2 * FLOW_B, 4096, 8192, 32, 0.95),
+                       (2 * FLOW_B, 2048, 4096, 32, 0.95),
+                       (2 * FLOW_B, 1024, 2048, 32, 0.95),
+                       (2 * FLOW_B, 512, 1024, 24, 0.95),
+                       (FLOW_B, 1024, 1024, 16, 0.95),
+                       (FLOW_B, 2048, 1024, 3, 0.99),
+                       (FLOW_B, 2048, 2048, 32, 0.95),
+                       (FLOW_B, 8192, 2048, 3, 0.99),
+                       (FLOW_B, 2048, 2048, 16, 0.95)]
 # test_flow on SAPIEN (config/flow/sapien/sapien_unsup.yaml: 512 points,
 # loc_flow_nn 8, loc_flow_rad 0.1) over the 24 synthetic test scenes x 6
 # view pairs, B=48, 4 iterations, exact, pool gate on.  Per batch: fps 4
@@ -359,10 +384,16 @@ SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
                          gather_onehot=SAP_FLOW_ITERS)
 
 
-# The symbols of #1's, #2's, #11's and #12's kernels, summed per call in
-# every profile.
+# The symbols of #1's, #2's, #3's, #5's, #11's and #12's kernels, summed per
+# call in every profile (#3's ball mode and #5 are instances of one
+# template, ball_kernel<blk>; #5's blk is 1).
 PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                     "#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
+                    "#3 knn_blockmin": ("blockmin_thread_kernel",
+                                        "blockmin_warp_kernel"),
+                    "#3 ball_blockmin": tuple(f"ball_kernel<{blk}>" for blk
+                                              in (4, 8, 16, 32)),
+                    "#5 ball_query": ("ball_kernel<1>",),
                     "#11 scatter_add": ("csr_count_kernel", "csr_scan_kernel",
                                         "csr_place_kernel",
                                         "accumulate_warp_kernel",
@@ -654,9 +685,9 @@ def knn_bits_equal(got, want):
 def check_knn(report, gen, shapes, per_step):
     """#2 at the path's shapes, bit-equal to its plain version, timed by
     single call (cuda_ms) and by device time (device_ms) beside the plain
-    version.  Bound: 9 f32 operations per pair a pruned search must test,
-    or the bytes, the larger; the all-pairs operations bound is logged
-    beside it."""
+    version.  Bound: D2_OPS f32 operations per pair a pruned search must
+    test, or the bytes, the larger; the all-pairs operations bound is
+    logged beside it."""
     from ogc_tpu_torch.ops.knn import knn_exact, knn_exact_plain, knn_plan
 
     for b, nq, m, k, reps in shapes:
@@ -671,11 +702,11 @@ def check_knn(report, gen, shapes, per_step):
         ms = cuda_ms(lambda: knn_exact(q, p, k), 20)
         dev = device_ms(lambda: knn_exact(q, p, k), reps=5, rounds=4)
         pms = cuda_ms(lambda: knn_exact_plain(q, p, k), 3)
-        # 9 f32 operations (3 sub, 3 mul, 2 add, a compare) per pair a pruned
-        # search must test: the points within the k-th distance's cube.
+        # D2_OPS per pair a pruned search must test: the points within the
+        # k-th distance's cube.
         pairs = box_pairs(q, p, d[..., -1])
-        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * 9)
-        all_pairs, _ = bound_ms(0, b * nq * m * 9)
+        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * D2_OPS)
+        all_pairs, _ = bound_ms(0, b * nq * m * D2_OPS)
         report.add("knn_exact", 0, ms, pms, bnd, by, per_step=reps,
                    device=(dev, None))
         kernel = knn_plan(k, b * nq)[0]
@@ -749,34 +780,86 @@ def knn_crossover(gen):
         f"(THREAD_MIN_QUERIES {THREAD_MIN_QUERIES})")
 
 
+def scene_clouds(rng, b, n):
+    """``b`` scene_cloud's of ``n`` points as one (b, n, 3) CUDA tensor:
+    continuous coordinates, so d2's low mantissa bits are not zero."""
+    return torch.from_numpy(np.stack([scene_cloud(rng, n)
+                                      for _ in range(b)])).cuda()
+
+
+def ball_sites(gen):
+    """The ball query's sites: (label, points, centres, r, ns, calls per
+    step).  The smooth BallQLoss of a KITTI-SF frame (4 x 8192 x 8192, ns 64,
+    r 2) on a crowded grid cloud (extent 8, not timed) and on an under-full
+    one (extent 30: most balls hold fewer than 64 points, so most centres
+    test every point; timed, 4 a parity or fast step), and SAPIEN's (32 x
+    512, ns 16, r 0.2, a unit-scale 1/64 grid; 4 a full step)."""
+    crowded = grid_cloud(gen, TRAIN_B, N_POINT, 8.0)
+    sparse = grid_cloud(gen, TRAIN_B, N_POINT, 30.0)
+    sap = grid_cloud(gen, SAP_B, SAP_N, 1.2, 1 / 64)
+    return [("smooth crowded", crowded, crowded, BALL_R, BALL_NS, 0),
+            ("smooth", sparse, sparse, BALL_R, BALL_NS, TRAIN_T),
+            ("SAPIEN", sap, sap, SAP_BALL_R, SAP_BALL_NS, 4)]
+
+
+def ball_need(got, n, blk):
+    """Candidates a ball needs on this data: up to the run of its ns-th
+    winner when it is full (its last slot differs from its first), all
+    ``n`` when it is not."""
+    full = got[..., -1] != got[..., 0]
+    need = torch.where(full, (got[..., -1].long() // blk + 1) * blk, n)
+    return full, need.clamp(max=n)
+
+
 def check_ball(report, gen):
+    """#5 at ball_sites, bit-equal to its plain version (also on a
+    continuous scene cloud), timed by single call and device time beside
+    the plain version.  Bound: the bytes, or D2_OPS per pair a search pruned
+    by spatial cells tests (the points in the cube of half-width r around a
+    centre, for a full ball only those up to its ns-th hit).  The smooth
+    site goes into ``report`` (per parity step); SAPIEN's is logged per full
+    step."""
     from ogc_tpu_torch.ops.ball import ball_query_exact, ball_query_plain
 
-    for extent in (8.0, 30.0):  # crowded balls, then under-full ones
-        x = grid_cloud(gen, TRAIN_B, N_POINT, extent)
-        got = ball_query_exact(x, x, BALL_R, BALL_NS)
-        want = ball_query_plain(x, x, BALL_R, BALL_NS)
+    rng = np.random.RandomState(SEED)
+    x = scene_clouds(rng, TRAIN_B, N_POINT)
+    if not torch.equal(ball_query_exact(x, x, BALL_R, BALL_NS),
+                       ball_query_plain(x, x, BALL_R, BALL_NS)):
+        raise AssertionError("ball query scene cloud: kernel != plain")
+    for label, x, c, r, ns, calls in ball_sites(gen):
+        b, n = x.shape[:2]
+        got = ball_query_exact(x, c, r, ns)
+        want = ball_query_plain(x, c, r, ns)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(
-                f"ball query extent {extent}: kernel != plain at "
+                f"ball query {label}: kernel != plain at "
                 f"{(got != want).sum().item()} slots")
-        full = got[..., -1] != got[..., 0]
-        log(f"ball_query ({TRAIN_B},{N_POINT} c,{N_POINT} p,ns={BALL_NS},"
-            f"r={BALL_R}) extent {extent}: bit-equal; full balls "
-            f"{full.float().mean().item():.4f}")
-    # Timed on the under-full cloud.  Pairs the data needs: a search pruned
-    # by cells tests the points in the cube of half-width r around a centre,
-    # and for a full ball only those up to its ns-th hit.
-    pairs = box_pairs(x, x, torch.full(full.shape, BALL_R, device="cuda"),
-                      torch.where(full, got[..., -1], N_POINT - 1))
-    ms = cuda_ms(lambda: ball_query_exact(x, x, BALL_R, BALL_NS), 20)
-    pms = cuda_ms(lambda: ball_query_plain(x, x, BALL_R, BALL_NS), 3)
-    bnd, by = bound_ms(TRAIN_B * (2 * N_POINT * 12 + N_POINT * BALL_NS * 4),
-                       pairs * 9)
-    report.add("ball_query", 0, ms, pms, bnd, by, per_step=4)
-    log(f"ball_query x4/step: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-        f"{bnd:.4f} ms ({by}; {pairs} pairs a pruned search tests)")
+        full, need = ball_need(got, n, 1)
+        head = (f"ball_query {label} ({b},{c.shape[1]} c,{n} p,ns={ns},"
+                f"r={r}): bit-equal; full balls "
+                f"{full.float().mean().item():.4f}")
+        if not calls:
+            log(head)
+            continue
+        pairs = box_pairs(c, x, torch.full(full.shape, r, device="cuda"),
+                          need - 1)
+        ms = cuda_ms(lambda: ball_query_exact(x, c, r, ns), 20)
+        dev = device_ms(lambda: ball_query_exact(x, c, r, ns), reps=5,
+                        rounds=4)
+        pms = cuda_ms(lambda: ball_query_plain(x, c, r, ns), 3)
+        m = c.shape[1]
+        bnd, by = bound_ms(b * ((n + m) * 12 + m * ns * 4), pairs * D2_OPS)
+        if label == "SAPIEN":
+            log(f"per SAPIEN full step: ball_query single {calls * ms:.4f} "
+                f"ms, device {calls * dev:.4f} ms, plain {calls * pms:.4f} "
+                f"ms, bound {calls * bnd:.4f} ms ({by})")
+        else:
+            report.add("ball_query", 0, ms, pms, bnd, by, per_step=calls,
+                       device=(dev, None))
+        log(f"{head}; x{calls}/step: single call {ms:.4f} ms, device "
+            f"{dev:.4f} ms, plain {pms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+            f"{pairs} pairs a pruned search tests)")
 
 
 def scatter_sites(gen):
@@ -912,24 +995,28 @@ def check_scatter(report, gen):
 
 
 def parent_ab(root):
-    """#1 and #11 of another checkout of the port, timed as this tree's
-    check_fps and check_scatter time them, for an A/B on one card:
+    """#1, #11, #3 and #5 of another checkout of the port, timed as this
+    tree's check_fps, check_scatter, check_blockmin and check_ball time
+    them, for an A/B on one card:
 
         python3 -c 'import chip_smoke; chip_smoke.parent_ab("<root>")'
 
     from this tree's root, in a process that has not imported the port.
     The port is imported from ``root`` (its kernels build there): FPS at
-    FPS_SHAPES (B 8 and 16) and FLOW_FPS_SHAPES (16 clouds); the
-    scatter-add at every scatter_sites site, single call and device time,
+    FPS_SHAPES (B 8 and 16) and FLOW_FPS_SHAPES (16 clouds); #3 at the
+    fast train step's sites (16 clouds, the smooth KNN and ball, SAPIEN's
+    ball shape) and #5 at ball_sites; the scatter-add at every
+    scatter_sites site; each by single call and device time.  For a parent
+    with the port's ogc_scatter_add_rows up to commit 03c3005 (g, int64
+    order, int64 start, rows, C, out, stream) the scatter-add is also
     split into its torch prologue (segments) and its kernel fed that
-    prologue's CSR (the port's ogc_scatter_add_rows up to commit 03c3005:
-    g, int64 order, int64 start, rows, C, out, stream)."""
+    prologue's CSR."""
     if not torch.cuda.is_available():
         sys.exit("parent_ab: no CUDA device")
     root = osp.abspath(root)
     sys.path.insert(0, root)
     from ogc_tpu_torch.ops import _build
-    from ogc_tpu_torch.ops.scatter import scatter_add_rows, segments
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
     from ogc_tpu_torch.train_seg import set_deterministic
 
     if not _build.__file__.startswith(root):
@@ -950,27 +1037,42 @@ def parent_ab(root):
         e = rep.entry("fps")
         log(f"parent per {what}: fps kernel {e['ms']:.4f} ms, device "
             f"{e['device_ms']:.4f} ms")
+    rep = Report()
+    check_blockmin(rep, gen, TRAIN_B * TRAIN_T, BLOCKMIN_SHAPES)
+    check_ball(rep, gen)
+    for name, what in (("knn_blockmin", "fast"), ("ball_blockmin", "fast"),
+                       ("ball_query", "parity")):
+        e = rep.entry(name)
+        log(f"parent per {what} train step: {name} single {e['ms']:.4f} ms, "
+            f"device {e['device_ms']:.4f} ms")
+    # The torch prologue and its kernel apart: the API up to 03c3005.
+    split = len(_build._SIGNATURES["ogc_scatter_add_rows"]) == 7
     total = {"single": 0.0, "device": 0.0, "prologue": 0.0, "kernel": 0.0}
     for name, flat, C, n_dest, calls in scatter_sites(gen):
         b, R = flat.shape
         g = torch.randn((b, R, C), generator=gen, device="cuda")
-        _, order, start = segments(flat, n_dest)
-        out = torch.empty((b, n_dest, C), device="cuda")
-
-        def kernel():
-            _build.check(_build.lib().ogc_scatter_add_rows(
-                g.data_ptr(), order.data_ptr(), start.data_ptr(),
-                b * n_dest, C, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream), "parent kernel")
-
-        kernel()
-        if not bits_equal(out, scatter_add_rows(flat, g, n_dest)):
-            raise AssertionError(f"parent scatter {name}: kernel on the "
-                                 f"prologue's CSR != the wrapper's result")
         t = {"single": cuda_ms(lambda: scatter_add_rows(flat, g, n_dest), 20),
              "device": device_ms(lambda: scatter_add_rows(flat, g, n_dest)),
-             "prologue": device_ms(lambda: segments(flat, n_dest)),
-             "kernel": device_ms(kernel)}
+             "prologue": 0.0, "kernel": 0.0}
+        if split:
+            from ogc_tpu_torch.ops.scatter import segments
+
+            _, order, start = segments(flat, n_dest)
+            out = torch.empty((b, n_dest, C), device="cuda")
+
+            def kernel():
+                _build.check(_build.lib().ogc_scatter_add_rows(
+                    g.data_ptr(), order.data_ptr(), start.data_ptr(),
+                    b * n_dest, C, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream), "parent kernel")
+
+            kernel()
+            if not bits_equal(out, scatter_add_rows(flat, g, n_dest)):
+                raise AssertionError(f"parent scatter {name}: kernel on the "
+                                     f"prologue's CSR != the wrapper's "
+                                     f"result")
+            t["prologue"] = device_ms(lambda: segments(flat, n_dest))
+            t["kernel"] = device_ms(kernel)
         for k in total:
             total[k] += calls * t[k]
         log(f"parent scatter_add {name} ({b},{R} rows,C={C})->{n_dest} "
@@ -982,17 +1084,34 @@ def parent_ab(root):
         f"{total['prologue']:.4f}, kernel {total['kernel']:.4f})")
 
 
+def blockmin_launch(k, b, nq, m, rec):
+    """(kernel, CTAs) of the port's #3 KNN for k over ``b`` clouds of
+    ``nq`` queries in ``m`` points: blockmin_plan's kernel (128 queries a
+    CTA for the thread kernel, 32 for the warp kernel), or the one thread
+    per query of a port that has no plan."""
+    from ogc_tpu_torch.ops import knn_blockmin as kb
+
+    if not hasattr(kb, "blockmin_plan"):
+        return "thread", b * -(-nq // 128)
+    kernel, _ = kb.blockmin_plan(k, b * nq, kb.block_size(m, k, rec))
+    return kernel, b * -(-nq // (128 if kernel == "thread" else 32))
+
+
 def check_blockmin(report, gen, b, shapes, ball=True):
     """#3 at every block-min site of the fast path (``shapes`` of the model
     at ``b`` clouds; with ``ball`` the smooth KNN and ball at B=4 per frame,
     a ragged M = 1500 and a small-recall k = 3 case), bit-equal to the plain
-    version in both modes.  Timed beside the plain version and the route
-    exact mode takes at the same shape ("general": #2 for KNN, #5 for the
-    ball).  Bound: 8 f32 operations per (query, candidate) pair the
-    function needs (every pair for KNN; for a ball, the candidates up to
-    the run of its ns-th hit, all of them when it is not full), or the
-    bytes, the larger.  No single PyTorch call computes block-min thinning
-    with packed keys: no library time."""
+    version in both modes, on grid clouds and on continuous scene clouds.
+    Timed by single call and device time beside the plain version and the
+    route exact mode takes at the same shape ("general": #2 for KNN, #5 for
+    the ball).  Bound: D2_OPS f32 operations per (query, candidate) pair
+    the function needs (every pair for KNN; for a ball, the candidates up
+    to the run of its ns-th hit, all of them when it is not full), or the
+    bytes, the larger.  The ball mode is also timed at SAPIEN's ball shape
+    (no path sends it there: 512 points are below its gate).  No single
+    PyTorch call computes block-min thinning with packed keys: no library
+    time.  Uses only the API that every port since #3 has, so parent_ab
+    times a parent's #3 with it."""
     from ogc_tpu_torch.ops.ball import ball_query_exact
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
@@ -1000,47 +1119,44 @@ def check_blockmin(report, gen, b, shapes, ball=True):
                                                 block_size, knn_blockmin,
                                                 knn_blockmin_plain)
 
+    rng = np.random.RandomState(SEED)
     cases = [(b, nq, m, k, rec, 1) for nq, m, k, rec in shapes]
     if ball:
         cases += [(TRAIN_B, N_POINT, N_POINT, SMOOTH_K, 0.95, TRAIN_T),
                   (2, 1500, 1500, 16, 0.95, 0), (2, 1500, 1500, 3, 0.99, 0)]
     for bb, nq, m, k, rec, per_step in cases:
         q, p = grid_cloud(gen, bb, nq), grid_cloud(gen, bb, m)
-        (d, i), (pd, pi) = (knn_blockmin(q, p, k, rec),
-                            knn_blockmin_plain(q, p, k, rec))
-        torch.cuda.synchronize()
-        if not (torch.equal(i, pi) and torch.equal(d, pd)):
-            raise AssertionError(
-                f"knn_blockmin b{bb} q{nq} p{m} k{k}: kernel != plain at "
-                f"{(i != pi).sum().item()} indices, max dist diff "
-                f"{(d - pd).abs().max().item()}")
+        for kind, qq, pp in (("grid", q, p), ("scene", scene_clouds(
+                rng, bb, nq), scene_clouds(rng, bb, m))):
+            got = knn_blockmin(qq, pp, k, rec)
+            want = knn_blockmin_plain(qq, pp, k, rec)
+            torch.cuda.synchronize()
+            if not knn_bits_equal(got, want):
+                raise AssertionError(
+                    f"knn_blockmin {kind} b{bb} q{nq} p{m} k{k}: kernel != "
+                    f"plain at {(got[1] != want[1]).sum().item()} indices")
         ms = cuda_ms(lambda: knn_blockmin(q, p, k, rec), 20)
+        dev = device_ms(lambda: knn_blockmin(q, p, k, rec), reps=5, rounds=4)
         pms = cuda_ms(lambda: knn_blockmin_plain(q, p, k, rec), 3)
         gms = cuda_ms(lambda: knn_exact(q, p, min(k, m)), 5)
-        bnd, by = bound_ms(bb * ((nq + m) * 12 + nq * k * 8), bb * nq * m * 8)
+        bnd, by = bound_ms(bb * ((nq + m) * 12 + nq * k * 8),
+                           bb * nq * m * D2_OPS)
         if per_step:
             report.add("knn_blockmin", 0, ms, pms, bnd, by,
-                       per_step=per_step, general=gms)
-        log(f"knn_blockmin ({bb},{nq} q,{m} p,k={k},blk="
-            f"{block_size(m, k, rec)}) x{per_step}/step: idx and dist "
-            f"bit-equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, #2 "
+                       per_step=per_step, general=gms, device=(dev, None))
+        blk = block_size(m, k, rec)
+        kernel, ctas = blockmin_launch(k, bb, nq, m, rec)
+        log(f"knn_blockmin ({bb},{nq} q,{m} p,k={k},blk={blk},G="
+            f"{-(-m // 1024) * 1024 // blk}; {kernel}, {ctas} CTAs) "
+            f"x{per_step}/step: idx and dist bit-equal (grid, scene); single "
+            f"call {ms:.4f} ms, device {dev:.4f} ms, plain {pms:.4f} ms, #2 "
             f"{gms:.4f} ms, bound {bnd:.4f} ms ({by})")
     if not ball:
         return
-    blk = block_size(N_POINT, BALL_NS, 0.95)
-    for extent in (8.0, 30.0):  # crowded balls, then under-full ones
-        x = grid_cloud(gen, TRAIN_B, N_POINT, extent)
-        got = ball_query_blockmin(x, x, BALL_R, BALL_NS)
-        want = ball_query_blockmin_plain(x, x, BALL_R, BALL_NS)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"ball_blockmin extent {extent}: kernel != plain at "
-                f"{(got != want).sum().item()} slots")
-        full = got[..., -1] != got[..., 0]
-        log(f"ball_blockmin ({TRAIN_B},{N_POINT} c,{N_POINT} p,ns={BALL_NS},"
-            f"r={BALL_R},blk={blk}) extent {extent}: bit-equal; full balls "
-            f"{full.float().mean().item():.4f}")
+    x = scene_clouds(rng, TRAIN_B, N_POINT)
+    if not torch.equal(ball_query_blockmin(x, x, BALL_R, BALL_NS),
+                       ball_query_blockmin_plain(x, x, BALL_R, BALL_NS)):
+        raise AssertionError("ball_blockmin scene cloud: kernel != plain")
     x = grid_cloud(gen, 2, 1500, 8.0)
     c = grid_cloud(gen, 2, 700, 8.0)
     for r_, ns in ((0.1, 8), (0.5, 16)):
@@ -1048,26 +1164,148 @@ def check_blockmin(report, gen, b, shapes, ball=True):
                            ball_query_blockmin_plain(x, c, r_, ns)):
             raise AssertionError(f"ball_blockmin ragged r={r_}: kernel != "
                                  f"plain")
-    log("ball_blockmin ragged (2,700 c,1500 p) r 0.1 ns 8, r 0.5 ns 16: "
-        "bit-equal")
-    # Timed on an under-full cloud (extent 30): no ball stops early.
-    x = grid_cloud(gen, TRAIN_B, N_POINT, 30.0)
-    got = ball_query_blockmin(x, x, BALL_R, BALL_NS)
-    full = got[..., -1] != got[..., 0]
-    need = torch.where(full, (got[..., -1].long() // blk + 1) * blk,
-                       N_POINT).clamp(max=N_POINT)
-    pairs = int(need.sum().item())
-    ms = cuda_ms(lambda: ball_query_blockmin(x, x, BALL_R, BALL_NS), 20)
-    pms = cuda_ms(lambda: ball_query_blockmin_plain(x, x, BALL_R, BALL_NS),
-                  3)
-    gms = cuda_ms(lambda: ball_query_exact(x, x, BALL_R, BALL_NS), 5)
-    bnd, by = bound_ms(TRAIN_B * (2 * N_POINT * 12 + N_POINT * BALL_NS * 4),
-                       pairs * 8)
-    report.add("ball_blockmin", 0, ms, pms, bnd, by, per_step=TRAIN_T,
-               general=gms)
-    log(f"ball_blockmin x{TRAIN_T}/step: kernel {ms:.4f} ms, plain {pms:.4f} "
-        f"ms, #5 {gms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs} pairs "
-        f"needed)")
+    log("ball_blockmin scene cloud (4,8192) r 2 ns 64; ragged (2,700 c,"
+        "1500 p) r 0.1 ns 8, r 0.5 ns 16: bit-equal")
+    for label, x, c, r, ns, calls in ball_sites(gen):
+        bb, n = x.shape[:2]
+        blk = block_size(n, ns, 0.95)
+        got = ball_query_blockmin(x, c, r, ns)
+        want = ball_query_blockmin_plain(x, c, r, ns)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"ball_blockmin {label}: kernel != plain at "
+                f"{(got != want).sum().item()} slots")
+        full, need = ball_need(got, n, blk)
+        head = (f"ball_blockmin {label} ({bb},{c.shape[1]} c,{n} p,ns={ns},"
+                f"r={r},blk={blk}): bit-equal; full balls "
+                f"{full.float().mean().item():.4f}")
+        if label == "smooth crowded":
+            log(head)
+            continue
+        pairs = int(need.sum().item())
+        ms = cuda_ms(lambda: ball_query_blockmin(x, c, r, ns), 20)
+        dev = device_ms(lambda: ball_query_blockmin(x, c, r, ns), reps=5,
+                        rounds=4)
+        pms = cuda_ms(lambda: ball_query_blockmin_plain(x, c, r, ns), 3)
+        gms = cuda_ms(lambda: ball_query_exact(x, c, r, ns), 5)
+        m = c.shape[1]
+        bnd, by = bound_ms(bb * ((n + m) * 12 + m * ns * 4), pairs * D2_OPS)
+        if label == "smooth":
+            report.add("ball_blockmin", 0, ms, pms, bnd, by, per_step=calls,
+                       general=gms, device=(dev, None))
+        log(f"{head}; x{calls if label == 'smooth' else 0}/step: single "
+            f"call {ms:.4f} ms, device {dev:.4f} ms, plain {pms:.4f} ms, #5 "
+            f"{gms:.4f} ms, bound {bnd:.4f} ms ({by}; {pairs} pairs needed)")
+
+
+def check_blockmin_cases(gen):
+    """#3 (both modes) and #5 bit-equal to their plain versions, every
+    kernel and instance the plans can take, beyond the path sites:
+    * KNN, each of the thread kernel (k <= THREAD_MAX_K) and the warp
+      kernel: the low-bit case (two candidates of
+      one run whose d2 agree above idx_bits, the lower index the farther:
+      the full minimum keeps the nearer, the output says so), at blk 4, 8,
+      16 and 32; every k from 1 to 64 over M 1500 on a grid; blk 4, 8, 16
+      and 32 on continuous clouds of M 2047 (ragged, two tiles);
+    * balls, #5 (blk 1) and #3 at blk 4, 8, 16 and 32: balls that fill
+      within the first 32 candidates, empty balls (centres far away),
+      continuous clouds, a ragged N."""
+    from ogc_tpu_torch.ops.ball import ball_query_plain, launch_ball
+    from ogc_tpu_torch.ops.knn_blockmin import (
+        THREAD_MAX_K, TILE, ball_query_blockmin_plain, block_size,
+        knn_blockmin, knn_blockmin_plain)
+
+    def knn_case(label, q, p, k, rec):
+        want = knn_blockmin_plain(q, p, k, rec)
+        for variant in ("warp", "thread")[:1 + (k <= THREAD_MAX_K)]:
+            if not knn_bits_equal(knn_blockmin(q, p, k, rec, variant), want):
+                raise AssertionError(f"knn_blockmin {label} k{k} blk "
+                                     f"{block_size(p.shape[1], k, rec)} "
+                                     f"{variant}: kernel != plain")
+        return want
+
+    rng = np.random.RandomState(SEED + 1)
+    # The low-bit case: 2048 points (idx_bits 11) far away but for 8 at
+    # (1 + 2^-23, 0, 0), d2 1 + 2^-22, and 9 at (1, 0, 0), d2 1, against
+    # queries at the origin.  k 16 at recall 0.99 / 0.95 / 0.9 / 0.8 takes
+    # runs of 4 / 8 / 16 / 32 (8 and 9 share each).
+    p = torch.from_numpy(100 + 30 * rng.rand(2, 2048, 3).astype(
+        np.float32)).cuda()
+    p[:, 8] = torch.tensor([float(np.nextafter(np.float32(1), 2)), 0, 0])
+    p[:, 9] = torch.tensor([1.0, 0, 0])
+    q = torch.zeros((2, 40, 3), device="cuda")
+    for rec in (0.99, 0.95, 0.9, 0.8):
+        d, i = knn_case("low bits", q, p, 16, rec)
+        if not ((i[..., 0] == 9).all() and (d[..., 0] == 1.0).all()):
+            raise AssertionError("knn_blockmin low bits: the run's winner "
+                                 "is not the nearer candidate")
+    x = grid_cloud(gen, 2, 1500, 8.0)
+    c = grid_cloud(gen, 2, 300, 8.0)
+    for k in range(1, 65):
+        knn_case("k sweep", c, x, k, 0.95)
+    q, p = scene_clouds(rng, 2, 500), scene_clouds(rng, 2, 2047)
+    for rec in (0.99, 0.95, 0.9, 0.8):
+        for k in (3, 16):
+            knn_case("scene M 2047", q, p, k, rec)
+    log("knn_blockmin cases bit-equal, both kernels: low bits (blk 4-32), k "
+        "1..64 over (2,300 q,1500 p), scene clouds M 2047 at blk 4-32")
+
+    def ball_case(label, x, c, r, ns):
+        n = x.shape[1]
+        for blk in (1, block_size(n, ns, 0.95)):
+            want = (ball_query_plain(x, c, r, ns) if blk == 1
+                    else ball_query_blockmin_plain(x, c, r, ns))
+            n_pad = n if blk == 1 else -(-n // TILE) * TILE
+            if not torch.equal(launch_ball(x, c, r, ns, blk, n_pad), want):
+                raise AssertionError(f"ball {label} blk {blk}: kernel != "
+                                     f"plain")
+        return want
+
+    # N 1500 (Np 2048): ns 2 / 8 / 16 / 40 take blk 32 / 16 / 8 / 4.
+    tight = grid_cloud(gen, 2, 1500, 0.5, 1 / 64)
+    far = grid_cloud(gen, 2, 77, 8.0) + 100
+    x = scene_clouds(rng, 2, 1500)
+    for ns in (2, 8, 16, 40):
+        got = ball_case("tight", tight, tight[:, :200], 2.0, ns)
+        if not (got == torch.arange(ns, device="cuda")
+                * block_size(1500, ns, 0.95)).all():
+            raise AssertionError(f"ball tight ns {ns}: not the first "
+                                 f"candidate of each run")
+        if ball_case("empty", tight, far, 2.0, ns).any():
+            raise AssertionError(f"ball empty ns {ns}: not all zeros")
+        ball_case("scene", x, x[:, :500], 1.0, ns)
+        ball_case("ragged", x[:, :1111], x[:, 7:300], 3.0, ns)
+    log("ball cases bit-equal, #5 and #3 at blk 4-32: balls full within the "
+        "first 32 candidates, empty balls, scene clouds, ragged N")
+
+
+def blockmin_crossover(gen):
+    """#3's KNN kernels at every path site (16 and 8 clouds, the smooth
+    KNN, the flow forward's) and at two small-k searches below
+    THREAD_MIN_QUERIES: the thread kernel (k <= THREAD_MAX_K) and the warp
+    kernel by device time, beside blockmin_plan's pick."""
+    from ogc_tpu_torch.ops.knn_blockmin import (THREAD_MAX_K, block_size,
+                                                blockmin_plan, knn_blockmin)
+
+    # And two k = 3 searches below THREAD_MIN_QUERIES (3000 and 8192
+    # queries), on no path: the other side of the plan's choice.
+    sites = sorted({(b, nq, m, k, rec) for b in (16, 8)
+                    for nq, m, k, rec in BLOCKMIN_SHAPES}
+                   | {(TRAIN_B, N_POINT, N_POINT, SMOOTH_K, 0.95),
+                      (2, 1500, 1500, 3, 0.99), (2, 4096, 2048, 3, 0.99)}
+                   | set(FLOW_BLOCKMIN_SITES))
+    for b, nq, m, k, rec in sites:
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        blk = block_size(m, k, rec)
+        row = []
+        for v in ("thread", "warp")[k > THREAD_MAX_K:]:
+            t = device_ms(lambda: knn_blockmin(q, p, k, rec, v), reps=3,
+                          rounds=2)
+            row.append(f"{v} {t:.4f}")
+        log(f"knn_blockmin crossover ({b},{nq} q,{m} p,k={k},blk={blk}) "
+            f"device ms: {'; '.join(row)}; planned "
+            f"{blockmin_plan(k, b * nq, blk)[0]}")
 
 
 def flow_pool_sites(arch, npoint, b, iters, loc_flow_nn):
@@ -1296,7 +1534,7 @@ def check_pruned(report, gen):
     KNN (8192 x 8192, k 32) shapes, a ragged M = 5000 and k = 64 over blocks
     of 32 points: bit-equal to its plain version and to #2.  Timed beside
     the plain version and #2 ("general"); bound as #2's (the pairs in each
-    query's k-th-distance cube, 9 operations each, or the bytes); the
+    query's k-th-distance cube, D2_OPS operations each, or the bytes); the
     survivor share is the surviving (tile, block) pairs over all."""
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_pruned import (CB, QT, knn_exact_pruned,
@@ -1333,7 +1571,7 @@ def check_pruned(report, gen):
         pms = cuda_ms(lambda: knn_exact_pruned_plain(q, p, k, cb), 3)
         gms = cuda_ms(lambda: knn_exact(q, p, k), 10)
         pairs = box_pairs(q, p, d[..., -1])
-        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * 9)
+        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * D2_OPS)
         if calls:
             report.add("knn_exact_pruned", 0, ms, pms, bnd, by,
                        per_step=calls, general=gms)
@@ -1619,8 +1857,8 @@ def check_knn_cand(report, gen):
     settings on grid clouds, bit-equal to its plain version; timed (with
     its prologue) beside the plain version, #3 at the same shape (the
     bench's other arm, "general"), and #2's exact route; recall of #6 and
-    of #3 against #2 (a report, not a gate).  Bound: 8 f32 operations per
-    (query, candidate) pair the candidate blocks hold, or the bytes.  No
+    of #3 against #2 (a report, not a gate).  Bound: D2_OPS f32 operations
+    per (query, candidate) pair the candidate blocks hold, or the bytes.  No
     single PyTorch call computes it: no library time.  Weighted once per
     (shape, setting): one pass of the bench's calls."""
     from ogc_tpu_torch.ops.knn import knn_exact
@@ -1653,7 +1891,7 @@ def check_knn_cand(report, gen):
             pro_ms = cuda_ms(lambda: prologue(q, p, n_cand), 10)
             pms = cuda_ms(lambda: knn_cand_plain(q, p, k, bc, blk=blk), 3)
             bnd, by = bound_ms(B * ((N + M) * 12 + N * k * 8),
-                               B * N * n_cand * CB * 8)
+                               B * N * n_cand * CB * D2_OPS)
             report.add("knn_cand_pruned", 0, ms, pms, bnd, by, general=fms)
             log(f"knn_cand_pruned B{B} N{N} M{M} k{k} (n_cand {bc}, blk "
                 f"{blk}): idx and dist bit-equal to plain; kernel {ms:.4f} "
@@ -1710,13 +1948,16 @@ def check_kernels():
     fast_report, fast_eval_report = Report(), Report()
     check_blockmin(fast_report, gen, B, BLOCKMIN_SHAPES)
     check_blockmin(fast_eval_report, gen, BATCH, BLOCKMIN_SHAPES, ball=False)
+    check_blockmin_cases(gen)
+    blockmin_crossover(gen)
     for rep, what in ((fast_report, "fast train step"),
                       (fast_eval_report, "fast eval forward")):
         for name in rep.rows:
             e = rep.entry(name)
-            log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
-                f"{e['plain_ms']:.4f} ms, exact route {e['general_ms']:.4f} "
-                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            log(f"per {what}: {name} kernel {e['ms']:.4f} ms, device "
+                f"{e['device_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                f"exact route {e['general_ms']:.4f} ms, bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     log(f"-- SAPIEN path shapes (B={SAP_B} items x 2 or 4 frames x {SAP_N})")
     sapien = {"woinv": (Report(), 2), "full": (Report(), 4)}
     check_onehot(sapien, gen)
@@ -2779,8 +3020,8 @@ def main():
         f"(load {time.perf_counter() - t0:.3f} s): {_build.library_path()}")
 
     ptxas_report([osp.join(_build.CSRC_DIR, f)
-                  for f in ("fps.cu", "knn_exact.cu", "pool.cu",
-                            "scatter_add.cu")])
+                  for f in ("fps.cu", "knn_exact.cu", "knn_blockmin.cu",
+                            "ball_query.cu", "pool.cu", "scatter_add.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.
@@ -2862,7 +3103,7 @@ def main():
                            "ogc_tpu/ops/pallas_onehot.py:75"),
         "knn_blockmin": ("ogc_tpu_torch/csrc/knn_blockmin.cu",
                          "ogc_tpu/ops/pallas_knn.py:147"),
-        "ball_blockmin": ("ogc_tpu_torch/csrc/knn_blockmin.cu",
+        "ball_blockmin": ("ogc_tpu_torch/csrc/ball_query.cu",
                           "ogc_tpu/ops/pallas_knn.py:147"),
         "pool": ("ogc_tpu_torch/csrc/pool.cu",
                  "ogc_tpu/ops/pallas_pool.py:112"),

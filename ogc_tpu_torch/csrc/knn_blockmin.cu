@@ -1,88 +1,94 @@
-// Block-min approximate KNN and ball query on Hopper.
+// Block-min approximate KNN on Hopper.
 //
 // Replaces the Pallas TPU kernel ogc_tpu/ops/pallas_knn.py::_knn_kernel in
-// its thinned modes (entry points knn_blockmin and ball_query_blockmin; its
-// exact-ball mode, blk = 1, is served by ball_query.cu), plus the
-// ogc_tpu/ops/core.py::_fill_balls padding of the ball mode's output.
+// its thinned KNN mode (entry point knn_blockmin).  Its ball modes, thinned
+// (ball_query_blockmin) and exact (ball_query_exact, blk = 1), are served
+// by ball_query.cu.
 //
-// Contract (pallas_knn.py:147-312, :1402-1510).  The points are padded to
+// Contract (pallas_knn.py:147-312, :1402-1453).  The points are padded to
 // Mp = ceil(M / 1024) * 1024 with pad points at (1e6, 1e6, 1e6), split into
 // Mp / blk runs of blk consecutive candidates, and each run keeps ONE
-// winner.  d2 is the direct per-coordinate form ((dx*dx + dy*dy) + dz*dz),
-// dx = p - q, pinned with __fmul_rn/__fadd_rn against FMA contraction.
-//   KNN mode:  a run's winner is its minimum d2, ties to the lowest index;
-//     its int32 key is (bits(d2) & ~mask_low) | idx, mask_low =
-//     2^idx_bits - 1, idx_bits = max(1, bitlen(Mp - 1)).  Output: the k
-//     smallest keys ascending, as idx = key & mask_low and the TRUNCATED
-//     dist = sqrt(max(float(key & ~mask_low), 0)).
-//   Ball mode: a run's key is its lowest index with d2 < r2, or none.
-//     Valid keys rise with the run, so the output is the first ns valid run
-//     winners in run order, filled as the reference fills a ball (slots past
-//     the count repeat the first; an empty ball is all zeros).
+// winner: its minimum FULL d2, ties to the lowest index.  Its int32 key is
+// (bits(d2) & ~mask_low) | idx, mask_low = 2^idx_bits - 1, idx_bits =
+// max(1, bitlen(Mp - 1)); the minimum is taken before the truncation (two
+// candidates whose d2 agree above idx_bits keep the nearer one, not the
+// lower index).  Output: the k smallest keys ascending, as idx = key &
+// mask_low and the TRUNCATED dist = sqrt(max(float(key & ~mask_low), 0)).
+// d2 is the direct per-coordinate form of neighbors.cuh.  Keys are unique
+// (their low bits are the index) and >= 0, so they order as uint32.
 //
-// Design: one thread per query, a block of kThreads queries of one cloud;
-// candidates stream through shared-memory tiles of 1024 points (Mp is a
-// multiple of that, and blk divides it, so no run straddles two tiles).
-// KNN: a running run winner in registers, and a sorted list of KCAP >= k
-// int32 keys that takes a key only when it is below the current last entry
-// (keys are unique: their low bits are the index), by an unrolled
-// compare-and-swap pass.  Ball: a hit ends its run (the scan jumps to the
-// next run), a thread stops at ns hits, and a block stops once all its
-// threads have (__syncthreads_and).  No atomics: deterministic.
+// Two kernels; the host picks one (ops/knn_blockmin.py::blockmin_plan) and
+// passes it.  Both stream the candidates through shared-memory tiles of
+// 1024 (x, y, z, 0) entries (Mp is a multiple of that and blk divides it,
+// so no run straddles two tiles), and both template the run length blk.
+//
+// blockmin_thread_kernel (k <= 8 over many queries: every k = 3 site of
+// the paths): one thread per query, every thread of a block reading the
+// same entry (a broadcast, with an immediate offset); a run's winner in
+// registers, then a sorted list of KCAP = 4 or 8 keys that takes a key
+// only when it is below the last entry, by an unrolled compare-and-swap
+// pass.  At k = 3 a query inserts a few of its runs.
+//
+// blockmin_warp_kernel (every other search): one warp per two queries, 16
+// warps a block sharing the tiles.  Lane l takes runs l, l + 32, ... of a
+// tile and walks each run alone, so a run's minimum over (d2, index) stays
+// in its registers (reducing a run across lanes would cost log2(blk)
+// 64-bit shuffle-and-compare steps per candidate).  The tile is staged
+// with entry c at slot c ^ ((c / blk) & 7): the staging writes of 8
+// consecutive entries and a quarter-warp's reads of candidate t of 8
+// consecutive runs each touch 8 distinct 16-byte bank groups, so both are
+// conflict-free, and each lane keeps its swizzled offsets in registers, so
+// a load is a register plus an immediate.  Each loaded entry serves both
+// queries.  Up to four steps' run keys (one run a lane a step) are voted
+// against each query's k-th key at once; survivors go through
+// neighbors.cuh's warp selection (a ballot into a buffer of 64, merged by
+// a bitonic network into a list of k keys in shared memory), not a serial
+// k-step insertion that a warp runs whenever any lane inserts.  Two
+// queries a warp and 16 warps a block were the fastest of 1-4 queries and
+// 8-16 warps at every warp-kernel site (PERF.md §6).
 //
 // Bound on the H100: operations.  The function needs every (query,
-// candidate) pair of the KNN sweep, ~8 FP32 operations each (3 sub, 3 mul,
-// 2 add; the run minimum's compare besides): 16 x 8192 x 8192 pairs of the
-// smooth KNN are ~8.6 GFLOP, ~0.13 ms at 67 TFLOP/s.  Bytes are small (the
-// cloud, 96 KB, is read once per query block from L2).  Every thread of a
-// block reads the same shared-memory word (a broadcast), so the sweep runs
-// at the FP32 pipe's rate; the insertions are rare by comparison (a query
-// inserts ~k (1 + ln(G / k)) of its G run winners).  The ball mode stops
-// early: a full ball needs only the candidates up to its ns-th valid run.
+// candidate) pair, 8 FP32 operations each (3 sub, 3 mul, 2 add; the run
+// minimum's compare and selects besides): 16 x 2048 x 8192 pairs of SA0
+// are ~2.1 GFLOP, ~0.032 ms at 67 TFLOP/s.  Bytes are small (the cloud,
+// 96 KB, is read once per block from L2).  Both kernels issue ~11-12
+// instructions a pair (the compares and selects are not in the bound), so
+// the sweep alone runs at ~1/3 of the bound at best; the warp kernel adds
+// its selection, which grows with k.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "neighbors.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using ogc::d2_to;
+
+constexpr int kThreads = 128;  // thread kernel: queries per block
+constexpr int kWarps = 16;     // warp kernel: warps per block
+constexpr int kQueries = 2;    // warp kernel: queries per warp
 constexpr int kTile = 1024;
 constexpr float kPad = 1e6f;
 
-__device__ __forceinline__ float d2_rn(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
+// Entry j of the candidates [t0, t0 + kTile) of one cloud of M points;
+// indices >= M are pads.
+__device__ __forceinline__ float4 tile_entry(const float* __restrict__ p,
+                                             int M, int g) {
+  if (g >= M) return make_float4(kPad, kPad, kPad, 0.0f);
+  const float* pg = p + (size_t)g * 3;
+  return make_float4(pg[0], pg[1], pg[2], 0.0f);
 }
 
-// Stage candidates [t0, t0 + kTile) of one cloud; indices >= M are pads.
-__device__ __forceinline__ void load_tile(const float* __restrict__ p, int M,
-                                          int t0, float* tx, float* ty,
-                                          float* tz) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int g = t0 + j;
-    if (g < M) {
-      const float* pj = p + (size_t)g * 3;
-      tx[j] = pj[0];
-      ty[j] = pj[1];
-      tz[j] = pj[2];
-    } else {
-      tx[j] = kPad;
-      ty[j] = kPad;
-      tz[j] = kPad;
-    }
-  }
-}
-
-template <int KCAP>
+template <int KCAP, int BLK>
 __global__ void __launch_bounds__(kThreads)
-    knn_blockmin_kernel(const float* __restrict__ query,
-                        const float* __restrict__ points, int N, int M,
-                        int Mp, int k, int blk, int idx_bits,
-                        float* __restrict__ dist, int32_t* __restrict__ idx) {
-  __shared__ float tx[kTile];
-  __shared__ float ty[kTile];
-  __shared__ float tz[kTile];
+    blockmin_thread_kernel(const float* __restrict__ query,
+                           const float* __restrict__ points, int N, int M,
+                           int Mp, int k, int idx_bits,
+                           float* __restrict__ dist,
+                           int32_t* __restrict__ idx) {
+  __shared__ float4 tile[kTile];
 
   const int b = blockIdx.y;
   const int n = blockIdx.x * kThreads + threadIdx.x;
@@ -98,21 +104,22 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int t0 = 0; t0 < Mp; t0 += kTile) {
     __syncthreads();
-    load_tile(p, M, t0, tx, ty, tz);
+    for (int j = threadIdx.x; j < kTile; j += kThreads)
+      tile[j] = tile_entry(p, M, t0 + j);
     __syncthreads();
     if (!active) continue;
-    for (int g0 = 0; g0 < kTile; g0 += blk) {
-      float vmin = d2_rn(tx[g0] - qx, ty[g0] - qy, tz[g0] - qz);
-      int amin = g0;
-      for (int t = 1; t < blk; ++t) {
-        const int j = g0 + t;
-        const float d = d2_rn(tx[j] - qx, ty[j] - qy, tz[j] - qz);
+    for (int g0 = 0; g0 < kTile; g0 += BLK) {
+      float vmin = d2_to(tile[g0], qx, qy, qz);
+      int amin = 0;
+#pragma unroll
+      for (int t = 1; t < BLK; ++t) {
+        const float d = d2_to(tile[g0 + t], qx, qy, qz);
         if (d < vmin) {  // strict: ties keep the lower index
           vmin = d;
-          amin = j;
+          amin = t;
         }
       }
-      int32_t key = (__float_as_int(vmin) & ~mask_low) | (t0 + amin);
+      int32_t key = (__float_as_int(vmin) & ~mask_low) | (t0 + g0 + amin);
       if (key < keys[KCAP - 1]) {
 #pragma unroll
         for (int i = 0; i < KCAP; ++i) {
@@ -136,97 +143,192 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ball_blockmin_kernel(const float* __restrict__ points,
-                         const float* __restrict__ centres, int N, int M,
-                         int Np, int ns, int blk, float r2,
+// LPL: list entries per lane (k <= 32 * LPL).
+template <int LPL, int BLK>
+__global__ void __launch_bounds__(kWarps * 32)
+    blockmin_warp_kernel(const float* __restrict__ query,
+                         const float* __restrict__ points, int N, int M,
+                         int Mp, int k, int idx_bits,
+                         float* __restrict__ dist,
                          int32_t* __restrict__ idx) {
-  __shared__ float tx[kTile];
-  __shared__ float ty[kTile];
-  __shared__ float tz[kTile];
+  constexpr int S = kTile / (32 * BLK);  // steps (32 runs each) per tile
+  constexpr int V = S < 4 ? S : 4;       // steps per vote
+  static_assert(S % V == 0, "whole votes per tile");
+  constexpr int O = BLK < 8 ? BLK : 8;   // swizzled offsets per lane
+  __shared__ float4 tile[kTile];
+  __shared__ uint32_t lkey[kWarps * kQueries][32 * LPL];
+  __shared__ uint32_t bkey[kWarps * kQueries][ogc::kSelBuf];
 
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = m < M;
-  const float* c = centres + ((size_t)b * M + (active ? m : 0)) * 3;
-  const float cx = c[0], cy = c[1], cz = c[2];
-  const float* p = points + (size_t)b * N * 3;
-  int32_t* out = idx + ((size_t)b * M + (active ? m : 0)) * ns;
+  const int n0 = (blockIdx.x * kWarps + w) * kQueries;
+  const bool active = n0 < N;  // uniform over the warp
+  const float* p = points + (size_t)b * M * 3;
+  const uint32_t mask_low = (1u << idx_bits) - 1u;
+  float qx[kQueries], qy[kQueries], qz[kQueries];
+  uint32_t thr[kQueries];
+  int nv[kQueries], cnt[kQueries];
+#pragma unroll
+  for (int j = 0; j < kQueries; ++j) {
+    const int n = min(n0 + j, N - 1);
+    const float* q = query + ((size_t)b * N + max(n, 0)) * 3;
+    qx[j] = q[0];
+    qy[j] = q[1];
+    qz[j] = q[2];
+    // Keys strictly below thr survive: every key until the list holds k;
+    // none for a slot past the last query.
+    thr[j] = n0 + j < N ? 0xffffffffu : 0u;
+    nv[j] = 0;
+    cnt[j] = 0;
+  }
+  // Candidate t of this lane's run at step s sits at slot 32 * BLK * s +
+  // (t & ~7) + off[t & 7]: the run starts at (32 s + lane) * BLK, and the
+  // swizzle (run & 7 = lane & 7) changes only the low 3 bits of the slot.
+  // The offsets (in bytes) are computed once and kept opaque, so every
+  // load is a register plus an immediate.
+  uint32_t off[O];
+#pragma unroll
+  for (int j = 0; j < O; ++j) {
+    off[j] = (uint32_t)((lane * BLK + j) ^ (lane & 7)) * sizeof(float4);
+    asm volatile("" : "+r"(off[j]));
+  }
 
-  int cnt = 0;
-  int first = 0;
-  for (int t0 = 0; t0 < Np; t0 += kTile) {
-    // Also the barrier that keeps the previous tile alive until every
-    // thread is done with it.
-    if (__syncthreads_and(!active || cnt >= ns)) break;
-    load_tile(p, N, t0, tx, ty, tz);
+  for (int t0 = 0; t0 < Mp; t0 += kTile) {
     __syncthreads();
-    if (!active || cnt >= ns) continue;
-    for (int j = 0; j < kTile;) {
-      if (d2_rn(tx[j] - cx, ty[j] - cy, tz[j] - cz) < r2) {
-        if (cnt == 0) first = t0 + j;
-        out[cnt] = t0 + j;
-        if (++cnt == ns) break;
-        j = (j | (blk - 1)) + 1;  // the run has its winner: next run
-      } else {
-        ++j;
+    for (int c = threadIdx.x; c < kTile; c += kWarps * 32)
+      tile[c ^ ((c / BLK) & 7)] = tile_entry(p, M, t0 + c);
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll 1
+    for (int s0 = 0; s0 < S; s0 += V) {
+      uint32_t key[kQueries][V];
+      bool any[kQueries];
+#pragma unroll
+      for (int j = 0; j < kQueries; ++j) any[j] = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int base = (32 * (s0 + v) + lane) * BLK;  // this lane's run
+        const char* row =
+            reinterpret_cast<const char*>(tile + 32 * BLK * (s0 + v));
+        float vmin[kQueries];
+        int amin[kQueries];
+#pragma unroll
+        for (int j = 0; j < kQueries; ++j) {
+          vmin[j] = 0.0f;
+          amin[j] = 0;
+        }
+#pragma unroll
+        for (int t = 0; t < BLK; ++t) {
+          const float4 e = *reinterpret_cast<const float4*>(
+              row + off[t & 7] + (t & ~7) * sizeof(float4));
+#pragma unroll
+          for (int j = 0; j < kQueries; ++j) {
+            const float d = d2_to(e, qx[j], qy[j], qz[j]);
+            if (t == 0 || d < vmin[j]) {  // strict: ties keep the lower
+              vmin[j] = d;
+              amin[j] = t;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kQueries; ++j) {
+          key[j][v] = (__float_as_uint(vmin[j]) & ~mask_low) |
+                      (uint32_t)(t0 + base + amin[j]);
+          any[j] |= key[j][v] < thr[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kQueries; ++j) {
+        // The threshold only falls, so a vote with no key below it has
+        // nothing to keep, and most end here once the list is full.
+        if (!__any_sync(0xffffffffu, any[j])) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          ogc::warp_offer<LPL, false>(key[j][v], 0, lkey[w * kQueries + j], nullptr,
+                                      bkey[w * kQueries + j], nullptr, cnt[j],
+                                      nv[j], k, thr[j], lane);
       }
     }
   }
   if (!active) return;
-  for (int s = cnt; s < ns; ++s) out[s] = first;
+#pragma unroll
+  for (int j = 0; j < kQueries; ++j) {
+    const int n = n0 + j;
+    if (n >= N) break;
+    uint32_t* lk = lkey[w * kQueries + j];
+    if (cnt[j] > 0)
+      ogc::warp_merge<LPL, false>(lk, nullptr, bkey[w * kQueries + j], nullptr,
+                                  cnt[j], nv[j], k, thr[j], lane);
+    float* od = dist + ((size_t)b * N + n) * k;
+    int32_t* oi = idx + ((size_t)b * N + n) * k;
+#pragma unroll
+    for (int t = 0; t < LPL; ++t) {
+      const int i = lane + 32 * t;
+      if (i < k) {
+        const uint32_t key = lk[i];
+        oi[i] = (int32_t)(key & mask_low);
+        od[i] = sqrtf(fmaxf(__uint_as_float(key & ~mask_low), 0.0f));
+      }
+    }
+  }
 }
 
-template <int KCAP>
-cudaError_t launch_knn(const float* q, const float* p, int B, int N, int M,
-                       int Mp, int k, int blk, int idx_bits, float* d,
-                       int32_t* i, cudaStream_t stream) {
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  knn_blockmin_kernel<KCAP><<<grid, kThreads, 0, stream>>>(
-      q, p, N, M, Mp, k, blk, idx_bits, d, i);
-  return cudaGetLastError();
+struct Args {
+  const float* q;
+  const float* p;
+  int B, N, M, Mp, k, idx_bits;
+  float* d;
+  int32_t* i;
+  cudaStream_t s;
+};
+
+template <int KCAP, int BLK>
+int launch_thread(const Args& a) {
+  const dim3 grid((a.N + kThreads - 1) / kThreads, a.B);
+  blockmin_thread_kernel<KCAP, BLK><<<grid, kThreads, 0, a.s>>>(
+      a.q, a.p, a.N, a.M, a.Mp, a.k, a.idx_bits, a.d, a.i);
+  return (int)cudaGetLastError();
 }
 
-bool valid_blk(int blk, int Mp) {
-  return blk >= 1 && blk <= kTile && (blk & (blk - 1)) == 0 &&
-         Mp % kTile == 0;
+template <int LPL, int BLK>
+int launch_warp(const Args& a) {
+  const int per_block = kWarps * kQueries;
+  const dim3 grid((a.N + per_block - 1) / per_block, a.B);
+  blockmin_warp_kernel<LPL, BLK><<<grid, kWarps * 32, 0, a.s>>>(
+      a.q, a.p, a.N, a.M, a.Mp, a.k, a.idx_bits, a.d, a.i);
+  return (int)cudaGetLastError();
+}
+
+template <int BLK>
+int launch_blk(const Args& a, int warp, int cap) {
+  if (!warp && cap == 4) return launch_thread<4, BLK>(a);
+  if (!warp && cap == 8) return launch_thread<8, BLK>(a);
+  if (warp && cap == 32) return launch_warp<1, BLK>(a);
+  if (warp && cap == 64) return launch_warp<2, BLK>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // query (B, N, 3), points (B, M, 3) f32 contiguous; dist (B, N, k) f32 and
-// idx (B, N, k) int32.  Mp = ceil(M / 1024) * 1024, blk a power of two,
-// idx_bits = max(1, bitlen(Mp - 1)), 1 <= k <= 64 and ceil(M / blk) >= k.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// idx (B, N, k) int32.  Mp = ceil(M / 1024) * 1024, blk in {4, 8, 16, 32},
+// idx_bits = max(1, bitlen(Mp - 1)), ceil(M / blk) >= k.  warp = 0: one
+// thread per query, cap (4 or 8) >= k; warp = 1: one warp per two queries,
+// cap (32 or 64) >= k.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 extern "C" int ogc_knn_blockmin(const void* query, const void* points, int B,
                                 int N, int M, int Mp, int k, int blk,
-                                int idx_bits, void* dist, void* idx,
-                                void* stream) {
-  if (!valid_blk(blk, Mp) || k < 1 || (M + blk - 1) / blk < k)
+                                int idx_bits, int warp, int cap, void* dist,
+                                void* idx, void* stream) {
+  if (k < 1 || k > cap || Mp % kTile != 0 || (M + blk - 1) / blk < k)
     return (int)cudaErrorInvalidValue;
-  const float* q = (const float*)query;
-  const float* p = (const float*)points;
-  float* d = (float*)dist;
-  int32_t* i = (int32_t*)idx;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 4) return (int)launch_knn<4>(q, p, B, N, M, Mp, k, blk, idx_bits, d, i, s);
-  if (k <= 8) return (int)launch_knn<8>(q, p, B, N, M, Mp, k, blk, idx_bits, d, i, s);
-  if (k <= 16) return (int)launch_knn<16>(q, p, B, N, M, Mp, k, blk, idx_bits, d, i, s);
-  if (k <= 32) return (int)launch_knn<32>(q, p, B, N, M, Mp, k, blk, idx_bits, d, i, s);
-  if (k <= 64) return (int)launch_knn<64>(q, p, B, N, M, Mp, k, blk, idx_bits, d, i, s);
+  const Args a{(const float*)query, (const float*)points, B, N, M, Mp, k,
+               idx_bits, (float*)dist, (int32_t*)idx, (cudaStream_t)stream};
+  switch (blk) {
+    case 4: return launch_blk<4>(a, warp, cap);
+    case 8: return launch_blk<8>(a, warp, cap);
+    case 16: return launch_blk<16>(a, warp, cap);
+    case 32: return launch_blk<32>(a, warp, cap);
+  }
   return (int)cudaErrorInvalidValue;
-}
-
-// points (B, N, 3), centres (B, M, 3) f32 contiguous; idx (B, M, ns) int32,
-// the filled balls.  Np = ceil(N / 1024) * 1024, blk a power of two,
-// ns >= 1.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int ogc_ball_blockmin(const void* points, const void* centres,
-                                 int B, int N, int M, int Np, int ns, int blk,
-                                 float r2, void* idx, void* stream) {
-  if (!valid_blk(blk, Np) || ns < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  ball_blockmin_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)points, (const float*)centres, N, M, Np, ns, blk, r2,
-      (int32_t*)idx);
-  return (int)cudaGetLastError();
 }

@@ -56,21 +56,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "neighbors.cuh"
+
 namespace {
+
+using ogc::d2_to;
 
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;
-
-__device__ __forceinline__ float d2_rn(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// Candidate j of the tile as (x, y, z, 0): one 16-byte shared-memory load.
-__device__ __forceinline__ float d2_to(const float4& c, float qx, float qy,
-                                       float qz) {
-  return d2_rn(c.x - qx, c.y - qy, c.z - qz);
-}
 
 // Stage candidates t0 .. t0 + n - 1 of p into the tile, nthreads threads.
 __device__ __forceinline__ void stage_tile(float4* tile, const float* p,
@@ -145,82 +138,8 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kWarps = 8;       // queries (warps) per block
 constexpr int kWarpTile = 1024; // candidates per shared-memory tile
-constexpr int kBuf = 64;        // survivor buffer per warp
 constexpr int kSteps = 4;       // steps of 32 candidates per vote
 static_assert(kWarpTile % (32 * kSteps) == 0, "whole groups per tile");
-
-// Merge the u survivors bk/bi (index order) into the sorted list lk/li of
-// nv <= k entries; keep the k smallest keys; update nv and the threshold.
-template <int LPL>
-__device__ __forceinline__ void warp_merge(uint32_t* lk, int32_t* li,
-                                           const uint32_t* bk,
-                                           const int32_t* bi, int u, int& nv,
-                                           int k, uint32_t& thr, int lane) {
-  constexpr int BPL = kBuf / 32;
-  __syncwarp();
-  uint32_t kb[BPL];
-  int32_t ib[BPL];
-  int rb[BPL];
-#pragma unroll
-  for (int t = 0; t < BPL; ++t) {
-    const int pos = lane + 32 * t;
-    kb[t] = 0xffffffffu;
-    ib[t] = 0;
-    rb[t] = k;  // an empty slot: its rank stays >= k, it is never written
-    if (pos < u) {
-      kb[t] = bk[pos];
-      ib[t] = bi[pos];
-      int lo = 0, hi = nv;  // list keys <= kb[t] come first
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (lk[mid] <= kb[t])
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      rb[t] = lo;
-    }
-  }
-  uint32_t kl[LPL];
-  int32_t il[LPL];
-  int rl[LPL];
-#pragma unroll
-  for (int t = 0; t < LPL; ++t) {
-    const int j = lane + 32 * t;
-    kl[t] = 0;
-    il[t] = 0;
-    rl[t] = k;
-    if (j < nv) {
-      kl[t] = lk[j];
-      il[t] = li[j];
-      rl[t] = j;
-    }
-  }
-  for (int i = 0; i < u; ++i) {
-    const uint32_t v = bk[i];
-#pragma unroll
-    for (int t = 0; t < BPL; ++t)
-      rb[t] += (v < kb[t]) | ((v == kb[t]) & (i < lane + 32 * t));
-#pragma unroll
-    for (int t = 0; t < LPL; ++t) rl[t] += v < kl[t];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < BPL; ++t)
-    if (rb[t] < k) {
-      lk[rb[t]] = kb[t];
-      li[rb[t]] = ib[t];
-    }
-#pragma unroll
-  for (int t = 0; t < LPL; ++t)
-    if (rl[t] < k) {
-      lk[rl[t]] = kl[t];
-      li[rl[t]] = il[t];
-    }
-  __syncwarp();
-  nv = min(nv + u, k);
-  if (nv == k) thr = lk[k - 1];
-}
 
 // LPL: list entries per lane, k <= 32 * LPL.
 template <int LPL>
@@ -231,8 +150,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   __shared__ float4 tile[kWarpTile];
   __shared__ uint32_t lkey[kWarps][32 * LPL];
   __shared__ int32_t lidx[kWarps][32 * LPL];
-  __shared__ uint32_t bkey[kWarps][kBuf];
-  __shared__ int32_t bidx[kWarps][kBuf];
+  __shared__ uint32_t bkey[kWarps][ogc::kSelBuf];
+  __shared__ int32_t bidx[kWarps][ogc::kSelBuf];
 
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.y;
@@ -245,7 +164,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   int32_t* li = lidx[w];
   uint32_t* bk = bkey[w];
   int32_t* bi = bidx[w];
-  const unsigned below = (1u << lane) - 1;
   // Keys strictly below thr survive: every key (a masked lane's is
   // 0xffffffff) until the list holds k.
   uint32_t thr = 0xffffffffu;
@@ -272,24 +190,14 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
       if (!__any_sync(0xffffffffu, any)) continue;
 #pragma unroll
-      for (int u = 0; u < kSteps; ++u) {
-        const bool pass = key[u] < thr;
-        const unsigned mask = __ballot_sync(0xffffffffu, pass);
-        if (pass) {
-          const int pos = cnt + __popc(mask & below);
-          bk[pos] = key[u];
-          bi[pos] = t0 + j0 + 32 * u + lane;
-        }
-        cnt += __popc(mask);
-        if (cnt > kBuf - 32) {
-          warp_merge<LPL>(lk, li, bk, bi, cnt, nv, k, thr, lane);
-          cnt = 0;
-        }
-      }
+      for (int u = 0; u < kSteps; ++u)
+        ogc::warp_offer<LPL, true>(key[u], t0 + j0 + 32 * u + lane, lk, li,
+                                   bk, bi, cnt, nv, k, thr, lane);
     }
   }
   if (!active) return;
-  if (cnt > 0) warp_merge<LPL>(lk, li, bk, bi, cnt, nv, k, thr, lane);
+  if (cnt > 0)
+    ogc::warp_merge<LPL, true>(lk, li, bk, bi, cnt, nv, k, thr, lane);
   float* od = dist + ((size_t)b * N + n) * k;
   int32_t* oi = idx + ((size_t)b * N + n) * k;
 #pragma unroll

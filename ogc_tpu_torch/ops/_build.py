@@ -45,9 +45,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ogc_fps": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "ogc_knn_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ogc_ball_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "ogc_knn_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P],
     "ogc_scatter_csr": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_scatter_accumulate": [_P, _P, _P, _I, _I, _I, _P, _P],
     "ogc_scatter_add_rows": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -6,7 +6,9 @@ exact-ball mode of ::_knn_kernel), plus the ``_fill_balls`` padding that
 ogc_tpu/ops/core.py applies to their output: both versions return the filled
 ball.  ``ball_query_exact`` routes by the tensors' device: CPU tensors take
 ``ball_query_plain``; CUDA tensors launch the kernel or raise.
-``ball_query_exact.launches`` counts kernel launches.
+``ball_query_exact.launches`` counts kernel launches.  The kernel also
+serves the block-min ball query (ops/knn_blockmin.py) with runs of ``blk``
+candidates; ``launch_ball`` launches it for both.
 """
 
 from __future__ import annotations
@@ -61,17 +63,13 @@ def ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     return fill_balls(cand, nsample, N)
 
 
-def ball_query_exact(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
-                     nsample: int) -> torch.Tensor:
-    """The nsample lowest in-radius indices (strict d2 < r^2) of each
-    centre, filled as the reference fills them: (B, M, nsample) int32."""
-    if xyz.device.type == "cpu" and new_xyz.device.type == "cpu":
-        return ball_query_plain(xyz, new_xyz, radius, nsample)
-    check_clouds("ball_query_exact", xyz, new_xyz, "xyz", "new_xyz")
+def launch_ball(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
+                nsample: int, blk: int, n_pad: int) -> torch.Tensor:
+    """Launch csrc/ball_query.cu on CUDA tensors: runs of ``blk`` candidates
+    (1: the exact ball), the points padded to ``n_pad`` (= N when exact)
+    with points at 1e6.  Returns the filled balls (B, M, nsample) int32."""
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
-    if nsample < 1:
-        raise ValueError(f"ball_query_exact: nsample={nsample} must be >= 1")
     xyz = xyz.contiguous()
     new_xyz = new_xyz.contiguous()
     idx = _build.empty((B, M, nsample), torch.int32, xyz.device)
@@ -79,10 +77,24 @@ def ball_query_exact(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
         return idx
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     err = _build.lib().ogc_ball_query(
-        xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, nsample,
+        xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, n_pad, nsample, blk,
         radius_sq(radius), idx.data_ptr(), stream)
     _build.check(err, "ogc_ball_query")
-    ball_query_exact.launches += 1
+    return idx
+
+
+def ball_query_exact(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
+                     nsample: int) -> torch.Tensor:
+    """The nsample lowest in-radius indices (strict d2 < r^2) of each
+    centre, filled as the reference fills them: (B, M, nsample) int32."""
+    if xyz.device.type == "cpu" and new_xyz.device.type == "cpu":
+        return ball_query_plain(xyz, new_xyz, radius, nsample)
+    check_clouds("ball_query_exact", xyz, new_xyz, "xyz", "new_xyz")
+    if nsample < 1:
+        raise ValueError(f"ball_query_exact: nsample={nsample} must be >= 1")
+    idx = launch_ball(xyz, new_xyz, radius, nsample, 1, xyz.shape[1])
+    if idx.numel():
+        ball_query_exact.launches += 1
     return idx
 
 

@@ -1,5 +1,6 @@
-"""Block-min approximate KNN and ball query: the CUDA kernel
-(csrc/knn_blockmin.cu) and its plain PyTorch version.
+"""Block-min approximate KNN and ball query: the CUDA kernels
+(csrc/knn_blockmin.cu; the ball mode in csrc/ball_query.cu) and their plain
+PyTorch versions.
 
 Replaces ogc_tpu/ops/pallas_knn.py::_knn_kernel in its thinned modes (entry
 points ``knn_blockmin`` and ``ball_query_blockmin``), plus the
@@ -8,29 +9,45 @@ output: both versions here return the filled ball.  The candidates are
 padded to a multiple of 1024 with points at 1e6 and cut into runs of
 ``blk``; each run keeps one winner.  KNN keys pack a run's minimum d2 and
 its index into one int32 (the d2's low ``idx_bits`` bits give way to the
-index), so the returned distances are the truncated ones the JAX package
-returns, and callers (the radius clamps, the interpolation weights) use
-them as they are.
+index, after the minimum over the full d2), so the returned distances are
+the truncated ones the JAX package returns, and callers (the radius
+clamps, the interpolation weights) use them as they are.
 
 The wrappers route by the tensors' device: CPU tensors take the plain
 versions; CUDA tensors launch the kernel or raise.  ``knn_blockmin.launches``
 and ``ball_query_blockmin.launches`` count kernel launches.
+``blockmin_plan`` picks the KNN kernel: one thread per query with a
+register list for k up to ``THREAD_MAX_K`` over at least
+``THREAD_MIN_QUERIES`` queries, else one warp per two queries (lanes own
+whole runs; the warp selection of csrc/neighbors.cuh).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ogc_tpu_torch.ops import _build
-from ogc_tpu_torch.ops.ball import fill_balls, radius_sq
+from ogc_tpu_torch.ops.ball import fill_balls, launch_ball, radius_sq
 from ogc_tpu_torch.ops.knn import check_clouds, pair_d2
 
 MAX_K = 64
 TILE = 1024       # candidate padding (pallas_knn.py::_TM)
 PAD = 1e6         # pad point coordinate (pallas_knn.py:1443)
 BALL_INVALID = 2 ** 30  # a run with no in-radius point (pallas_knn.py:65)
+#: The run lengths block_size gives (and the kernels are compiled for).
+BLKS = (4, 8, 16, 32)
+#: The thread kernel takes k <= THREAD_MAX_K over at least
+#: THREAD_MIN_QUERIES queries (B x N); the warp kernel (two queries a warp)
+#: takes the rest.  The crossover measured on the H100 (chip_smoke.py's
+#: blockmin_crossover) is in PERF.md.
+THREAD_MAX_K = 8
+THREAD_MIN_QUERIES = 16384
+#: List capacities the kernels are compiled for: the thread kernel's
+#: register list, and the warp kernel's k <= 32 or k <= 64.
+THREAD_KCAP = (4, 8)
+WARP_KCAP = (32, 64)
 
 
 def pick_block(m: int, k: int, recall_target: float = 0.95) -> int:
@@ -128,10 +145,33 @@ def ball_query_blockmin_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
     return fill_balls(torch.cat(cands, 1), nsample, BALL_INVALID)
 
 
+def blockmin_plan(k: int, queries: int, blk: int,
+                  variant: Optional[str] = None) -> Tuple[str, int]:
+    """(kernel, list capacity) for k over ``queries`` (B x N) queries in
+    runs of ``blk``: ``"thread"`` for k <= THREAD_MAX_K over >=
+    THREAD_MIN_QUERIES queries, else ``"warp"``, unless ``variant`` names
+    one."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"blockmin_plan: k={k} outside 1..{MAX_K}")
+    if blk not in BLKS:
+        raise ValueError(f"blockmin_plan: blk={blk} not in {BLKS}")
+    variant = variant or (
+        "thread" if k <= THREAD_MAX_K and queries >= THREAD_MIN_QUERIES
+        else "warp")
+    caps = {"thread": THREAD_KCAP, "warp": WARP_KCAP}[variant]
+    if k > caps[-1]:
+        raise ValueError(f"blockmin_plan: the {variant} kernel takes k <= "
+                         f"{caps[-1]}, not {k}")
+    return variant, next(c for c in caps if k <= c)
+
+
 def knn_blockmin(query: torch.Tensor, points: torch.Tensor, k: int,
-                 recall_target: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                 recall_target: float, variant: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-min approximate KNN of ``query`` (B, N, 3) in ``points``
-    (B, M, 3): (dist, idx), each (B, N, k), ascending by key."""
+    (B, M, 3): (dist, idx), each (B, N, k), ascending by key.  ``variant``
+    (``"thread"`` or ``"warp"``) overrides ``blockmin_plan``'s kernel on the
+    card."""
     if query.device.type == "cpu" and points.device.type == "cpu":
         return knn_blockmin_plain(query, points, k, recall_target)
     check_clouds("knn_blockmin", query, points, "query", "points")
@@ -140,6 +180,7 @@ def knn_blockmin(query: torch.Tensor, points: torch.Tensor, k: int,
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_blockmin: k={k} must be in 1..{MAX_K}")
     blk = block_size(M, k, recall_target)
+    kernel, cap = blockmin_plan(k, B * N, blk, variant)
     mp = -(-M // TILE) * TILE
     query = query.contiguous()
     points = points.contiguous()
@@ -150,8 +191,8 @@ def knn_blockmin(query: torch.Tensor, points: torch.Tensor, k: int,
     stream = torch.cuda.current_stream(query.device).cuda_stream
     err = _build.lib().ogc_knn_blockmin(
         query.data_ptr(), points.data_ptr(), B, N, M, mp, k, blk,
-        max(1, (mp - 1).bit_length()), dist.data_ptr(), idx.data_ptr(),
-        stream)
+        max(1, (mp - 1).bit_length()), int(kernel == "warp"), cap,
+        dist.data_ptr(), idx.data_ptr(), stream)
     _build.check(err, "ogc_knn_blockmin")
     knn_blockmin.launches += 1
     return dist, idx
@@ -165,23 +206,14 @@ def ball_query_blockmin(xyz: torch.Tensor, new_xyz: torch.Tensor,
     if xyz.device.type == "cpu" and new_xyz.device.type == "cpu":
         return ball_query_blockmin_plain(xyz, new_xyz, radius, nsample)
     check_clouds("ball_query_blockmin", xyz, new_xyz, "xyz", "new_xyz")
-    B, N, _ = xyz.shape
-    M = new_xyz.shape[1]
+    N = xyz.shape[1]
     if nsample < 1:
         raise ValueError(f"ball_query_blockmin: nsample={nsample} must be "
                          f">= 1")
-    blk = block_size(N, nsample, 0.95)
-    xyz = xyz.contiguous()
-    new_xyz = new_xyz.contiguous()
-    idx = _build.empty((B, M, nsample), torch.int32, xyz.device)
-    if B * M == 0:
-        return idx
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = _build.lib().ogc_ball_blockmin(
-        xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, -(-N // TILE) * TILE,
-        nsample, blk, radius_sq(radius), idx.data_ptr(), stream)
-    _build.check(err, "ogc_ball_blockmin")
-    ball_query_blockmin.launches += 1
+    idx = launch_ball(xyz, new_xyz, radius, nsample,
+                      block_size(N, nsample, 0.95), -(-N // TILE) * TILE)
+    if idx.numel():
+        ball_query_blockmin.launches += 1
     return idx
 
 

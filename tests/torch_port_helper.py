@@ -547,6 +547,65 @@ def _case_plans(x, cfg, state):
     return {"pool_plans": np.array(pools), "knn_plans": np.array(knns)}
 
 
+def _case_blockmin_select(x, cfg, state):
+    """#3's KNN on CPU tensors (knn_blockmin_plain) for every case, and
+    ops/knn_blockmin.py::blockmin_plan at every #3 KNN site chip_smoke.py
+    drives, as (k, queries, blk, warp, cap) rows."""
+    import torch
+
+    import chip_smoke as cs
+    from ogc_tpu_torch.ops.knn_blockmin import (block_size, blockmin_plan,
+                                                knn_blockmin)
+    from ogc_tpu_torch.ops.knn_pruned import RECALL
+    from ogc_tpu_torch.tools.bench_knn_pruned import CASES
+
+    out = {}
+    for name, (k, recall) in cfg["cases"].items():
+        d, i = knn_blockmin(torch.from_numpy(x[name + "/q"]),
+                            torch.from_numpy(x[name + "/p"]), k, recall)
+        out[name + "/dist"], out[name + "/idx"] = d.numpy(), i.numpy()
+    # (clouds, queries, points, k, recall): the fast step's and eval's
+    # model sites, the smooth KNN, check_blockmin's ragged cases, the
+    # approximate flow forward's, bench_knn_pruned's, and #4's pre-pass
+    # on the flow forward (gates on).
+    sites = [(b, nq, m, k, rec) for b in (16, 8)
+             for nq, m, k, rec in cs.BLOCKMIN_SHAPES]
+    sites += [(cs.TRAIN_B, cs.N_POINT, cs.N_POINT, cs.SMOOTH_K, 0.95),
+              (2, 1500, 1500, 16, 0.95), (2, 1500, 1500, 3, 0.99)]
+    sites += cs.FLOW_BLOCKMIN_SITES
+    sites += [(b, n, m, k, 0.95) for b, n, m, k, _ in CASES]
+    sites += [(b, nq, m, 32, RECALL) for b in (2 * cs.FLOW_B, cs.FLOW_B)
+              for nq, m in ((4096, 8192), (2048, 4096))]
+    rows = []
+    for b, nq, m, k, rec in sites:
+        blk = block_size(m, k, rec)
+        kernel, cap = blockmin_plan(k, b * nq, blk)
+        rows.append([k, b * nq, blk, int(kernel == "warp"), cap])
+    out["plans"] = np.array(rows)
+    return out
+
+
+def _case_ball_select(x, cfg, state):
+    """The exact ball (ball_query_plain) and the block-min ball
+    (ball_query_blockmin_plain) on CPU tensors for every case, with the
+    block-min run length."""
+    import torch
+
+    from ogc_tpu_torch.ops.ball import ball_query_exact
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                block_size)
+
+    out = {}
+    for name, (radius, ns) in cfg["cases"].items():
+        xyz = torch.from_numpy(x[name + "/xyz"])
+        c = torch.from_numpy(x[name + "/centres"])
+        out[name + "/exact"] = ball_query_exact(xyz, c, radius, ns).numpy()
+        out[name + "/blockmin"] = ball_query_blockmin(xyz, c, radius,
+                                                      ns).numpy()
+        out[name + "/blk"] = np.array(block_size(xyz.shape[1], ns, 0.95))
+    return out
+
+
 def _case_fps_select(x, cfg, state):
     """FPS on CPU tensors (fps_plain) for every cloud of the case, and
     ops/fps.py::fps_plan for every N of ``cfg["plan_n"]`` as (N, ppt,
@@ -787,6 +846,8 @@ CASES = {
     "knn_select": _case_knn_select,
     "plans": _case_plans,
     "fps_select": _case_fps_select,
+    "blockmin_select": _case_blockmin_select,
+    "ball_select": _case_ball_select,
     "scatter_csr": _case_scatter_csr,
     "pruned": _case_pruned,
     "flownet": _case_flownet,
