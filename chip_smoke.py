@@ -5,7 +5,7 @@
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc, and
    prints ptxas's registers, shared memory and spills for #1's, #2's,
-   #3's, #5's, #11's and #12's.
+   #3's, #5's, #7's to #11's and #12's.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
    card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
@@ -33,7 +33,12 @@
    SAPIEN path (B=32 items x 2 or 4 frames x 512, 1/64 grid):
    the small-source gather at SA0's two scales (C 6, 256 x 64 rows) and at
    the smooth KNN and ball groups (C 8, 4096 / 8192 rows), and the
-   small-source scatter at the smooth groups, also bit-equal to #11.
+   small-source scatter (#8) at the smooth groups with int32 and int64 idx,
+   also bit-equal to #11, each timed by single call and device time beside
+   #11 and index_add_; #8 also at its edge cases (a hub of in-degree 1200,
+   empty destinations, one destination, E 16421, n 1 and 1024, B 1, C
+   1..16) at the plan's window and at 32, 64 and 256 rows, and every window
+   timed at the smooth groups (the crossover onehot_scatter_plan follows).
    #2 is also timed by device time (device_ms), its edge cases (every k
    from 1 to 64 over a ragged M, M < 32 with k = M, N 1001 x M 1025 at B
    16 on a 1/64 grid, tied rows, one site) hold its kernels (thread and
@@ -70,8 +75,8 @@
    leaf.
 5. Profile: torch.profiler over 3 warm train steps, all terms on; prints
    the device's busy share of the steps, the device time of #1's, #2's,
-   #3's, #5's, #11's and #12's kernels, and the operators and kernels that
-   take the most device time.
+   #3's, #5's, #8's, #10's, #11's and #12's kernels, and the operators and
+   kernels that take the most device time.
 6. Eval phase: ogc_tpu_torch.test_seg.main on the 100 ids of
    data_prepare/kittisf/splits/val.txt with the checkpoint the train phase
    wrote (25 batches of 8); asserts 3 FPS and 6 KNN launches per batch,
@@ -134,14 +139,20 @@ path's tables (sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11),
 SAPIEN's, a ragged N with an odd S and a uniform table (every 256-row tile
 reaches 64 blocks), #9 bit-equal to advanced indexing with the presence it
 writes equal to bs_prologue's, #10 fed that presence bit-equal to its plain
-version and #11, with the blocks per tile, and #9 at every C from 1 to 16 from
-an aligned and an unaligned source; #7 also at every C from 1 to 16, N 1 and
+version and #11 (timed by single call and device time beside #11 and
+index_add_), with the blocks per tile, #10 also on its edge cases (a hub,
+empty destinations, one destination, n 1, two pieces a unit, C 1..16) with
+#9's presence and with bs_prologue's, and #9 at every C from 1 to 16 from an
+aligned and an
+unaligned source; #7 also at every C from 1 to 16, N 1 and
 1024 and a ragged E; #7 and #9 timed by single call and by device time beside
 torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
 grid clouds, bit-equal to its plain version, beside #3 and #2 with its recall.
 
-``parent_ab(root)`` (not run by main) times #1, #11, #3 and #5 of another
-checkout of the port the same way, for an A/B on one card.
+``parent_ab(root)`` (not run by main) times #1, #11, #3, #5, #8 and #10 of
+a checkout of the port the same way (#8 and #10 on inputs of their own
+seed, through scatter_ab): run on the parent's checkout and on this tree's,
+in one call, it gives an A/B on one card.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -384,9 +395,9 @@ SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
                          gather_onehot=SAP_FLOW_ITERS)
 
 
-# The symbols of #1's, #2's, #3's, #5's, #11's and #12's kernels, summed per
-# call in every profile (#3's ball mode and #5 are instances of one
-# template, ball_kernel<blk>; #5's blk is 1).
+# The symbols of #1's, #2's, #3's, #5's, #8's, #10's, #11's and #12's
+# kernels, summed per call in every profile (#3's ball mode and #5 are
+# instances of one template, ball_kernel<blk>; #5's blk is 1).
 PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                     "#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
                     "#3 knn_blockmin": ("blockmin_thread_kernel",
@@ -394,6 +405,9 @@ PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                     "#3 ball_blockmin": tuple(f"ball_kernel<{blk}>" for blk
                                               in (4, 8, 16, 32)),
                     "#5 ball_query": ("ball_kernel<1>",),
+                    "#8 scatter_onehot": ("scatter_rows_kernel",),
+                    "#10 partition": ("bs_partition_kernel",),
+                    "#10 sums": ("bs_accumulate_kernel",),
                     "#11 scatter_add": ("csr_count_kernel", "csr_scan_kernel",
                                         "csr_place_kernel",
                                         "accumulate_warp_kernel",
@@ -950,16 +964,7 @@ def check_scatter(report, gen):
                                                     other))
         sort = device_ms(lambda: segments(flat, n_dest))
         pms = cuda_ms(lambda: scatter_add_rows_plain(flat, g, n_dest), 3)
-        key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n_dest
-               ).reshape(-1)
-        rows = g.reshape(-1, C)
-        out = torch.zeros((b * n_dest, C), device="cuda")
-        lib = cuda_ms(lambda: out.zero_().index_add_(0, key, rows), 20)
-        try:
-            ldev = device_ms(lambda: out.zero_().index_add_(0, key, rows))
-        except RuntimeError as e:  # not capturable in a CUDA graph
-            ldev = None
-            log(f"index_add_ device time not measured: {str(e)[:120]}")
+        lib, ldev = index_add_ms(flat, g, n_dest)
         bnd, by = bound_ms(b * (R * C * 4 + R * 4 + n_dest * C * 4),
                            b * R * C)
         report.add("scatter_add", 0, ms, pms, bnd, by, lib, per_step=calls,
@@ -970,8 +975,7 @@ def check_scatter(report, gen):
             f"CSR = segments'; single call {ms:.4f} ms, index_add_ {lib:.4f} "
             f"ms; device {dev:.4f} ms (CSR {csr:.4f}, accumulate "
             f"{accumulate_plan(C)} {acc:.4f}; {other} {oacc:.4f}), "
-            f"index_add_ {'not measured' if ldev is None else f'{ldev:.4f}'}"
-            f" ms; torch prologue (segments) {sort:.4f} ms; plain {pms:.4f} "
+            f"index_add_ {fmt_ms(ldev)} ms; torch prologue (segments) {sort:.4f} ms; plain {pms:.4f} "
             f"ms, bound {bnd:.4f} ms ({by})")
     x = grid_cloud(gen, 2, 1500)
     _, i = knn(16, x, x)
@@ -994,14 +998,70 @@ def check_scatter(report, gen):
         "kernels: bit-equal")
 
 
+def scatter_ab(label):
+    """#8 at SAPIEN's smooth KNN and ball groups (32 clouds of 512 points,
+    C 8; 4 calls each per full step) and #10 at the mxu KITTI-SF table (4
+    sorted scenes x 8192 x 96, C 11, #9's presence; 4 calls per mxu step),
+    each beside #11 on the same inputs, by single call and device time,
+    on inputs made from a seed of their own: the same in every tree, so
+    ``parent_ab`` on two checkouts times the same work."""
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, mxu_tables
+    from ogc_tpu_torch.ops import blocksparse as bs
+    from ogc_tpu_torch.ops.onehot import scatter_add_rows_onehot
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    _, _, knn, ball = sapien_tables(gen, SAP_B)
+    sites = []
+    for name, idx in (("smooth knn", knn), ("smooth ball", ball)):
+        flat = idx.reshape(SAP_B, -1)
+        g = torch.randn((SAP_B, flat.shape[1], SAP_K), generator=gen,
+                        device="cuda")
+        sites.append(("#8", name, 4, lambda flat=flat, g=g:
+                      scatter_add_rows_onehot(flat, g, SAP_N),
+                      lambda flat=flat, g=g: scatter_add_rows(flat, g, SAP_N)))
+    rng = np.random.RandomState(SEED + 11)
+    kitti = torch.from_numpy(np.stack([kitti_scene(rng)[0]
+                                       for _ in range(TRAIN_B)])).cuda()
+    _, cat = mxu_tables(kitti, OGCLossConfig(
+        knn_k=SMOOTH_K, knn_radius=SMOOTH_R, ball_q_k=BALL_NS,
+        ball_q_radius=BALL_R, smooth_exact=False))
+    b, M, S = cat.shape
+    src = torch.randn((b, N_POINT, MXU_C), generator=gen, device="cuda")
+    cot = torch.randn((b, M, S, MXU_C), generator=gen, device="cuda")
+    _, table = bs.gather_blocksparse(src, cat)
+    sites.append(("#10", "mxu smooth table", TRAIN_T,
+                  lambda: bs.scatter_add_blocksparse(cat, cot, N_POINT,
+                                                     table),
+                  lambda: scatter_add_rows(cat.reshape(b, M * S),
+                                           cot.reshape(b, M * S, MXU_C),
+                                           N_POINT)))
+    total = {}
+    for kernel, name, calls, fn, general in sites:
+        if not bits_equal(fn(), general()):
+            raise AssertionError(f"{label} {kernel} {name}: != #11")
+        t = (cuda_ms(fn, 20), device_ms(fn), cuda_ms(general, 20),
+             device_ms(general))
+        acc = total.setdefault(kernel, [0.0] * 4)
+        for i, v in enumerate(t):
+            acc[i] += calls * v
+        log(f"{label} {kernel} {name} x{calls}/step: single {t[0]:.4f} ms, "
+            f"device {t[1]:.4f} ms; #11 {t[2]:.4f} / {t[3]:.4f} ms")
+    for kernel, what in (("#8", "SAPIEN full step"), ("#10", "mxu step")):
+        t = total[kernel]
+        log(f"{label} per {what}: {kernel} single {t[0]:.4f} ms, device "
+            f"{t[1]:.4f} ms; #11 single {t[2]:.4f} ms, device {t[3]:.4f} ms")
+
+
 def parent_ab(root):
-    """#1, #11, #3 and #5 of another checkout of the port, timed as this
+    """#1, #11, #3 and #5 of a checkout of the port, timed as this
     tree's check_fps, check_scatter, check_blockmin and check_ball time
-    them, for an A/B on one card:
+    them, and #8 and #10 as scatter_ab times them, for an A/B on one card:
 
         python3 -c 'import chip_smoke; chip_smoke.parent_ab("<root>")'
 
-    from this tree's root, in a process that has not imported the port.
+    from this tree's root, in a process that has not imported the port, once
+    with the parent's checkout and once with this tree's (``.``).
     The port is imported from ``root`` (its kernels build there): FPS at
     FPS_SHAPES (B 8 and 16) and FLOW_FPS_SHAPES (16 clouds); #3 at the
     fast train step's sites (16 clouds, the smooth KNN and ball, SAPIEN's
@@ -1014,6 +1074,7 @@ def parent_ab(root):
     if not torch.cuda.is_available():
         sys.exit("parent_ab: no CUDA device")
     root = osp.abspath(root)
+    who = osp.basename(root)
     sys.path.insert(0, root)
     from ogc_tpu_torch.ops import _build
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
@@ -1026,7 +1087,7 @@ def parent_ab(root):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"parent kernels from {_build.library_path()}; "
+    log(f"{who}: kernels from {_build.library_path()}; "
         f"{smi.stdout.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for b, shapes, what in ((BATCH, FPS_SHAPES, "eval forward"),
@@ -1035,7 +1096,7 @@ def parent_ab(root):
         rep = Report()
         check_fps(rep, gen, b, 1, shapes)
         e = rep.entry("fps")
-        log(f"parent per {what}: fps kernel {e['ms']:.4f} ms, device "
+        log(f"{who}: per {what}: fps kernel {e['ms']:.4f} ms, device "
             f"{e['device_ms']:.4f} ms")
     rep = Report()
     check_blockmin(rep, gen, TRAIN_B * TRAIN_T, BLOCKMIN_SHAPES)
@@ -1043,7 +1104,7 @@ def parent_ab(root):
     for name, what in (("knn_blockmin", "fast"), ("ball_blockmin", "fast"),
                        ("ball_query", "parity")):
         e = rep.entry(name)
-        log(f"parent per {what} train step: {name} single {e['ms']:.4f} ms, "
+        log(f"{who}: per {what} train step: {name} single {e['ms']:.4f} ms, "
             f"device {e['device_ms']:.4f} ms")
     # The torch prologue and its kernel apart: the API up to 03c3005.
     split = len(_build._SIGNATURES["ogc_scatter_add_rows"]) == 7
@@ -1064,24 +1125,25 @@ def parent_ab(root):
                 _build.check(_build.lib().ogc_scatter_add_rows(
                     g.data_ptr(), order.data_ptr(), start.data_ptr(),
                     b * n_dest, C, out.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream), "parent kernel")
+                    torch.cuda.current_stream().cuda_stream), f"{who} kernel")
 
             kernel()
             if not bits_equal(out, scatter_add_rows(flat, g, n_dest)):
-                raise AssertionError(f"parent scatter {name}: kernel on the "
+                raise AssertionError(f"{who} scatter {name}: kernel on the "
                                      f"prologue's CSR != the wrapper's "
                                      f"result")
             t["prologue"] = device_ms(lambda: segments(flat, n_dest))
             t["kernel"] = device_ms(kernel)
         for k in total:
             total[k] += calls * t[k]
-        log(f"parent scatter_add {name} ({b},{R} rows,C={C})->{n_dest} "
+        log(f"{who}: scatter_add {name} ({b},{R} rows,C={C})->{n_dest} "
             f"x{calls}/step: single call {t['single']:.4f} ms; device "
             f"{t['device']:.4f} ms (prologue {t['prologue']:.4f}, kernel "
             f"{t['kernel']:.4f})")
-    log(f"parent per train step: scatter_add single {total['single']:.4f} "
+    log(f"{who}: per train step: scatter_add single {total['single']:.4f} "
         f"ms; device {total['device']:.4f} ms (prologue "
         f"{total['prologue']:.4f}, kernel {total['kernel']:.4f})")
+    scatter_ab(who)
 
 
 def blockmin_launch(k, b, nq, m, rec):
@@ -1599,17 +1661,42 @@ def sapien_tables(gen, clouds):
     return x, sa0, knn, ball
 
 
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def index_add_ms(flat, g, n):
+    """(single call, device) ms of index_add_ (deterministic mode) summing
+    g (b, E, C) into (b * n, C) rows by flat (b, E); the device time is
+    None where the call cannot be captured in a CUDA graph."""
+    b, E, C = g.shape
+    key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n
+           ).reshape(-1)
+    rows = g.reshape(-1, C)
+    acc = torch.zeros((b * n, C), device="cuda")
+    lib = cuda_ms(lambda: acc.zero_().index_add_(0, key, rows), 20)
+    try:
+        ldev = device_ms(lambda: acc.zero_().index_add_(0, key, rows))
+    except RuntimeError as e:  # not capturable in a CUDA graph
+        ldev = None
+        log(f"index_add_ device time not measured: {str(e)[:120]}")
+    return lib, ldev
+
+
 def check_onehot(reports, gen):
-    """#7 and #8 at every SAPIEN shape, bit-equal to their plain versions,
-    timed beside the plain version, the general route (advanced indexing
-    for the gather, #11 with its CSR built in CUDA for the scatter), the
-    library call (torch.gather; deterministic index_add_) and the bytes
-    bound; #7 and torch.gather also by device time (device_ms).  Then #7
-    at every C from 1 to 16, at N 1 and 1024 and with E*C not a multiple
-    of the 16-byte store.  ``reports`` maps a config to (Report, frames):
-    each call is weighted by its calls per step of that config."""
+    """#7 and #8 at every SAPIEN shape, bit-equal to their plain versions
+    (#8 with int32 and int64 idx, and to #11), timed beside the plain
+    version, the general route (advanced indexing for the gather, #11 with
+    its CSR built in CUDA for the scatter), the library call
+    (torch.gather; deterministic index_add_) and the bytes bound; each
+    kernel, its general route and the library call also by device time
+    (device_ms).  Then #7 at every C from 1 to 16, at N 1 and 1024 and
+    with E*C not a multiple of the 16-byte store.  ``reports`` maps a
+    config to (Report, frames): each call is weighted by its calls per
+    step of that config."""
     from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                           gather_rows_onehot_plain,
+                                          onehot_scatter_plan,
                                           scatter_add_rows_onehot)
     from ogc_tpu_torch.ops.scatter import (scatter_add_rows,
                                            scatter_add_rows_plain)
@@ -1661,32 +1748,33 @@ def check_onehot(reports, gen):
         if not scatter:
             continue
         g = torch.randn((b, E, C), generator=gen, device="cuda")
-        got = scatter_add_rows_onehot(flat, g, n)
         want = scatter_add_rows_plain(flat, g, n)
-        general = scatter_add_rows(flat, g, n)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(got, general)):
-            raise AssertionError(
-                f"scatter {name}: kernel != plain or #11, max diff "
-                f"{(got - want).abs().max().item()}")
+        for got, what in ((scatter_add_rows_onehot(flat, g, n), "int32"),
+                          (scatter_add_rows_onehot(flat.long(), g, n),
+                           "int64"),
+                          (scatter_add_rows(flat, g, n), "#11")):
+            if not bits_equal(got, want):
+                raise AssertionError(
+                    f"scatter {name}: {what} != plain, max diff "
+                    f"{(got - want).abs().max().item()}")
         ms = cuda_ms(lambda: scatter_add_rows_onehot(flat, g, n), 20)
+        dev = device_ms(lambda: scatter_add_rows_onehot(flat, g, n))
         pms = cuda_ms(lambda: scatter_add_rows_plain(flat, g, n), 5)
         gms = cuda_ms(lambda: scatter_add_rows(flat, g, n), 20)
-        key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n
-               ).reshape(-1)
-        rows = g.reshape(-1, C)
-        acc = torch.zeros((b * n, C), device="cuda")
-        lib = cuda_ms(lambda: acc.zero_().index_add_(0, key, rows), 20)
+        gdev = device_ms(lambda: scatter_add_rows(flat, g, n))
+        lib, ldev = index_add_ms(flat, g, n)
         bnd, by = bound_ms(b * (E * 4 + E * C * 4 + n * C * 4), b * E * C)
         for cfg, k in per_step.items():
             reports[cfg][0].add("scatter_onehot", 0, ms, pms, bnd, by, lib,
-                                per_step=k)
+                                per_step=k, device=(dev, ldev))
             reports[cfg][0].add("scatter_general", 0, gms, pms, bnd, by, lib,
-                                per_step=k)
+                                per_step=k, device=(gdev, ldev))
         log(f"scatter_onehot {name} ({b},{E} rows,C={C})->{n} x{per_step}/"
-            f"step: bit-equal to plain and to #11; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, general route (#11, CSR built in CUDA) {gms:.4f} ms, "
-            f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"step (windows of {onehot_scatter_plan(b, n, C).rows} rows): "
+            f"bit-equal to plain (int32 and int64 idx) and to #11; single "
+            f"call {ms:.4f} ms, device {dev:.4f} ms; #11 {gms:.4f} / "
+            f"{gdev:.4f} ms; index_add_ {lib:.4f} / {fmt_ms(ldev)} ms; "
+            f"plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
 
     # Every C instance, N at both ends, ragged E (E * C % 4 != 0 for odd C:
     # later clouds start off the 16-byte grid, and the stores take the
@@ -1702,6 +1790,79 @@ def check_onehot(reports, gen):
                                      f"kernel != plain")
     log(f"gather_onehot C 1..{KERNEL_MAX_C} at (N, E) (1, 37), (1024, 4099), "
         f"({SAP_N}, 16385): bit-equal")
+
+
+def scatter_edge_cases(gen):
+    """(name, idx (B, E) int32, C, n) of #8's and #10's edge cases: a hub
+    (one destination of in-degree >= 1000 among uniform edges), empty
+    destinations (every fourth row only), every edge to one destination, E
+    not a multiple of any tile (two 8192-edge tiles and 37), n 1 and n
+    1024, C 1..16 (ragged E), B 1."""
+    def rand(B, E, n):
+        return torch.randint(0, n, (B, E), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    hub = rand(4, 8192, 512)
+    hub[:, 100:1300] = 7
+    cases = [("hub", hub, 8, 512),
+             ("empty destinations", (rand(4, 8192, 512) // 4) * 4, 8, 512),
+             ("one destination", torch.full((3, 5000), 3, dtype=torch.int32,
+                                            device="cuda"), 8, 512),
+             ("ragged E", rand(2, 2 * 8192 + 37, 700), 8, 700),
+             ("n 1", torch.zeros((2, 20001), dtype=torch.int32,
+                                 device="cuda"), 5, 1),
+             ("n 1024", rand(2, 4099, 1024), 16, 1024),
+             ("B 1", rand(1, 3000, 300), 8, 300)]
+    cases += [(f"C {C}", rand(2, 5003, 512), C, 512)
+              for C in range(1, KERNEL_MAX_C + 1)]
+    return cases
+
+
+def check_onehot_cases(gen):
+    """#8 at scatter_edge_cases, int32 and int64 idx, at the plan's window
+    and at windows of 32, 64 and 256 rows (cut to what the kernel takes),
+    bit-equal to its plain version and to #11; and windows of 32 to 256
+    rows timed at SAPIEN's two smooth sites (device time), beside the
+    plan's."""
+    from ogc_tpu_torch.ops.onehot import (_launch_scatter,
+                                          onehot_scatter_plan,
+                                          scatter_add_rows_onehot,
+                                          scatter_window)
+    from ogc_tpu_torch.ops.scatter import (scatter_add_rows,
+                                           scatter_add_rows_plain)
+
+    for name, flat, C, n in scatter_edge_cases(gen):
+        b, E = flat.shape
+        g = torch.randn((b, E, C), generator=gen, device="cuda")
+        want = scatter_add_rows_plain(flat, g, n)
+        if not bits_equal(scatter_add_rows(flat, g, n), want):
+            raise AssertionError(f"scatter {name}: #11 != plain")
+        for rows in (None, 32, 64, 256):
+            for idx in (flat, flat.long()):
+                got = (scatter_add_rows_onehot(idx, g, n) if rows is None
+                       else _launch_scatter(idx, g, n,
+                                            scatter_window(n, C, rows)))
+                if not bits_equal(got, want):
+                    raise AssertionError(
+                        f"scatter_onehot {name} ({b},{E})->{n} C={C} rows "
+                        f"{rows} {idx.dtype}: != plain")
+    log("scatter_onehot edge cases (hub of in-degree 1200, empty "
+        "destinations, one destination, E 16421, n 1, n 1024, B 1, C 1..16) "
+        "at the plan's window and 32, 64, 256 rows, int32 and int64 idx: "
+        "bit-equal to plain and to #11")
+    _, _, knn, ball = sapien_tables(gen, SAP_B)
+    for name, idx in (("smooth knn", knn), ("smooth ball", ball)):
+        flat = idx.reshape(SAP_B, -1)
+        g = torch.randn((SAP_B, flat.shape[1], SAP_K), generator=gen,
+                        device="cuda")
+        times = {rows: device_ms(lambda: _launch_scatter(
+            flat, g, SAP_N, scatter_window(SAP_N, SAP_K, rows)))
+            for rows in (32, 64, 128, 256)}
+        plan = onehot_scatter_plan(SAP_B, SAP_N, SAP_K).rows
+        log(f"scatter_onehot window crossover {name} ({SAP_B},"
+            f"{flat.shape[1]})->{SAP_N} C={SAP_K}: device ms by rows "
+            + ", ".join(f"{r} {t:.4f}" for r, t in times.items())
+            + f"; plan {plan}")
 
 
 def check_blocksparse(report, gen):
@@ -1771,6 +1932,7 @@ def check_blocksparse(report, gen):
                 f"diff {(grad - plain).abs().max().item()}")
         nblk = pro.nblk.float()
         units = pro.presence.sum(1, dtype=torch.int32).float()
+        plan = bs.bs_scatter_plan(n, M, S)
         deg = torch.zeros((b, n), dtype=torch.int64, device="cuda")
         deg.scatter_add_(1, flat.long(),
                          torch.ones_like(flat, dtype=torch.int64))
@@ -1790,14 +1952,13 @@ def check_blocksparse(report, gen):
         gpl = cuda_ms(lambda: bs.gather_blocksparse_plain(src, idx), 20)
         sms = cuda_ms(lambda: bs.scatter_add_blocksparse(idx, cot, n, table),
                       20)
+        sdev = device_ms(lambda: bs.scatter_add_blocksparse(idx, cot, n,
+                                                            table))
         spl = cuda_ms(lambda: bs.scatter_add_blocksparse_plain(idx, cot, n),
                       3)
         s11 = cuda_ms(lambda: scatter_add_rows(flat, cflat, n), 20)
-        key = (flat.long() + torch.arange(b, device="cuda")[:, None] * n
-               ).reshape(-1)
-        acc = torch.zeros((b * n, C), device="cuda")
-        slib = cuda_ms(lambda: acc.zero_().index_add_(
-            0, key, cflat.reshape(-1, C)), 20)
+        s11dev = device_ms(lambda: scatter_add_rows(flat, cflat, n))
+        slib, sldev = index_add_ms(flat, cflat, n)
         # #9 reads the source and the padded table and writes the rows and
         # the presence.
         gb, gby = bound_ms(b * (n * C * 4 + table.idx.shape[1] * 4
@@ -1809,7 +1970,9 @@ def check_blocksparse(report, gen):
             report.add("gather_blocksparse", 0, gms, gpl, gb, gby, glib,
                        per_step=per_step, general=gpl, device=gdev)
             report.add("scatter_blocksparse", 0, sms, spl, sb, sby, slib,
-                       per_step=per_step, general=s11)
+                       per_step=per_step, general=s11, device=(sdev, sldev))
+            report.add("scatter_bs_general", 0, s11, spl, sb, sby, slib,
+                       per_step=per_step, device=(s11dev, sldev))
         log(f"blocksparse {name} ({b},{n},C={C}) x {M} rows x S={S} "
             f"x{per_step}/step: blocks per 256-row tile max "
             f"{int(nblk.max().item())} mean {nblk.mean().item():.4f}, "
@@ -1822,9 +1985,12 @@ def check_blocksparse(report, gen):
             f"torch.gather {glib:.4f} ms; device {gdev[0]:.4f} ms, "
             f"torch.gather {gdev[1]:.4f} ms; plain = general route "
             f"(indexing) {gpl:.4f} ms, bound {gb:.4f} ms ({gby}); #10 with "
-            f"#9's presence bit-equal to plain and #11: {sms:.4f} ms, plain "
-            f"{spl:.4f} ms, general route (#11, CSR built in CUDA) {s11:.4f} ms, "
-            f"index_add_ {slib:.4f} ms, bound {sb:.4f} ms ({sby})")
+            f"#9's presence bit-equal to plain and #11 ({plan.pieces} pieces "
+            f"of {plan.piece} edges, {plan.ng} groups): single call {sms:.4f} ms, device "
+            f"{sdev:.4f} ms; general route (#11, CSR built in CUDA) "
+            f"{s11:.4f} / {s11dev:.4f} ms; index_add_ {slib:.4f} / "
+            f"{fmt_ms(sldev)} ms; plain {spl:.4f} ms, bound {sb:.4f} ms "
+            f"({sby})")
     # Every C instance on the ragged table and on a wide one (rows of 202
     # padded edges: a unit of 32 rows is more than one piece of 4096), from
     # an aligned source and from one whose data pointer is 4 bytes past the
@@ -1850,6 +2016,61 @@ def check_blocksparse(report, gen):
         log(f"gather_blocksparse C 1..{KERNEL_MAX_C} on the {tname} table "
             f"({b},{n}) x {M} x S={S}, source 16-byte aligned and 4 bytes "
             f"off: bit-equal, presence equal")
+
+
+def check_blocksparse_cases(gen):
+    """#10 on edge-case tables, fed #9's presence and bs_prologue's (the
+    wrapper's own), bit-equal to its plain version and to #11: the
+    KITTI-SF-like sorted scene's smooth table with 1200 edges to one point
+    (a hub), every fourth point only (empty destinations), every edge to one
+    destination, n 1, rows of 300 padded edges (two pieces a unit), and C
+    1..16 on a ragged table (odd S 17)."""
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, mxu_tables
+    from ogc_tpu_torch.ops import blocksparse as bs
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
+
+    rng = np.random.RandomState(SEED + 1)
+    kitti = torch.from_numpy(kitti_scene(rng)[0][None]).cuda()
+    _, cat = mxu_tables(kitti, OGCLossConfig(
+        knn_k=SMOOTH_K, knn_radius=SMOOTH_R, ball_q_k=BALL_NS,
+        ball_q_radius=BALL_R, smooth_exact=False))
+    hub = cat.clone()
+    hub.view(-1)[5000:6200] = 7
+    ragged = grid_cloud(gen, 2, 1500, 8.0)
+    _, rcat = mxu_tables(ragged, OGCLossConfig(
+        knn_k=8, knn_radius=1.0, ball_q_k=9, ball_q_radius=1.0,
+        smooth_exact=False))
+    cases = [("hub", hub, N_POINT, MXU_C),
+             ("empty destinations", (cat // 4) * 4, N_POINT, MXU_C),
+             ("one destination", torch.full((2, 300, 17), 3,
+                                            dtype=torch.int32,
+                                            device="cuda"), 512, MXU_C),
+             ("n 1", torch.zeros((2, 100, 7), dtype=torch.int32,
+                                 device="cuda"), 1, 4),
+             ("two pieces a unit", torch.randint(
+                 0, 700, (2, 300, 300), generator=gen, device="cuda",
+                 dtype=torch.int32), 700, MXU_C)]
+    cases += [(f"C {C}", rcat, 1500, C) for C in range(1, KERNEL_MAX_C + 1)]
+    for name, idx, n, C in cases:
+        b, M, S = idx.shape
+        src = torch.randn((b, n, C), generator=gen, device="cuda")
+        cot = torch.randn((b, M, S, C), generator=gen, device="cuda")
+        want = bs.scatter_add_blocksparse_plain(idx, cot, n)
+        _, table = bs.gather_blocksparse(src, idx)
+        got = [(bs.scatter_add_blocksparse(idx, cot, n, table),
+                "#9's presence"),
+               (bs.scatter_add_blocksparse(idx, cot, n), "bs_prologue's"),
+               (scatter_add_rows(idx.reshape(b, M * S),
+                                 cot.reshape(b, M * S, C), n), "#11")]
+        for out, what in got:
+            if not bits_equal(out, want):
+                raise AssertionError(
+                    f"scatter_blocksparse {name} ({b},{M},{S})->{n} C={C}: "
+                    f"{what} != plain")
+    log("scatter_blocksparse edge cases (hub of in-degree >= 1200, empty "
+        "destinations, one destination, n 1, two pieces a unit, C 1..16 on "
+        "an odd-S table) with #9's presence and bs_prologue's: bit-equal to "
+        "plain and to #11")
 
 
 def check_knn_cand(report, gen):
@@ -1961,6 +2182,7 @@ def check_kernels():
     log(f"-- SAPIEN path shapes (B={SAP_B} items x 2 or 4 frames x {SAP_N})")
     sapien = {"woinv": (Report(), 2), "full": (Report(), 4)}
     check_onehot(sapien, gen)
+    check_onehot_cases(gen)
     for cfg, (rep, _) in sapien.items():
         for name in ("gather_onehot", "scatter_onehot", "scatter_general"):
             e = rep.entry(name)
@@ -1968,7 +2190,7 @@ def check_kernels():
                 f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
                 f"({e['bound_by']}), library {e['library_ms']:.4f} ms"
                 + (f"; device: kernel {e['device_ms']:.4f} ms, library "
-                   f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+                   f"{fmt_ms(e['library_device_ms'])} ms" if "device_ms" in e
                    else ""))
     log(f"-- flow path shapes (KITTI-SF B={FLOW_B} x {N_POINT}, "
         f"{FLOW_ITERS} iterations; SAPIEN test_flow B={SAP_FLOW_B} x "
@@ -1999,21 +2221,24 @@ def check_kernels():
         f"frame; SAPIEN; ragged; uniform)")
     mxu_report = Report()
     check_blocksparse(mxu_report, gen)
+    check_blocksparse_cases(gen)
     log("-- #6 at ogc_tpu_torch.tools.bench_knn_pruned's shapes")
     cand_report = Report()
     check_knn_cand(cand_report, gen)
     for rep, what, names in (
             (mxu_report, "mxu train step",
-             ("gather_blocksparse", "scatter_blocksparse")),
+             ("gather_blocksparse", "scatter_blocksparse",
+              "scatter_bs_general")),
             (cand_report, "bench pass", ("knn_cand_pruned",))):
         for name in names:
             e = rep.entry(name)
             log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
                 f"{e['plain_ms']:.4f} ms, general route "
-                f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}), library {e['library_ms']}"
+                f"{fmt_ms(e.get('general_ms'))} ms, bound "
+                f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
+                f"{e['library_ms']}"
                 + (f"; device: kernel {e['device_ms']:.4f} ms, library "
-                   f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+                   f"{fmt_ms(e['library_device_ms'])} ms" if "device_ms" in e
                    else ""))
     return {"parity": train_report, "sapien": sapien["full"][0],
             "fast": fast_report, "flow": flow_report, "mxu": mxu_report,
@@ -3021,7 +3246,8 @@ def main():
 
     ptxas_report([osp.join(_build.CSRC_DIR, f)
                   for f in ("fps.cu", "knn_exact.cu", "knn_blockmin.cu",
-                            "ball_query.cu", "pool.cu", "scatter_add.cu")])
+                            "ball_query.cu", "pool.cu", "scatter_add.cu",
+                            "onehot.cu", "onehot_bs.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.

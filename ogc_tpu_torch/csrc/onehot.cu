@@ -28,25 +28,31 @@
 // SAPIEN's shapes), and at the smallest calls the launch and the host's
 // enqueue.  The launcher sets no attribute: 20 KiB of static shared memory.
 //
-// Scatter design: the one-hot product done as compares.  One block per
-// (cloud, 128 destination rows); each thread owns one destination row and
-// its C <= 16 sums in registers.  The block walks the cloud's edges in
-// tiles of 1024: the tile's indices and cotangent rows go to shared memory
-// (16-byte loads).  A warp then takes the tile 32 edges at a time: each
-// lane compares one edge's index with the warp's 32 rows, and six ballots
-// give every lane the mask of the chunk's edges addressed to its row, which
-// it adds in ascending e (all lanes at once, so a hub row costs its own
-// in-degree, not its warp's).  No atomics, no sort: the order is fixed by
-// the walk, so results repeat bit for bit.  Bound on the H100: the
-// compares, one per (warp of rows, edge), and the tile loads, which every
-// row block of a cloud repeats (from L2); at the SAPIEN smooth-loss shapes
-// (n = 512, E = 4096 / 8192) only 16 warps work on a cloud, so latency, not
-// bytes, sets the time.  Splitting the edge range across blocks would need
-// a second ordered pass and is not done.
+// Scatter design: a stable partition of each cloud's edges by destination
+// in shared memory, then a sum per (row, channel) in ascending e.  One block
+// of 16 warps per (cloud, window of `rows` destinations), `rows` from
+// ops/onehot.py::onehot_scatter_plan (128 at SAPIEN's B = 32, n = 512,
+// C = 8: 4 windows a cloud, 128 blocks, one per SM).  The block takes the
+// cloud's edges in tiles of kTile: it reads each index once (int32 or int64,
+// as the caller holds it) into a 16-bit window offset (-1 outside the
+// window), partitions the tile stably by it (ogc::stable_partition,
+// csr.cuh: per-warp 16-bit histograms with one writer per counter, a scan,
+// a rank among the earlier lanes of an equal-destination group; no atomics,
+// no sort) into a list of 16-bit edge offsets, and then each thread adds the
+// cotangent rows of its (row, channel) pairs' segments in list order, 8
+// loads ahead (ogc::sum_segments), the sums carried in registers from tile
+// to tile.  So each cotangent row is read once in all, from L2, by the
+// threads of its own destination, and the result is bit-equal to the plain
+// version whatever the window.  (Staging the listed rows in shared memory
+// first, as #10 does, was slower at SAPIEN's in-degrees of 8 to 16.)
+// Bound on the H100: bytes (idx, cot and out once each; the windows of a
+// cloud read its indices again from L2), and at SAPIEN's calls the latency
+// of the three passes over a tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr.cuh"
 #include "gather_rows.cuh"
 
 namespace {
@@ -55,34 +61,15 @@ constexpr int kMaxN = 1024;
 constexpr int kMaxC = 16;
 constexpr int kGatherThreads = 256;
 constexpr int kGatherWarps = kGatherThreads / 32;
-constexpr int kScatterRows = 128;
-constexpr int kTile = 1024;
+constexpr int kScatterThreads = 512;
+constexpr int kScatterWarps = kScatterThreads / 32;
+constexpr int kTile = 8192;    // edges a scatter block partitions at a time
+constexpr int kMaxPairs = 4;   // (row, channel) sums a scatter thread keeps
+constexpr int kSumAhead = 8;   // cotangent values loaded before adding
 // Gather blocks: about 8 per SM of the card's 132, each 256 to 4096 edges.
 constexpr int kTargetBlocks = 1056;
 constexpr int kMinEdges = 256;
 constexpr int kMaxEdges = 4096;
-
-// Copy n 4-byte words from device to shared memory with the block's
-// threads: 16-byte loads, four in flight per thread, when the source is
-// 16-byte aligned (dst always is); word by word otherwise.
-template <int kThreads>
-__device__ __forceinline__ void stage(uint32_t* __restrict__ dst,
-                                      const uint32_t* __restrict__ src,
-                                      int n) {
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int n4 = n >> 2;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-#pragma unroll 4
-    for (int t = threadIdx.x; t < n4; t += kThreads) d4[t] = __ldg(s4 + t);
-    done = n4 << 2;
-  }
-#pragma unroll 4
-  for (int t = done + threadIdx.x; t < n; t += kThreads) {
-    dst[t] = __ldg(src + t);
-  }
-}
 
 // Stage the clamped indices src[0, n) into dst (shared memory): 16-byte
 // loads once src is 16-byte aligned, word loads for the ragged ends.
@@ -126,65 +113,53 @@ __global__ void __launch_bounds__(kGatherThreads)
                     s_rows, n, s_buf + (threadIdx.x >> 5) * ogc::kWarpWords);
 }
 
-__global__ void __launch_bounds__(kScatterRows)
-    scatter_rows_kernel(const int32_t* __restrict__ idx,
+// Dynamic shared memory of a scatter block for windows of `rows`.
+__host__ __device__ constexpr int scatter_smem(int rows) {
+  return kTile * 4 + kScatterWarps * ((rows + 1) & ~1) * 2 +
+         (rows + 1 + kScatterWarps) * 4;
+}
+
+template <typename Idx>
+__global__ void __launch_bounds__(kScatterThreads)
+    scatter_rows_kernel(const Idx* __restrict__ idx,
                         const float* __restrict__ cot, int E, int C, int n,
-                        float* __restrict__ out) {
-  // Dynamic shared memory: kTile indices, then kTile * C cotangents.
+                        int rows, float* __restrict__ out) {
   extern __shared__ uint4 smem_s[];
-  int32_t* s_idx = reinterpret_cast<int32_t*>(smem_s);
-  float* s_cot = reinterpret_cast<float*>(smem_s) + kTile;
+  const int ws = (rows + 1) & ~1;
+  int16_t* s_d = reinterpret_cast<int16_t*>(smem_s);  // kTile offsets or -1
+  uint16_t* s_order = reinterpret_cast<uint16_t*>(s_d + kTile);  // kTile
+  uint16_t* hist = s_order + kTile;  // kScatterWarps x ws
+  int32_t* s_start = reinterpret_cast<int32_t*>(hist + kScatterWarps * ws);
+  int32_t* s_wsum = s_start + rows + 1;  // kScatterWarps
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * kScatterRows + (threadIdx.x & ~31);
-  const int r = r0 + lane;
-  const uint32_t* idxb = reinterpret_cast<const uint32_t*>(idx) +
-                         (int64_t)b * E;
-  const uint32_t* cotb = reinterpret_cast<const uint32_t*>(cot) +
-                         (int64_t)b * E * C;
-  float acc[kMaxC];
+  const int w0 = blockIdx.x * rows;
+  const int wn = min(rows, n - w0);
+  const Idx* ib = idx + (int64_t)b * E;
+  float acc[kMaxPairs];
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) acc[c] = 0.0f;
+  for (int k = 0; k < kMaxPairs; ++k) acc[k] = 0.0f;
   for (int e0 = 0; e0 < E; e0 += kTile) {
     const int len = min(kTile, E - e0);
-    __syncthreads();  // the previous tile's walk is done
-    stage<kScatterRows>(reinterpret_cast<uint32_t*>(s_idx), idxb + e0, len);
-    stage<kScatterRows>(reinterpret_cast<uint32_t*>(s_cot),
-                        cotb + (int64_t)e0 * C, len * C);
+    __syncthreads();  // the previous tile's sums have read s_order
+#pragma unroll 4
+    for (int t = threadIdx.x; t < len; t += kScatterThreads) {
+      const Idx v = ib[e0 + t];
+      s_d[t] = v >= (Idx)w0 && v < (Idx)(w0 + wn) ? (int16_t)(v - (Idx)w0)
+                                                   : (int16_t)-1;
+    }
     __syncthreads();
-    // 32 edges at a time, one per lane.  A ballot finds the edges
-    // addressed to this warp's 32 rows; five more spell out each edge's
-    // row bit by bit, so every lane gets the mask of its own edges and
-    // adds them in ascending e, all lanes at once.
-    for (int base = 0; base < len; base += 32) {
-      const int e = base + lane;
-      const int d = e < len ? s_idx[e] - r0 : -1;
-      const bool hit = (unsigned)d < 32u;
-      const unsigned hits = __ballot_sync(0xffffffffu, hit);
-      if (hits == 0) continue;
-      unsigned mine = hits;
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        const unsigned bit = __ballot_sync(0xffffffffu, hit && ((d >> k) & 1));
-        mine &= ((lane >> k) & 1) ? bit : ~bit;
-      }
-      while (mine) {
-        const int j = __ffs(mine) - 1;
-        mine &= mine - 1;
-        const float* row = s_cot + (base + j) * C;
-#pragma unroll
-        for (int c = 0; c < kMaxC; ++c) {
-          if (c < C) acc[c] = __fadd_rn(acc[c], row[c]);
-        }
-      }
-    }
+    ogc::stable_partition<kScatterWarps>(
+        len, wn, [&](int t) { return (int)s_d[t]; }, hist, ws, s_start,
+        s_wsum, [&](int pos, int t) { s_order[pos] = (uint16_t)t; });
+    ogc::sum_segments<kMaxPairs, kSumAhead>(
+        acc, wn * C, C, s_start, [&](int s) { return e0 + s_order[s]; },
+        cot + (int64_t)b * E * C);
   }
-  if (r < n) {
-    float* o = out + ((int64_t)b * n + r) * C;
+  float* o = out + ((int64_t)b * n + w0) * C;
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c < C) o[c] = acc[c];
-    }
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int p = threadIdx.x + k * kScatterThreads;
+    if (p < wn * C) o[p] = acc[k];
   }
 }
 
@@ -228,20 +203,37 @@ extern "C" int ogc_gather_rows_onehot(const void* src, const void* idx, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-// idx (B, E) int32, cot (B, E, C) f32; out (B, n, C) f32, every row written
-// (rows no edge addresses are 0).  Requires 1 <= n <= 1024, 1 <= C <= 16.
-extern "C" int ogc_scatter_add_rows_onehot(const void* idx, const void* cot,
-                                           int B, int E, int C, int n,
-                                           void* out, void* stream) {
-  if (B < 1 || n < 1 || n > kMaxN || C < 1 || C > kMaxC || E < 0) {
+// idx (B, E) int32 (int64 if idx64), cot (B, E, C) f32; out (B, n, C) f32,
+// every row written (rows no edge addresses are 0).  `rows` destinations a
+// block (ops/onehot.py::onehot_scatter_plan).  Requires 1 <= n <= 1024,
+// 1 <= C <= 16, 1 <= rows <= n, rows * C <= 2048, E >= 0, B <= 65535.
+extern "C" int ogc_scatter_add_rows_onehot(const void* idx, int idx64,
+                                           const void* cot, int B, int E,
+                                           int C, int n, int rows, void* out,
+                                           void* stream) {
+  if (B < 1 || B > 65535 || n < 1 || n > kMaxN || C < 1 || C > kMaxC ||
+      E < 0 || rows < 1 || rows > n ||
+      rows * C > kMaxPairs * kScatterThreads) {
     return (int)cudaErrorInvalidValue;
   }
-  static int done[ogc::kMaxDevices];
-  const int smem = kTile * (1 + C) * (int)sizeof(float);
-  const cudaError_t err = ogc::smem_opt_in(scatter_rows_kernel, smem, done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kScatterRows - 1) / kScatterRows, B);
-  scatter_rows_kernel<<<grid, kScatterRows, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const float*)cot, E, C, n, (float*)out);
+  const int smem = scatter_smem(rows);
+  const dim3 grid((n + rows - 1) / rows, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (idx64) {
+    static int done[ogc::kMaxDevices];
+    if ((err = ogc::smem_opt_in(scatter_rows_kernel<int64_t>, smem, done))) {
+      return (int)err;
+    }
+    scatter_rows_kernel<int64_t><<<grid, kScatterThreads, smem, st>>>(
+        (const int64_t*)idx, (const float*)cot, E, C, n, rows, (float*)out);
+  } else {
+    static int done[ogc::kMaxDevices];
+    if ((err = ogc::smem_opt_in(scatter_rows_kernel<int32_t>, smem, done))) {
+      return (int)err;
+    }
+    scatter_rows_kernel<int32_t><<<grid, kScatterThreads, smem, st>>>(
+        (const int32_t*)idx, (const float*)cot, E, C, n, rows, (float*)out);
+  }
   return (int)cudaGetLastError();
 }

@@ -38,27 +38,39 @@
 // the padded table reach block j, which is what #10 reads.  So the forward
 // is one launch after bs_pad, with no torch prologue.
 //
-// Scatter design: one CTA per (cloud, block of 128 destination rows), 16
-// warps: warp w sums rows (w % 4) * 32 + lane of the block in channels
-// w / 4, w / 4 + 4, ... (C <= 16), in registers; the (row, channel) sums are
-// independent, so splitting the channels changes no bit.  The CTA walks
-// only the units of 32 table rows whose presence flag names its block, in
-// ascending order, 4096 edges at a time: the indices go to shared memory,
-// the warps compact
-// the edges addressed to the block into a list in ascending order (ballots
-// and a prefix over the warps), the CTA stages the listed cotangent rows
-// (1024 at a time, every load in flight at once), and each warp takes the
-// list 32 entries at a time as #8 does (onehot.cu): six ballots give every
-// lane the mask of the entries addressed to its row, which it adds in
-// ascending order from shared memory.  Each cotangent row is read once in
-// all; no atomics, no sort: the walk fixes the order, and the results
-// repeat bit for bit.  Bound on the H100: bytes (the cotangent read once,
-// the indices, the output); the index re-reads of each block's tiles come
-// from L2.
+// Scatter design: two launches, each index read once and each cotangent
+// row once, no atomics and no sort.  1. bs_partition: a block of 8 warps
+// per (cloud, piece of a unit's padded edges; a piece is the whole unit up
+// to kPiece edges) reads the piece's indices once, clamps them, and
+// partitions its real edges stably by destination group of kGroup rows
+// (ogc::stable_partition, csr.cuh: per-warp 16-bit histograms with one
+// writer per counter, a scan, ranks among equal-group lanes).  It writes the piece's entries in group order
+// (each a real edge's cotangent row m * S + s, shifted, with its row in the
+// group in the low bits) with coalesced stores, and the offsets of its
+// ng + 1 group segments, to scratch the wrapper allocates.
+// 2. bs_accumulate: a block of 8 warps per (cloud, destination group) lists
+// the segments of the pieces whose unit's presence (written by #9) names
+// the group's block, concatenates them in piece order, which keeps
+// ascending edge order, and takes the list kTile entries at a time: each
+// entry is found by a binary search over the segments' starts, the tile is
+// partitioned stably by row in shared memory, the listed cotangent rows are
+// copied to shared memory with cp.async, a chunk in flight while the
+// previous one is summed (ogc::sum_staged), and each thread adds its
+// (row, channel) pairs' segments in order, the sums carried in registers
+// from tile to tile.  Groups of 16 rows spread a crowded block (the
+// KITTI-SF smooth tables list some rows over a thousand times) over 8
+// blocks, and measured faster on the card than groups of 32; staging keeps
+// such a row's chain of adds in shared memory.
+// Bound on the H100: bytes, the cotangent above all (read once, in
+// destination order, so at random); the indices are read once and the
+// entries written and read once.  Measured on the card, the partition takes
+// about what #11's csr_count does on the same rows, and the sums are set by
+// the random cotangent reads (chip_smoke.py's mxu profile).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr.cuh"
 #include "gather_rows.cuh"
 
 namespace {
@@ -68,15 +80,18 @@ constexpr int kRQ = 32;  // query rows per unit of the presence
 constexpr int kMaxC = 16;
 constexpr int kGatherThreads = 256;
 constexpr int kGatherWarps = kGatherThreads / 32;
-constexpr int kScatterThreads = 512;
-constexpr int kWarps = kScatterThreads / 32;
-constexpr int kRowWarps = kCB / 32;               // 4 warps cover the rows
-constexpr int kChanGroups = kWarps / kRowWarps;   // and 4 the channels
-constexpr int kLaneC = kMaxC / kChanGroups;       // sums per lane
-constexpr int kSub = 4096;                        // edges staged at a time
-constexpr int kPerWarp = kSub / kWarps;
-constexpr int kPiece = 1024;                      // hits staged at a time
-constexpr int kScatterSmem = (2 * kSub + kWarps) * 4 + kPiece * kMaxC * 4;
+constexpr int kPartThreads = 256;
+constexpr int kPartWarps = kPartThreads / 32;
+constexpr int kAccThreads = 256;
+constexpr int kAccWarps = kAccThreads / 32;
+constexpr int kPiece = 8192;      // padded edges a partition block takes
+constexpr int kMaxGroups = 4096;  // destination groups a cloud
+constexpr int kMaxPieces = 4096;  // pieces a cloud
+constexpr int kTile = 2048;       // list entries an accumulation block sorts
+constexpr int kLg = 4;            // a destination group is 2^kLg rows
+constexpr int kGroup = 1 << kLg;
+constexpr int kMaxPairs = kGroup * kMaxC / kAccThreads;  // sums a thread
+constexpr int kStageFloats = 8192;  // cotangent values staged at a time
 
 // The output position of padded edge e (row e / s_pad, slot e % s_pad) of a
 // cloud: the count of real edges (slot < S) before it, row-major.
@@ -147,120 +162,156 @@ __global__ void __launch_bounds__(kGatherThreads)
   for (int j = threadIdx.x; j < nb; j += kGatherThreads) pres[j] = s_pres[j];
 }
 
-__global__ void __launch_bounds__(kScatterThreads)
-    bs_scatter_kernel(const int32_t* __restrict__ idx,
-                      const float* __restrict__ cot,
-                      const uint8_t* __restrict__ presence, int n, int C,
-                      int M, int S, int s_pad, int nu, int nb,
-                      float* __restrict__ out) {
-  extern __shared__ uint4 smem_s[];
-  int32_t* s_idx = reinterpret_cast<int32_t*>(smem_s);  // kSub: row or -1
-  int32_t* s_list = s_idx + kSub;  // kSub: (offset in the sub-tile << 7) | row
-  int* s_wcnt = s_list + kSub;     // kWarps
-  float* s_cot = reinterpret_cast<float*>(s_wcnt + kWarps);  // kPiece * C
-  const int blk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int base = blk * kCB;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rw = warp % kRowWarps;  // rows rw * 32 + lane of the block
-  const int cg = warp / kRowWarps;  // channels cg, cg + 4, cg + 8, cg + 12
-  const unsigned below = (1u << lane) - 1u;
+// Dynamic shared memory of the two scatter kernels.
+__host__ __device__ constexpr int partition_smem(int piece, int ng) {
+  return piece * 12 + kPartWarps * ((ng + 1) & ~1) * 2 +
+         (ng + 1 + kPartWarps) * 4;
+}
+
+__host__ __device__ constexpr int accumulate_smem(int pieces) {
+  return (2 * pieces + 1) * 4 + kTile * 8 + (kGroup + 1 + kAccWarps) * 4 +
+         kStageFloats * 4 + kAccWarps * kGroup * 2;
+}
+
+// Piece p of a cloud (unit p / ppu, part p % ppu) covers padded edges
+// [e0, e0 + len) of the cloud's table.
+__device__ __forceinline__ void piece_edges(int p, int ppu, int piece,
+                                            int unit_edges, int& e0,
+                                            int& len) {
+  const int u = p / ppu;
+  const int q0 = (p - u * ppu) * piece;
+  e0 = u * unit_edges + q0;
+  len = min(piece, unit_edges - q0);
+}
+
+__global__ void __launch_bounds__(kPartThreads)
+    bs_partition_kernel(const int32_t* __restrict__ idx, int n, int M, int S,
+                        int s_pad, int piece, int ppu, int pieces, int ng,
+                        int32_t* __restrict__ ent,
+                        int32_t* __restrict__ offs) {
+  extern __shared__ uint4 smem_p[];
+  const int ws = (ng + 1) & ~1;
+  int32_t* s_i = reinterpret_cast<int32_t*>(smem_p);  // piece: row or -1
+  int32_t* s_pk = s_i + piece;   // piece: the entry of a real edge
+  int32_t* s_out = s_pk + piece;  // piece: the entries in group order
+  uint16_t* hist = reinterpret_cast<uint16_t*>(s_out + piece);  // warps x ws
+  int32_t* s_start = reinterpret_cast<int32_t*>(hist + kPartWarps * ws);
+  int32_t* s_wsum = s_start + ng + 1;
+  const int p = blockIdx.x, b = blockIdx.y;
   const int unit_edges = kRQ * s_pad;
-  const int32_t* idxb = idx + (int64_t)b * nu * unit_edges;
-  const float* cotb = cot + (int64_t)b * M * S * C;
-  const uint8_t* pres = presence + (int64_t)b * nu * nb + blk;
-  float acc[kLaneC];
-#pragma unroll
-  for (int i = 0; i < kLaneC; ++i) acc[i] = 0.0f;
-  for (int t = 0; t < nu; ++t) {
-    if (!pres[(int64_t)t * nb]) continue;  // the same for the whole CTA
-    for (int s0 = 0; s0 < unit_edges; s0 += kSub) {
-      const int len = min(kSub, unit_edges - s0);
-      const int e_sub = t * unit_edges + s0;
-      __syncthreads();  // the previous sub-tile is consumed
-      for (int j = threadIdx.x; j < len; j += kScatterThreads) {
-        const int e = e_sub + j;
-        const int m = e / s_pad;
-        const int d = min(max(idxb[e], 0), n - 1) - base;
-        // Pad edges (m >= M or s >= S) address no row.
-        s_idx[j] = (m < M && e - m * s_pad < S) ? d : -1;
-      }
-      __syncthreads();
-      // Compact the sub-tile's edges addressed to this block, in ascending
-      // order: warp w owns [w * kPerWarp, (w + 1) * kPerWarp).
-      int cnt = 0;
-      for (int r = 0; r < kPerWarp; r += 32) {
-        const int j = warp * kPerWarp + r + lane;
-        const bool hit = j < len && (unsigned)s_idx[j] < (unsigned)kCB;
-        cnt += __popc(__ballot_sync(0xffffffffu, hit));
-      }
-      if (lane == 0) s_wcnt[warp] = cnt;
-      __syncthreads();
-      int off = 0, total = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        off += w < warp ? s_wcnt[w] : 0;
-        total += s_wcnt[w];
-      }
-      for (int r = 0; r < kPerWarp; r += 32) {
-        const int j = warp * kPerWarp + r + lane;
-        const bool hit = j < len && (unsigned)s_idx[j] < (unsigned)kCB;
-        const unsigned bal = __ballot_sync(0xffffffffu, hit);
-        if (hit) s_list[off + __popc(bal & below)] = (j << 7) | s_idx[j];
-        off += __popc(bal);
-      }
-      for (int p0 = 0; p0 < total; p0 += kPiece) {
-        const int plen = min(kPiece, total - p0);
-        __syncthreads();  // the list is complete; the last piece consumed
-        // The piece's cotangent rows, all loads in flight together.
-        for (int u = threadIdx.x; u < plen * C; u += kScatterThreads) {
-          const int q = u / C;
-          const int e = e_sub + (s_list[p0 + q] >> 7);
-          const int m = e / s_pad;
-          s_cot[u] = cotb[((int64_t)m * S + (e - m * s_pad)) * C + u - q * C];
-        }
-        __syncthreads();
-        if (cg >= C) continue;  // no channel for this warp (C < 4)
-        // 32 entries at a time, one per lane.  A ballot finds the entries
-        // addressed to this warp's 32 rows; five more spell out each
-        // entry's row bit by bit, so every lane gets the mask of its own
-        // entries and adds them in ascending order, all lanes at once.
-        for (int c0 = 0; c0 < plen; c0 += 32) {
-          const int jj = c0 + lane;
-          const int d =
-              jj < plen ? (s_list[p0 + jj] & (kCB - 1)) - rw * 32 : -1;
-          const bool hit = (unsigned)d < 32u;
-          const unsigned hits = __ballot_sync(0xffffffffu, hit);
-          if (hits == 0) continue;
-          unsigned mine = hits;
-#pragma unroll
-          for (int k = 0; k < 5; ++k) {
-            const unsigned bit =
-                __ballot_sync(0xffffffffu, hit && ((d >> k) & 1));
-            mine &= ((lane >> k) & 1) ? bit : ~bit;
-          }
-          while (mine) {
-            const int j = __ffs(mine) - 1;
-            mine &= mine - 1;
-            const float* row = s_cot + (c0 + j) * C;
-#pragma unroll
-            for (int i = 0; i < kLaneC; ++i) {
-              const int c = cg + i * kChanGroups;
-              if (c < C) acc[i] = __fadd_rn(acc[i], row[c]);
-            }
-          }
-        }
-      }
-    }
+  int e0, len;
+  piece_edges(p, ppu, piece, unit_edges, e0, len);
+  const int32_t* ib = idx + (int64_t)b * (pieces / ppu) * unit_edges;
+  // Indices are in [0, n) by contract; the clamp keeps a bad one in bounds,
+  // as #9 and bs_prologue clamp.  Pad edges (m >= M or s >= S) go to no
+  // group.  A real edge's entry: its cotangent row m * S + s, then its row
+  // in the group in the low kLg bits.
+  const int low = kGroup - 1;
+  for (int t = threadIdx.x; t < len; t += kPartThreads) {
+    const int e = e0 + t;
+    const int m = e / s_pad;
+    const int s = e - m * s_pad;
+    const int v = min(max(__ldcs(ib + e), 0), n - 1);
+    const bool real = m < M && s < S;
+    s_i[t] = real ? v : -1;
+    s_pk[t] = real ? ((m * S + s) << kLg) | (v & low) : 0;
   }
-  const int r = base + rw * 32 + lane;
-  if (r < n) {
-    float* o = out + ((int64_t)b * n + r) * C;
-#pragma unroll
-    for (int i = 0; i < kLaneC; ++i) {
-      const int c = cg + i * kChanGroups;
-      if (c < C) o[c] = acc[i];
+  __syncthreads();
+  ogc::stable_partition<kPartWarps>(
+      len, ng, [&](int t) { const int v = s_i[t]; return v < 0 ? -1 : v >> kLg; },
+      hist, ws, s_start, s_wsum, [&](int pos, int t) { s_out[pos] = s_pk[t]; });
+  int32_t* eb = ent + ((int64_t)b * pieces + p) * piece;
+  for (int j = threadIdx.x; j < s_start[ng]; j += kPartThreads) {
+    eb[j] = s_out[j];
+  }
+  int32_t* ob = offs + ((int64_t)b * pieces + p) * (ng + 1);
+  for (int j = threadIdx.x; j <= ng; j += kPartThreads) ob[j] = s_start[j];
+}
+
+__global__ void __launch_bounds__(kAccThreads)
+    bs_accumulate_kernel(const float* __restrict__ cot,
+                         const uint8_t* __restrict__ presence,
+                         const int32_t* __restrict__ ent,
+                         const int32_t* __restrict__ offs, int n, int C,
+                         int M, int S, int piece, int ppu, int pieces, int nb,
+                         int ng, float* __restrict__ out) {
+  extern __shared__ uint4 smem_a[];
+  int32_t* s_pos = reinterpret_cast<int32_t*>(smem_a);  // pieces + 1
+  int32_t* s_base = s_pos + pieces + 1;                   // pieces
+  int32_t* s_ent = s_base + pieces;                       // kTile
+  int32_t* s_sorted = s_ent + kTile;                      // kTile
+  int32_t* s_start = s_sorted + kTile;                    // kGroup + 1
+  int32_t* s_wsum = s_start + kGroup + 1;                 // kAccWarps
+  float* s_val = reinterpret_cast<float*>(s_wsum + kAccWarps);
+  uint16_t* hist = reinterpret_cast<uint16_t*>(s_val + kStageFloats);
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int rows = min(kGroup, n - g * kGroup);
+  const int blk = g * kGroup / kCB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nu = pieces / ppu;
+  // The group's segment of every piece whose unit reaches its block: its
+  // start in the piece (s_base) and its place in the concatenation (s_pos,
+  // an exclusive scan over the pieces in order).
+  const int K = (pieces + kAccThreads - 1) / kAccThreads;
+  const int p0 = min(pieces, (int)threadIdx.x * K), p1 = min(pieces, p0 + K);
+  int run = 0;
+  for (int p = p0; p < p1; ++p) {
+    int o0 = 0, o1 = 0;
+    if (presence[((int64_t)b * nu + p / ppu) * nb + blk]) {
+      const int32_t* o = offs + ((int64_t)b * pieces + p) * (ng + 1) + g;
+      o0 = o[0];
+      o1 = o[1];
     }
+    s_base[p] = o0;
+    s_pos[p] = o1 - o0;
+    run += o1 - o0;
+  }
+  const int incl = ogc::warp_inclusive_scan(run);
+  if (lane == 31) s_wsum[warp] = incl;
+  __syncthreads();
+  int before = incl - run;
+  for (int w = 0; w < warp; ++w) before += s_wsum[w];
+  for (int p = p0; p < p1; ++p) {
+    const int cnt = s_pos[p];
+    s_pos[p] = before;
+    s_base[p] -= before;
+    before += cnt;
+  }
+  if (threadIdx.x == kAccThreads - 1) s_pos[pieces] = before;
+  __syncthreads();
+  const int total = s_pos[pieces];
+  const int32_t* entb = ent + (int64_t)b * pieces * piece;
+  const float* cotb = cot + (int64_t)b * M * S * C;
+  float acc[kMaxPairs];
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) acc[k] = 0.0f;
+  for (int t0 = 0; t0 < total; t0 += kTile) {
+    const int len = min(kTile, total - t0);
+    __syncthreads();  // the previous tile's sums have read s_sorted
+#pragma unroll 4
+    for (int t = threadIdx.x; t < len; t += kAccThreads) {
+      const int q = t0 + t;
+      int lo = 0, hi = pieces;  // s_pos[lo] <= q < s_pos[hi]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_pos[mid] <= q) lo = mid; else hi = mid;
+      }
+      s_ent[t] = entb[(int64_t)lo * piece + s_base[lo] + q];
+    }
+    __syncthreads();
+    ogc::stable_partition<kAccWarps>(
+        len, rows, [&](int t) { return s_ent[t] & (kGroup - 1); }, hist,
+        kGroup, s_start, s_wsum,
+        [&](int pos, int t) { s_sorted[pos] = s_ent[t] >> kLg; });
+    ogc::sum_staged(acc, rows * C, C, len, s_start,
+                    [&](int s) { return s_sorted[s]; }, cotb, s_val,
+                    kStageFloats / (2 * C));
+  }
+  float* o = out + ((int64_t)b * n + g * kGroup) * C;
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int p = threadIdx.x + k * kAccThreads;
+    if (p < rows * C) o[p] = acc[k];
   }
 }
 
@@ -312,25 +363,51 @@ extern "C" int ogc_bs_gather(const void* src, const void* idx, int B, int N,
 // idx (B, nu * 32 * s_pad) int32, the padded table; cot (B, M, S, C) f32;
 // presence (B, nu, nb) uint8, whether rows [32 u, 32 u + 32) of the table
 // reach block j, nb = ceil(n / 128); out (B, n, C) f32, every row written
-// (rows no edge addresses are 0).  Requires n >= 1, 1 <= C <= 16,
-// M <= nu * 32, S <= s_pad, nu * 32 * s_pad < 2^31.
+// (rows no edge addresses are 0).  Each unit's 32 * s_pad padded edges go
+// in ppu pieces of `piece` (the last one ragged); destinations in groups
+// of 16 rows, ng = ceil(n / 16); scratch (int32) holds B * nu * ppu * piece
+// entries, then B * nu * ppu * (ng + 1) offsets (ops/blocksparse.py::
+// bs_scatter_plan).  Requires n >= 1 and ng <= 4096 (n <= 65536),
+// 1 <= C <= 16, M <= nu * 32, S <= s_pad, 1 <= piece <= 8192,
+// ppu * piece >= 32 * s_pad > (ppu - 1) * piece, nu * ppu <= 4096,
+// M * S < 2^27, nu * 32 * s_pad < 2^31, B <= 65535.  Launches bs_partition
+// and bs_accumulate on `stream`; returns the first CUDA error (0 on
+// success).
 extern "C" int ogc_bs_scatter(const void* idx, const void* cot,
                               const void* presence, int B, int n, int C,
                               int M, int S, int s_pad, int nu, int nb,
-                              void* out, void* stream) {
-  if (B < 1 || n < 1 || C < 1 || C > kMaxC || nu < 1 || M > nu * kRQ ||
-      S > s_pad || nb != (n + kCB - 1) / kCB ||
-      (int64_t)nu * kRQ * s_pad >= ((int64_t)1 << 31)) {
+                              int piece, int ppu, void* scratch, void* out,
+                              void* stream) {
+  const int64_t unit_edges = (int64_t)kRQ * s_pad;
+  const int64_t ng = ((int64_t)n + kGroup - 1) / kGroup;
+  if (B < 1 || B > 65535 || n < 1 || C < 1 || C > kMaxC || nu < 1 ||
+      M > nu * kRQ || S > s_pad || nb != (n + kCB - 1) / kCB ||
+      ng > kMaxGroups || piece < 1 || piece > kPiece || ppu < 1 ||
+      (int64_t)M * S > (INT32_MAX >> kLg) ||
+      (int64_t)ppu * piece < unit_edges ||
+      (int64_t)(ppu - 1) * piece >= unit_edges ||
+      (int64_t)nu * ppu > kMaxPieces ||
+      (int64_t)nu * unit_edges >= ((int64_t)1 << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  static int done[ogc::kMaxDevices];
-  const cudaError_t err =
-      ogc::smem_opt_in(bs_scatter_kernel, kScatterSmem, done);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nb, B);
-  bs_scatter_kernel<<<grid, kScatterThreads, kScatterSmem,
-                      (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const float*)cot, (const uint8_t*)presence, n, C,
-      M, S, s_pad, nu, nb, (float*)out);
+  const int pieces = nu * ppu;
+  int32_t* ent = (int32_t*)scratch;
+  int32_t* offs = ent + (int64_t)B * pieces * piece;
+  const int psmem = partition_smem(piece, (int)ng);
+  const int asmem = accumulate_smem(pieces);
+  static int done_p[ogc::kMaxDevices], done_a[ogc::kMaxDevices];
+  cudaError_t err;
+  if ((err = ogc::smem_opt_in(bs_partition_kernel, psmem, done_p)) ||
+      (err = ogc::smem_opt_in(bs_accumulate_kernel, asmem, done_a))) {
+    return (int)err;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  bs_partition_kernel<<<dim3(pieces, B), kPartThreads, psmem, st>>>(
+      (const int32_t*)idx, n, M, S, s_pad, piece, ppu, pieces, (int)ng, ent,
+      offs);
+  if ((err = cudaGetLastError())) return (int)err;
+  bs_accumulate_kernel<<<dim3((int)ng, B), kAccThreads, asmem, st>>>(
+      (const float*)cot, (const uint8_t*)presence, ent, offs, n, C, M, S,
+      piece, ppu, pieces, nb, (int)ng, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "csr.cuh"
 #include "gather_rows.cuh"
 
 namespace {
@@ -73,77 +74,19 @@ constexpr int kMaxWindow = 8192;
 constexpr int kMaxChunk = 65280;  // offsets inside a chunk fit 16 bits
 constexpr int kMaxSmem = 227 * 1024 - 1024;
 
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
+using ogc::warp_exclusive_scan;
+using ogc::warp_inclusive_scan;
 
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += o;
-  }
-  return v;
-}
-
-// out[i] = carry + a[0] + ... + a[i-1] for i < n, by one whole warp;
-// returns carry + the sum of a.
-__device__ int warp_exclusive_scan(const int32_t* a, int n, int carry,
-                                   int32_t* out) {
-  const int lane = threadIdx.x & 31;
-  for (int i0 = 0; i0 < n; i0 += 32) {
-    const int i = i0 + lane;
-    const int v = i < n ? a[i] : 0;
-    const int incl = warp_inclusive_scan(v);
-    if (i < n) out[i] = carry + incl - v;
-    carry += __shfl_sync(kFull, incl, 31);
-  }
-  return carry;
-}
-
-// One warp walks rows [r0, r1) of a batch 32 at a time in ascending r; for
-// every lane of a step it calls f(in, r, d, rank, len): `in` if the lane's
-// row r has its destination in [w0, w0 + wn), d its offset in that window,
-// `rank` the number of this step's rows to d with a lower r, and `len` the
-// step's rows to d at the group's first lane (0 at the others), the groups
-// found by __match_any_sync.  Every lane calls f, then the warp syncs.  The
-// destinations of kAhead steps are loaded, and their groups matched,
-// before the first f: neither a load nor a match a step then puts its
-// latency into every step.
-constexpr int kAhead = 8;
-
+// One warp walks rows [r0, r1) of a batch (ogc::warp_walk) with the key
+// of row r its destination's offset in the window [w0, w0 + wn), -1
+// outside.
 template <typename Idx, typename F>
 __device__ __forceinline__ void warp_walk(const Idx* __restrict__ ib, int r0,
                                           int r1, int w0, int wn, F f) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = lanemask_lt();
-  for (int rb = r0; rb < r1; rb += 32 * kAhead) {
-    int d[kAhead];
-    unsigned group[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      const Idx v = ib[min(rb + 32 * u + lane, r1 - 1)];
-      const bool in = rb + 32 * u + lane < r1 && v >= (Idx)w0 &&
-                      v < (Idx)w0 + (Idx)wn;
-      d[u] = in ? (int)(v - (Idx)w0) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      group[u] = __match_any_sync(kFull, (unsigned)d[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      if (rb + 32 * u >= r1) break;
-      const bool in = d[u] >= 0;
-      const bool first = in && (group[u] & below) == 0;
-      f(in, rb + 32 * u + lane, d[u], __popc(group[u] & below),
-        first ? __popc(group[u]) : 0);
-      __syncwarp();
-    }
-  }
+  ogc::warp_walk(r0, r1, [&](int r) {
+    const Idx v = ib[r];
+    return v >= (Idx)w0 && v < (Idx)w0 + (Idx)wn ? (int)(v - (Idx)w0) : -1;
+  }, f);
 }
 
 // Rows [r0, r1) of a batch that warp `warp` of chunk c walks.

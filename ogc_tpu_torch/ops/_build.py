@@ -53,13 +53,14 @@ _SIGNATURES = {
     "ogc_scatter_add_rows": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P],
     "ogc_gather_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "ogc_scatter_add_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "ogc_scatter_add_rows_onehot": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "ogc_rowgroup_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P, _P],
     "ogc_bs_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P],
-    "ogc_bs_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_bs_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P],
     "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                      _P, _P],
 }

@@ -20,7 +20,13 @@ table itself, as the JAX package's ``_bs_prologue`` does.
 * ``scatter_add_blocksparse`` (B, M, S) x (B, M, S, C) -> (B, N, C), each
   destination row summed in ascending edge order from 0.0f: the contract of
   ops/scatter.py (#11), whose ``scatter_add_rows_plain`` is its plain
-  version.
+  version.  On the card a first launch partitions each piece of the padded
+  table (an RQ-row unit, in ``ppu`` pieces where it has more than
+  SCATTER_PIECE edges) stably by destination group (SCATTER_GROUP rows)
+  into scratch; a second takes, per (cloud, group), the segments of the pieces
+  whose unit the presence names for the group's block, in order,
+  partitions them by row and sums each (row, channel) in order.
+  ``bs_scatter_plan`` sizes the pieces, the groups and the scratch.
 * ``group_blocksparse`` the pair as an autograd function: the forward runs
   ``bs_pad`` (no work when M is a multiple of ``QT``, S is even and the
   table is int32, as on the KITTI-SF smooth tables) and #9, and keeps the
@@ -39,6 +45,7 @@ kernel launches.  float32 only, C <= 16 on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -57,6 +64,10 @@ MAX_C = 16
 # 128-word buffer per warp and the unit's presence row, in at most
 # SMEM_LIMIT bytes of shared memory (the H100's opt-in maximum).
 GATHER_WARPS, PIECE, SMEM_LIMIT = 8, 4096, 232448
+# #10's launches (csrc/onehot_bs.cu): partition blocks take pieces of at
+# most SCATTER_PIECE padded edges; accumulation blocks take one group of
+# SCATTER_GROUP destination rows each (the kernel's kGroup).
+SCATTER_PIECE, SCATTER_GROUP = 8192, 16
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -100,6 +111,34 @@ def bs_gather_plan(n: int, M: int, S: int) -> GatherPlan:
     piece = min(RQ * s_pad, PIECE)
     smem = (GATHER_WARPS * 128 + piece) * 4 + -(-n // CB)
     return GatherPlan(m_pad, s_pad, m_pad // RQ, piece, smem)
+
+
+class ScatterPlan(NamedTuple):
+    """#10's launches: each RQ-row unit's ``RQ * s_pad`` padded edges in
+    ``ppu`` pieces of ``piece`` (the last one ragged), ``pieces`` a cloud;
+    ``ng`` destination groups of SCATTER_GROUP rows; ``words`` int32 of
+    scratch a cloud (the pieces' entries, then their ng + 1 group
+    offsets)."""
+    s_pad: int
+    units: int
+    piece: int
+    ppu: int
+    pieces: int
+    ng: int
+    words: int
+
+
+@functools.lru_cache(maxsize=None)
+def bs_scatter_plan(n: int, M: int, S: int) -> ScatterPlan:
+    """#10's launches for a (M, S) table into ``n`` rows."""
+    m_pad, s_pad = _pad_to(M, QT), _pad_to(S, 2)
+    unit_edges, units = RQ * s_pad, m_pad // RQ
+    ng = -(-n // SCATTER_GROUP)
+    ppu = -(-unit_edges // SCATTER_PIECE)
+    piece = -(-unit_edges // ppu)
+    pieces = units * ppu
+    words = pieces * piece + pieces * (ng + 1)
+    return ScatterPlan(s_pad, units, piece, ppu, pieces, ng, words)
 
 
 class Prologue(NamedTuple):
@@ -207,7 +246,12 @@ def scatter_add_blocksparse(idx: torch.Tensor, cot: torch.Tensor, n: int,
     """(B, M, S) int in [0, n) x (B, M, S, C) float32 -> (B, n, C) float32,
     each row summed in ascending edge order.  ``table`` is the one #9
     returned for ``idx`` (or a ``bs_prologue(idx, n)``), computed here when
-    not given."""
+    not given.  On the card the kernels take n <= 65536 (4096 groups of
+    16 rows), at most 4096 partition pieces a cloud (M up to about 131072
+    rows at S <= 128) and M * S < 2^27 edges a cloud, and raise beyond them
+    (the partition's offsets and the accumulation's list of pieces live in
+    shared memory); the plain version has no such limits.  The KITTI-SF
+    tables (n 8192, 256 pieces) are far inside."""
     if idx.is_cpu and cot.is_cpu:
         return scatter_add_blocksparse_plain(idx, cot, n)
     dev = _check("scatter_add_blocksparse", ("idx", idx), ("cot", cot))
@@ -228,13 +272,18 @@ def scatter_add_blocksparse(idx: torch.Tensor, cot: torch.Tensor, n: int,
         return out
     if M * S == 0:
         return out.zero_()
+    plan = bs_scatter_plan(n, M, S)
     table = table or bs_prologue(idx, n)
-    cot = cot.contiguous()
+    if not cot.is_contiguous():
+        cot = cot.contiguous()
+    scratch = _build.empty((B * plan.words,), torch.int32, cot.device)
     err = _build.lib().ogc_bs_scatter(
         table.idx.data_ptr(), cot.data_ptr(), table.presence.data_ptr(), B,
-        n, C, M, S, table.s_pad, table.presence.shape[1],
-        table.presence.shape[2], out.data_ptr(), _build.raw_stream(dev))
-    _build.check(err, "ogc_bs_scatter")
+        n, C, M, S, table.s_pad, plan.units, table.presence.shape[2],
+        plan.piece, plan.ppu, scratch.data_ptr(), out.data_ptr(),
+        _build.raw_stream(dev))
+    _build.check(err, f"ogc_bs_scatter (n={n}, M={M}, S={S}: {plan.ng} "
+                 f"groups, {plan.pieces} pieces)")
     scatter_add_blocksparse.launches += 1
     return out
 

@@ -28,6 +28,16 @@ bound-pruned kernel (ops/knn_pruned.py, #4) instead of #2 behind the JAX
 package's opt-in gate: ``OGC_PALLAS_EXACT_PRUNE=knn`` (read at import, or
 ``set_exact_prune``), 4096 <= M <= 16384, M >= k and N >= 1024 queries.
 
+Distances, a documented deviation: the port computes the direct-form d2
+((dx*dx + dy*dy) + dz*dz, as the Pallas kernels and the reference CUDA do)
+at every size, where the JAX package, below its Pallas gates (M, N < 1024),
+takes XLA on the expanded form |a|^2 - 2ab + |b|^2.  On continuous SAPIEN
+scenes (tests/test_torch_search_form.py: 32 clouds of 512 points) the exact
+lists differ only at near-ties, within the expanded form's rounding bound:
+SA0's k 64 lists 6 of 8192 before the radius clamp (0 after the 0.1 clamp,
+3 after the 0.2 one), and none at SA1, the two FP three_nn, the smooth KNN
+and ball, and OA-ICP's k = 1 interpolation.
+
 ``pool_neighbors`` (ops/pool.py, #12) reduces grouped features over the
 neighbour axis behind the JAX package's ``OGC_PALLAS_POOL`` gate.
 

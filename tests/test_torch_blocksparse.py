@@ -20,6 +20,20 @@ input of #10) is held to JAX's per-tile lists; #9's launch plan
 csrc/onehot_bs.cu makes: every padded edge loaded once, every output edge
 written once, the rows and the presence equal to indexing and to
 ``bs_prologue``'s.
+
+#10 is held by a numpy model of its two kernels under ``bs_scatter_plan``:
+bs_partition splits each piece's real edges stably by destination group
+(csr.cuh::stable_partition, tests/test_torch_scatter_onehot_csr.py's
+model) into packed entries and group offsets; bs_accumulate lists, per
+group, the segments of the pieces whose unit the presence names, in order
+(every piece with entries for the group is named), partitions each 2048-
+entry tile stably by row and sums each (row, channel) in order.  Its sums
+must be the plain version's bits on every case above and on SCATTER_CASES:
+a hub of in-degree >= 1000 (integer data, also against JAX's
+group_blocksparse VJP with its Pallas kernel in interpret mode), every
+edge to one destination, empty destinations, n = 1, rows of 300 padded
+edges (two pieces a unit), and C from 1 to 16.  ``bs_scatter_plan`` at
+every site chip_smoke.py drives stays inside the kernels' limits.
 """
 
 import jax
@@ -30,6 +44,7 @@ import pytest
 from ogc_tpu.ops import core
 from ogc_tpu.ops.pallas_onehot import (_BS_CAP, _bs_pad, _bs_prologue,
                                        _pad_to, group_blocksparse)
+from tests.test_torch_scatter_onehot_csr import partition_model
 from tests.torch_port_helper import pack, run_torch
 
 # name: (seed, B, N, C, M, S, table width (None: uniform), integer data)
@@ -43,6 +58,23 @@ CASES = {"coherent": (5, 2, 1024, 10, 700, 7, 300, False),
          "c11": (12, 1, 1500, 11, 600, 17, 150, False),
          "c16": (13, 1, 768, 16, 256, 10, None, True),
          "wide": (14, 1, 700, 11, 300, 201, 100, False)}
+# #10's own cases, (seed, B, N, C, M, S, table kind, integer data): a hub
+# (1200 edges to row 7 of a coherent table), every edge to one destination,
+# empty destinations (every fourth row only), n = 1, rows of 300 padded
+# edges (two partition pieces a unit), and every C from 1 to 16.
+SCATTER_CASES = {"hub": (20, 2, 1024, 8, 512, 16, "hub", True),
+                 "one_dest": (21, 2, 512, 11, 300, 17, "one", False),
+                 "empty_dests": (22, 1, 1024, 11, 512, 16, "fourth", False),
+                 "n1": (23, 2, 1, 4, 100, 7, "zero", False),
+                 "two_pieces": (24, 1, 700, 11, 300, 300, "uniform", False)}
+SCATTER_CASES.update({f"s_c{C}": (30 + C, 1, 300, C, 256, 7, "coherent",
+                                  False) for C in range(1, 17)})
+# (n, M, S) #10 launch plans at chip_smoke.py's sites: the KITTI-SF smooth
+# table, SAPIEN's, the ragged table (also its C 1..16 cases) and the
+# uniform one, the edge cases (one destination, n 1, two pieces a unit).
+SCATTER_PLANS = [(8192, 8192, 96), (512, 512, 24), (1500, 1500, 17),
+                 (8192, 1024, 16), (512, 300, 17), (1, 100, 7),
+                 (700, 300, 300)]
 # (n, M, S) launch plans beside the cases': the KITTI-SF, SAPIEN, ragged
 # and uniform tables of chip_smoke.py, tiny ones, and rows of more padded
 # edges than one piece (S 200: two pieces per unit; S 129: a 64-edge rest).
@@ -58,7 +90,28 @@ def _coherent_idx(rng, B, M, S, N, width):
     return np.clip(i + off, 0, N - 1).astype(np.int32)
 
 
+def _scatter_inputs(case):
+    seed, B, N, C, M, S, kind, integer = SCATTER_CASES[case]
+    rng = np.random.RandomState(seed)
+    if kind in ("hub", "coherent", "fourth"):
+        idx = _coherent_idx(rng, B, M, S, N, 60)
+        if kind == "hub":
+            idx.reshape(B, -1)[:, 1000:2200] = 7
+        if kind == "fourth":
+            idx = idx // 4 * 4
+    elif kind == "uniform":
+        idx = rng.randint(0, N, (B, M, S)).astype(np.int32)
+    else:
+        idx = np.full((B, M, S), 3 if kind == "one" else 0, np.int32)
+    src = rng.randn(B, N, C).astype(np.float32)
+    cot = (rng.randint(-4, 5, (B, M, S, C)) if integer
+           else rng.randn(B, M, S, C)).astype(np.float32)
+    return {"src": src, "idx": idx, "cot": cot}
+
+
 def _inputs(case):
+    if case in SCATTER_CASES:
+        return _scatter_inputs(case)
     seed, B, N, C, M, S, width, integer = CASES[case]
     rng = np.random.RandomState(seed)
     if integer:
@@ -75,10 +128,11 @@ def _inputs(case):
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_blocksparse")
-    x = {f"{case}/{k}": v for case in CASES
+    x = {f"{case}/{k}": v for case in (*CASES, *SCATTER_CASES)
          for k, v in _inputs(case).items()}
-    inp = pack(str(tmp / "in.npz"), x, {"cases": list(CASES),
-                                        "plans": PLANS})
+    inp = pack(str(tmp / "in.npz"), x,
+               {"cases": [*CASES, *SCATTER_CASES], "plans": PLANS,
+                "scatter_plans": SCATTER_PLANS})
     (out,) = run_torch([("blocksparse", inp, str(tmp / "out.npz"))])
     return x, out
 
@@ -228,3 +282,101 @@ def test_presence_matches_jax_tile_lists(port, case):
             blocks = np.flatnonzero(tiles[b, t])[:_BS_CAP]
             assert count[b, t] == len(blocks)
             np.testing.assert_array_equal(order[b, t, :count[b, t]], blocks)
+
+
+# #10's kernels (csrc/onehot_bs.cu): partition and accumulation warps, list
+# entries an accumulation tile sorts, cotangent values staged at a time,
+# groups and pieces a cloud, rows a group, the largest piece.
+PART_WARPS, ACC_WARPS, TILE, STAGE_FLOATS = 8, 8, 2048, 8192
+MAX_GROUPS, MAX_PIECES, GROUP, MAX_PIECE = 4096, 4096, 16, 8192
+RQ_ = 32  # table rows a unit of the presence
+
+
+def _bs_scatter_model(padded, presence, g, n, M, S, splan):
+    """(n, C) float32 as bs_partition and bs_accumulate sum one cloud:
+    padded (m_pad * s_pad,) table, presence (units, nb), g (M * S, C)."""
+    s_pad, units, piece, ppu, pieces, ng = (int(v) for v in splan[:6])
+    group, unit_edges, C = GROUP, RQ_ * s_pad, g.shape[-1]
+    lg = group.bit_length() - 1
+    ents, offs = [], np.zeros((pieces, ng + 1), np.int64)
+    for p in range(pieces):  # bs_partition
+        u, part = divmod(p, ppu)
+        e0 = u * unit_edges + part * piece
+        e = e0 + np.arange(min(piece, unit_edges - part * piece))
+        m, s = e // s_pad, e % s_pad
+        v = np.clip(padded[e], 0, n - 1).astype(np.int64)
+        real = (m < M) & (s < S)
+        start, order = partition_model(np.where(real, v >> lg, -1), ng,
+                                       PART_WARPS)
+        packed = ((m * S + s) << lg) | (v & (group - 1))
+        assert (packed[real] < 2 ** 31).all()
+        ents.append(packed[order])
+        offs[p] = start
+    out = np.zeros((n, C), np.float32)
+    for gi in range(ng):  # bs_accumulate
+        rows, blk = min(group, n - gi * group), gi * group // 128
+        named = presence[np.arange(pieces) // ppu, blk].astype(bool)
+        lens = offs[:, gi + 1] - offs[:, gi]
+        assert not lens[~named].any()  # the presence names every segment
+        pos = np.concatenate([[0], np.cumsum(np.where(named, lens, 0))])
+        acc = np.zeros((rows, C), np.float32)
+        for t0 in range(0, int(pos[-1]), TILE):
+            q = np.arange(t0, min(int(pos[-1]), t0 + TILE))
+            lo = np.searchsorted(pos, q, side="right") - 1  # binary search
+            v = np.array([ents[p][offs[p, gi] + qq - pos[p]]
+                          for p, qq in zip(lo, q)], np.int64)
+            start, order = partition_model(v & (group - 1), rows, ACC_WARPS)
+            crow = v[order] >> lg
+            chunk = STAGE_FLOATS // C  # entries staged at a time
+            for c0 in range(0, len(q), chunk):
+                deg = (np.minimum(start[1:], c0 + chunk)
+                       - np.maximum(start[:-1], c0)).clip(0)
+                first = np.maximum(start[:-1], c0)
+                for k in range(int(deg.max(initial=0))):
+                    r = np.flatnonzero(deg > k)
+                    acc[r] = acc[r] + g[crow[first[r] + k]]
+        out[gi * group:gi * group + rows] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", [*CASES, *SCATTER_CASES])
+def test_scatter_model_sums_to_the_plain_bits(port, case):
+    """The modelled kernels' sums on each cloud equal the plain version's
+    bits (the grouping's backward)."""
+    x, out = port
+    src, idx, cot = (x[f"{case}/{k}"] for k in ("src", "idx", "cot"))
+    B, M, S, C = cot.shape
+    n = src.shape[1]
+    for b in range(B):
+        got = _bs_scatter_model(out[case + "/padded"][b],
+                                out[case + "/presence"][b],
+                                cot[b].reshape(M * S, C), n, M, S,
+                                out[case + "/splan"])
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      out[case + "/grad"][b].view(np.uint32))
+    if case == "hub":
+        assert np.bincount(idx.reshape(-1), minlength=n).max() >= 1000
+
+
+def test_hub_scatter_matches_pallas(port):
+    """On integer data every order sums exactly: the plain version's bits
+    are JAX group_blocksparse's VJP (Pallas #10 in interpret mode)."""
+    x, out = port
+    _, want = _jax(x, "hub")
+    np.testing.assert_array_equal(out["hub/grad"].view(np.uint32),
+                                  want.view(np.uint32))
+
+
+@pytest.mark.parametrize("k", range(len(SCATTER_PLANS)))
+def test_scatter_plan_stays_inside_the_kernel_limits(port, k):
+    _, out = port
+    n, M, S = SCATTER_PLANS[k]
+    s_pad, units, piece, ppu, pieces, ng, words = (
+        int(v) for v in out["scatter_plans"][k])
+    m_pad, unit_edges = _pad_to(M, 256), RQ_ * s_pad
+    assert s_pad == _pad_to(S, 2) and units * RQ_ == m_pad
+    assert 1 <= piece <= MAX_PIECE and ppu * piece >= unit_edges
+    assert (ppu - 1) * piece < unit_edges and pieces == units * ppu
+    assert pieces <= MAX_PIECES and ng == -(-n // GROUP) <= MAX_GROUPS
+    assert M * S * GROUP < 2 ** 31
+    assert words == pieces * piece + pieces * (ng + 1)

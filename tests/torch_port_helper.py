@@ -643,6 +643,54 @@ def _case_scatter_csr(x, cfg, state):
     return out
 
 
+def _case_scatter_onehot_csr(x, cfg, state):
+    """The small-source scatter-add's plain version (CPU tensors) for every
+    case, int32 and int64 idx, and ops/onehot.py::onehot_scatter_plan of
+    each case; and of ``cfg["plan_sites"]`` (B, n, C, rows): the plan's
+    window where rows is None, else ``scatter_window``'s cut of rows."""
+    import torch
+
+    from ogc_tpu_torch.ops.onehot import (onehot_scatter_plan,
+                                          scatter_add_rows_onehot,
+                                          scatter_window)
+
+    out = {}
+    for name, n in cfg["cases"].items():
+        idx = torch.from_numpy(x[name + "/idx"])
+        g = torch.from_numpy(x[name + "/g"])
+        out[name + "/sum"] = scatter_add_rows_onehot(idx, g, n).numpy()
+        out[name + "/sum64"] = scatter_add_rows_onehot(idx.long(), g,
+                                                       n).numpy()
+        out[name + "/plan"] = np.array(onehot_scatter_plan(
+            idx.shape[0], n, g.shape[-1]))
+    out["site_plans"] = np.array([
+        onehot_scatter_plan(B, n, C) if rows is None
+        else scatter_window(n, C, rows)
+        for B, n, C, rows in cfg["plan_sites"]])
+    return out
+
+
+def _case_search_form(x, cfg, state):
+    """The port's exact routes (``ops.knn`` / ``ops.ball_query`` with
+    ``exact=True``) on each site's CPU clouds: raw (dist, idx) of a KNN,
+    the filled ball of a ball query."""
+    import torch
+
+    from ogc_tpu_torch import ops
+
+    out = {}
+    for name, (kind, k, radius) in cfg["sites"].items():
+        q = torch.from_numpy(x[name + "/q"])
+        p = torch.from_numpy(x[name + "/p"])
+        if kind == "knn":
+            d, i = ops.knn(k, q, p, exact=True)
+            out[name + "/dist"], out[name + "/idx"] = d.numpy(), i.numpy()
+        else:
+            out[name + "/idx"] = ops.ball_query(radius, k, p, q,
+                                                exact=True).numpy()
+    return out
+
+
 def _case_pruned(x, cfg, state):
     """#4's plain version, its prologue's survivors, and which shapes
     ops.knn routes to #4 under each gate setting (exact mode)."""
@@ -690,8 +738,9 @@ def _case_pruned(x, cfg, state):
 def _case_blocksparse(x, cfg, state):
     """#9/#10's plain versions through ``group_blocksparse`` (forward, and
     the backward of a cotangent), the prologue's lists and presence, #9's
-    launch plan, and #11's plain version on the flattened table; and the
-    launch plans of ``cfg["plans"]`` (n, M, S) shapes."""
+    and #10's launch plans, and #11's plain version on the flattened table;
+    and the launch plans of ``cfg["plans"]`` (n, M, S) shapes for #9 and
+    ``cfg["scatter_plans"]`` (n, M, S) for #10."""
     import torch
 
     from ogc_tpu_torch.ops import blocksparse as bs
@@ -701,7 +750,9 @@ def _case_blocksparse(x, cfg, state):
     out = {"plans": np.array([bs.bs_gather_plan(*shape)
                               for shape in cfg["plans"]]),
            "plan_consts": np.array([bs.RQ, bs.CB, bs.GATHER_WARPS,
-                                    bs.SMEM_LIMIT])}
+                                    bs.SMEM_LIMIT]),
+           "scatter_plans": np.array([bs.bs_scatter_plan(*site)
+                                      for site in cfg["scatter_plans"]])}
     for name in cfg["cases"]:
         src = torch.from_numpy(x[name + "/src"]).requires_grad_(True)
         idx = torch.from_numpy(x[name + "/idx"])
@@ -716,6 +767,8 @@ def _case_blocksparse(x, cfg, state):
                     name + "/presence": pro.presence.numpy(),
                     name + "/padded": pro.idx.numpy(),
                     name + "/plan": np.array(bs.bs_gather_plan(
+                        src.shape[1], M, S)),
+                    name + "/splan": np.array(bs.bs_scatter_plan(
                         src.shape[1], M, S)),
                     name + "/out": got.detach().numpy(),
                     name + "/grad": src.grad.numpy(),
@@ -849,6 +902,8 @@ CASES = {
     "blockmin_select": _case_blockmin_select,
     "ball_select": _case_ball_select,
     "scatter_csr": _case_scatter_csr,
+    "scatter_onehot_csr": _case_scatter_onehot_csr,
+    "search_form": _case_search_form,
     "pruned": _case_pruned,
     "flownet": _case_flownet,
     "blocksparse": _case_blocksparse,
