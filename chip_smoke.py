@@ -4,8 +4,8 @@
 
 1. Requires a CUDA card; prints its name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ogc_tpu_torch/csrc with nvcc, and
-   prints ptxas's registers, shared memory and spills for #1's, #2's,
-   #3's, #5's, #7's to #11's and #12's.
+   prints ptxas's registers, shared memory and spills for every kernel but
+   #13's (served by #11's), the fused prologue of #4 and #6 included.
 3. Kernel phase.  Holds each kernel against its plain PyTorch version on the
    card at every shape the paths give it, on grid-quantized clouds
    (1/8 grid: every d2 is exact, ties are common); outputs must be
@@ -133,26 +133,40 @@ ReLU on and off; timed by single call, device time and host enqueue beside
 torch.amax), on NaN and -0.0 rows with the scale and add absent, given, or a
 -0.0 add, and at its runtime-S and scalar instances, and the bound-pruned exact
 KNN (#4) at every shape its gate admits on the flow path and the seg parity
-path, a ragged M and k = 64 over 32-point blocks, bit-equal to their plain
-versions and #4 to #2; the block-sparse gather and scatter (#9/#10) on the mxu
-path's tables (sorted synthetic KITTI-SF scenes, 4 x 8192 x 96, C 11),
-SAPIEN's, a ragged N with an odd S and a uniform table (every 256-row tile
-reaches 64 blocks), #9 bit-equal to advanced indexing with the presence it
-writes equal to bs_prologue's, #10 fed that presence bit-equal to its plain
-version and #11 (timed by single call and device time beside #11 and
-index_add_), with the blocks per tile, #10 also on its edge cases (a hub,
-empty destinations, one destination, n 1, two pieces a unit, C 1..16) with
-#9's presence and with bs_prologue's, and #9 at every C from 1 to 16 from an
-aligned and an
-unaligned source; #7 also at every C from 1 to 16, N 1 and
-1024 and a ragged E; #7 and #9 timed by single call and by device time beside
+path, a ragged M and N, k = 1, k = 64 over 32-point blocks, every point at one
+place and clouds over one CTA's sort (20000 points), bit-equal to their plain
+versions and #4 to #2, its fused prologue (sort, selection) bit-equal to the
+torch prologue, timed apart from its search; the block-sparse gather and
+scatter (#9/#10) on the mxu path's tables (sorted synthetic KITTI-SF scenes, 4
+x 8192 x 96, C 11), SAPIEN's, a ragged N with an odd S and a uniform table
+(every 256-row tile reaches 64 blocks), #9 bit-equal to advanced indexing with
+the presence it writes equal to bs_prologue's, #10 fed that presence bit-equal
+to its plain version and #11 (timed by single call and device time beside #11
+and index_add_), with the blocks per tile, #10 also on its edge cases (a hub,
+empty destinations, one destination, n 1, two pieces a unit, C 1..16) with #9's
+presence and with bs_prologue's, and #9 at every C from 1 to 16 from an aligned
+and an unaligned source; #7 also at every C from 1 to 16, N 1 and 1024 and a
+ragged E; #7 and #9 timed by single call and by device time beside
 torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
-grid clouds, bit-equal to its plain version, beside #3 and #2 with its recall.
+grid clouds and at its edge cases (a pad block among the candidates, k 1 and
+64, 32-point blocks, ragged N and M, 20000-point clouds, real points beyond the
+pad point), bit-equal to its plain version, its fused prologue to the torch
+prologue, timed apart from its search beside #3 and #2 with its recall.
+
+The derived launches of a #4 call are four (the fused prologue's sort, the #3
+pre-pass, the fused selection, the search), of a #6 call three; two more
+(the sort's merge and finish) where a cloud is over one CTA's sort.
+
+``pruned_crossover()`` (not run by main) times the searches of #4 and #6
+at other launch sizes (queries a warp, warps a CTA), each built alone with
+``-D``, against the library's at the flow forward's and the bench's
+shapes: the measurement behind the sizes the two kernels are built with.
 
 ``parent_ab(root)`` (not run by main) times #1, #11, #3, #5, #8 and #10 of
 a checkout of the port the same way (#8 and #10 on inputs of their own
-seed, through scatter_ab): run on the parent's checkout and on this tree's,
-in one call, it gives an A/B on one card.
+seed, through scatter_ab), and #4 and #6 split into prologue and kernel
+(pruned_ab): run on the parent's checkout and on this tree's, in one call,
+it gives an A/B on one card.
 
 Every phase raises on failure (exit code != 0).  The line before the last is
 a JSON object with one entry per kernel; the last line is
@@ -230,7 +244,7 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
            "scatter_onehot", "knn_blockmin", "ball_blockmin", "pool",
            "knn_exact_pruned", "gather_blocksparse", "scatter_blocksparse",
-           "knn_cand_pruned")
+           "knn_cand_pruned", "pruned_sort", "pruned_select")
 
 
 def launch_counts(**kw):
@@ -358,8 +372,9 @@ FLOW_CPU_ITERS, FLOW_TOL = 2, 2e-5
 #   gather_onehot 1  the first corr FP's three_interpolate of the 3-channel
 #                 flow from 256 points (ops/onehot.py's gate).
 # With OGC_PALLAS_EXACT_PRUNE=knn, the enc_loc searches (4096 x 8192 and
-# 2048 x 4096, k 32: M >= 4096, N >= 1024) take #4 instead of #2, each
-# after one #3 pre-pass: 2 + 2 x 4 = 10.  With OGC_PALLAS_POOL=on every
+# 2048 x 4096, k 32: M >= 4096, N >= 1024) take #4 instead of #2: 2 + 2 x 4
+# = 10 calls, each four launches (the fused prologue's sort, the #3
+# pre-pass, the fused selection, the search).  With OGC_PALLAS_POOL=on every
 # pool whose S is a power of two launches #12 (flow_pool_sites).
 FLOW_EXACT = launch_counts(fps=5, knn_exact=24, gather_onehot=1)
 FLOW_PRUNED = 2 + 2 * (FLOW_ITERS - 1)
@@ -396,8 +411,9 @@ SAP_FLOW = launch_counts(fps=4, knn_exact=9 + 3 * (SAP_FLOW_ITERS - 1),
 
 
 # The symbols of #1's, #2's, #3's, #5's, #8's, #10's, #11's and #12's
-# kernels, summed per call in every profile (#3's ball mode and #5 are
-# instances of one template, ball_kernel<blk>; #5's blk is 1).
+# kernels, and of #4's and #6's prologue and search kernels, summed per call
+# in every profile (#3's ball mode and #5 are instances of one template,
+# ball_kernel<blk>; #5's blk is 1).
 PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                     "#2 knn_exact": ("knn_exact_kernel", "knn_warp_kernel"),
                     "#3 knn_blockmin": ("blockmin_thread_kernel",
@@ -412,7 +428,13 @@ PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                                         "csr_place_kernel",
                                         "accumulate_warp_kernel",
                                         "accumulate_thread_kernel"),
-                    "#12 pool": ("rowgroup_pool_kernel",)}
+                    "#12 pool": ("rowgroup_pool_kernel",),
+                    "#4/#6 fused sort": ("sort_kernel", "merge_kernel",
+                                         "finish_kernel"),
+                    "#4 fused selection": ("select_kernel<true>",),
+                    "#4 search": ("pruned_knn_kernel",),
+                    "#6 fused selection": ("select_kernel<false>",),
+                    "#6 search": ("cand_knn_kernel",)}
 
 
 def log(*a):
@@ -1056,7 +1078,8 @@ def scatter_ab(label):
 def parent_ab(root):
     """#1, #11, #3 and #5 of a checkout of the port, timed as this
     tree's check_fps, check_scatter, check_blockmin and check_ball time
-    them, and #8 and #10 as scatter_ab times them, for an A/B on one card:
+    them, #8 and #10 as scatter_ab times them, and #4 and #6 as pruned_ab
+    times them, for an A/B on one card:
 
         python3 -c 'import chip_smoke; chip_smoke.parent_ab("<root>")'
 
@@ -1144,7 +1167,197 @@ def parent_ab(root):
         f"ms; device {total['device']:.4f} ms (prologue "
         f"{total['prologue']:.4f}, kernel {total['kernel']:.4f})")
     scatter_ab(who)
+    pruned_ab(who, gen)
 
+
+def pruned_ab(who, gen):
+    """#4 at the gated flow forward's sites and #6 at bench_knn_pruned's
+    settings (grid clouds) of the port imported, by single call and device
+    time, split into the prologue and the search kernel: for a port with
+    ops/pruned_prologue.py the fused prologue (with #4's #3 pre-pass) and
+    the search; for one up to d832318 the torch prologue (prologue and
+    survivors) and the kernel on its outputs (the un-sort gathers after it
+    are the rest of the call).  Then a profile of one #4 and one #6 call
+    (launches and device-side events per call)."""
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.ops import knn_cand as KC
+    from ogc_tpu_torch.ops import knn_pruned as KP
+    from ogc_tpu_torch.tools.bench_knn_pruned import CASES
+
+    fused = hasattr(KP, "fused_prologue")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def split_4(q, p, k):
+        nq, m = q.shape[1], p.shape[1]
+        if fused:
+            srt, sel = KP.fused_prologue(q, p, k)
+            return (lambda: KP.fused_prologue(q, p, k),
+                    lambda: KP.search(srt, sel, nq, m, k))
+        pro = KP.prologue(q, p, KP.CB, KP.QT)
+        order, count = KP.survivors(pro, p, k, KP.QT)
+        b, np_ = pro.q_s.shape[:2]
+        dist = torch.empty((b, np_, k), device="cuda")
+        idx = torch.empty((b, np_, k), dtype=torch.int32, device="cuda")
+
+        def kernel():
+            _build.check(_build.lib().ogc_knn_exact_pruned(
+                pro.q_s.data_ptr(), pro.p_s.data_ptr(), pro.pid.data_ptr(),
+                order.data_ptr(), count.data_ptr(), b, np_,
+                pro.p_s.shape[1], order.shape[1], order.shape[2], k, KP.CB,
+                KP.QT, dist.data_ptr(), idx.data_ptr(), stream()), who)
+
+        return (lambda: KP.survivors(KP.prologue(q, p, KP.CB, KP.QT), p, k,
+                                     KP.QT), kernel)
+
+    def split_6(q, p, k, n_cand, blk):
+        N, M = q.shape[1], p.shape[1]
+        if fused:
+            srt, sel = KC.fused_prologue(q, p, n_cand)
+            return (lambda: KC.fused_prologue(q, p, n_cand),
+                    lambda: KC.search(srt, sel, N, M, k, blk))
+        pro = KC.prologue(q, p, n_cand)
+        b, np_ = pro.q_s.shape[:2]
+        dist = torch.empty((b, np_, k), device="cuda")
+        idx = torch.empty((b, np_, k), dtype=torch.int32, device="cuda")
+
+        def kernel():
+            _build.check(_build.lib().ogc_knn_cand(
+                pro.q_s.data_ptr(), pro.p_s.data_ptr(), pro.pid.data_ptr(),
+                pro.cand.data_ptr(), b, np_, pro.p_s.shape[1], n_cand, k,
+                blk, KC.CB, KC.QT, pro.idx_bits, dist.data_ptr(),
+                idx.data_ptr(), stream()), who)
+
+        return lambda: KC.prologue(q, p, n_cand), kernel
+
+    def timed(call, prologue, kernel):
+        return {"single": cuda_ms(call, 10), "device": device_ms(call),
+                "prologue": device_ms(prologue),
+                "kernel": device_ms(kernel)}
+
+    def add(total, t, calls):
+        for key, v in t.items():
+            total[key] = (None if total.get(key, 0.0) is None or v is None
+                          else total.get(key, 0.0) + calls * v)
+
+    def fmt(t):
+        return ", ".join(f"{n} {fmt_ms(v)}" for n, v in t.items())
+
+    rest = FLOW_ITERS - 1
+    total = {}
+    for b, nq, m, calls in ((2 * FLOW_B, 4096, 8192, 1),
+                            (2 * FLOW_B, 2048, 4096, 1),
+                            (FLOW_B, 4096, 8192, rest),
+                            (FLOW_B, 2048, 4096, rest)):
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        t = timed(lambda: KP.knn_exact_pruned(q, p, 32), *split_4(q, p, 32))
+        add(total, t, calls)
+        log(f"{who}: knn_exact_pruned ({b},{nq} q,{m} p,k=32) x{calls}/"
+            f"forward: {fmt(t)} ms")
+    log(f"{who}: per flow forward: knn_exact_pruned {fmt(total)} ms")
+    q, p = grid_cloud(gen, 2 * FLOW_B, 4096), grid_cloud(gen, 2 * FLOW_B, 8192)
+    profile_steps(f"{who} #4 calls ({2 * FLOW_B} x 4096 x 8192, k 32)",
+                  lambda _: KP.knn_exact_pruned(q, p, 32))
+    total = {}
+    for B, N, M, k, cfgs in CASES:
+        q, p = grid_cloud(gen, B, N), grid_cloud(gen, B, M)
+        for bc, blk in cfgs:
+            n_cand = KC.resolve(M, k, bc, blk)[0]
+            t = timed(lambda: KC.knn_cand(q, p, k, bc, blk=blk),
+                      *split_6(q, p, k, n_cand, blk))
+            add(total, t, 1)
+            log(f"{who}: knn_cand B{B} N{N} M{M} k{k} (n_cand {bc}, blk "
+                f"{blk}): {fmt(t)} ms")
+    log(f"{who}: per bench_knn_pruned pass: knn_cand {fmt(total)} ms")
+    profile_steps(f"{who} #6 calls (B{B} N{N} M{M} k{k}, n_cand {bc})",
+                  lambda _: KC.knn_cand(q, p, k, bc, blk=blk))
+
+
+
+# pruned_crossover's launch sizes, (queries a warp, warps a CTA): #4's
+# lists must fit static shared memory (at most 32 queries a CTA at k 64),
+# #6's CTA holds at most 1024 threads and its queries divide a tile of 128.
+KNN4_SIZES = [(q, w) for q in (1, 2, 4) for w in (4, 8, 16, 32)
+              if q * w <= 32]
+KNN6_SIZES = [(q, w) for q in (1, 2, 4) for w in (8, 16, 32)]
+
+
+def pruned_crossover():
+    """The searches of #4 and #6 at every launch size of KNN4_SIZES and
+    KNN6_SIZES, each source built alone with -D (``_build.variants``):
+    #4 at the gated flow forward's four sites (16 and 8 clouds of 4096 x
+    8192 and 2048 x 4096, k 32), #6 at bench_knn_pruned's settings (grid
+    clouds), each size bit-equal to the library's search on the same
+    fused prologue, by device time beside it; and the sum per flow forward
+    and per bench pass.  Run from the repo's root in its own process:
+
+        python3 -c 'import chip_smoke; chip_smoke.pruned_crossover()'
+
+    The measurement behind the sizes knn_exact_pruned.cu and
+    knn_cand_pruned.cu are built with (not run by main)."""
+    if not torch.cuda.is_available():
+        sys.exit("pruned_crossover: no CUDA device")
+    os.chdir(REPO)
+    sys.path.insert(0, REPO)
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.ops import knn_cand as KC
+    from ogc_tpu_torch.ops import knn_pruned as KP
+    from ogc_tpu_torch.tools.bench_knn_pruned import CASES
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(f"pruned_crossover: {smi.stdout.strip()}")
+    t0 = time.perf_counter()
+    libs = _build.variants(
+        [("knn_exact_pruned.cu", {"OGC_KNN4_QUERIES": q, "OGC_KNN4_WARPS": w})
+         for q, w in KNN4_SIZES]
+        + [("knn_cand_pruned.cu", {"OGC_KNN6_QUERIES": q, "OGC_KNN6_WARPS": w})
+           for q, w in KNN6_SIZES])
+    lib4, lib6 = libs[:len(KNN4_SIZES)], libs[len(KNN4_SIZES):]
+    log(f"pruned_crossover: {len(libs)} builds in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def row(what, ref, sizes, libs, launch, total, calls):
+        times = {"library": device_ms(lambda: launch(_build.lib()), 10, 3)}
+        for size, lib in zip(sizes, libs):
+            got = launch(lib)
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"pruned_crossover {what}: size {size} "
+                                     f"!= the library's search")
+            times[size] = device_ms(lambda: launch(lib), 10, 3)
+        for key, v in times.items():
+            total[key] = total.get(key, 0.0) + calls * v
+        log(f"pruned_crossover {what}: device ms (queries a warp, warps a "
+            f"CTA): " + "; ".join(f"{n} {v:.4f}" for n, v in times.items()))
+
+    rest = FLOW_ITERS - 1
+    total = {}
+    for b, nq, m, calls in ((2 * FLOW_B, 4096, 8192, 1),
+                            (2 * FLOW_B, 2048, 4096, 1),
+                            (FLOW_B, 4096, 8192, rest),
+                            (FLOW_B, 2048, 4096, rest)):
+        q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
+        srt, sel = KP.fused_prologue(q, p, 32)
+        row(f"#4 ({b},{nq} q,{m} p,k=32) x{calls}/forward",
+            KP.search(srt, sel, nq, m, 32), KNN4_SIZES, lib4,
+            lambda lib: KP._launch(srt, sel, nq, m, 32, lib), total, calls)
+    log("pruned_crossover #4 per flow forward: device ms "
+        + "; ".join(f"{n} {v:.4f}" for n, v in total.items()))
+    total = {}
+    for B, N, M, k, cfgs in CASES:
+        q, p = grid_cloud(gen, B, N), grid_cloud(gen, B, M)
+        for bc, blk in cfgs:
+            n_cand = KC.resolve(M, k, bc, blk)[0]
+            srt, sel = KC.fused_prologue(q, p, n_cand)
+            row(f"#6 B{B} N{N} M{M} k{k} (n_cand {bc}, blk {blk})",
+                KC.search(srt, sel, N, M, k, blk), KNN6_SIZES, lib6,
+                lambda lib: KC._launch(srt, sel, N, M, k, blk, lib), total,
+                1)
+    log("pruned_crossover #6 per bench pass: device ms "
+        + "; ".join(f"{n} {v:.4f}" for n, v in total.items()))
 
 def blockmin_launch(k, b, nq, m, rec):
     """(kernel, CTAs) of the port's #3 KNN for k over ``b`` clouds of
@@ -1589,20 +1802,45 @@ def check_pool_cases(gen):
         f"instances: {n} cases bit-equal to plain")
 
 
+def same(a, b):
+    """bits_equal for floats; equal shape, dtype and values for integers."""
+    if a.is_floating_point():
+        return bits_equal(a, b)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def check_prologue(what, pairs):
+    """Each (name, fused kernel's output, torch prologue's) pair the same
+    bits."""
+    for name, got, want in pairs:
+        if not same(got, want):
+            raise AssertionError(f"{what}: fused prologue's {name} != the "
+                                 f"torch prologue's")
+
+
 def check_pruned(report, gen):
     """#4 at every shape its gate admits on the flow path (enc_loc SA1 4096 x
     8192 and SA2 2048 x 4096, k 32, at 2B = 16 clouds before the refinement
     and at B = 8 in it), at the seg parity SA0 (2048 x 8192, k 64) and smooth
-    KNN (8192 x 8192, k 32) shapes, a ragged M = 5000 and k = 64 over blocks
-    of 32 points: bit-equal to its plain version and to #2.  Timed beside
-    the plain version and #2 ("general"); bound as #2's (the pairs in each
-    query's k-th-distance cube, D2_OPS operations each, or the bytes); the
-    survivor share is the surviving (tile, block) pairs over all."""
+    KNN (8192 x 8192, k 32) shapes, and at its edge cases: a ragged M = 5000,
+    k = 64 over blocks of 32 points, k 1, a ragged N = 1000, every point at
+    one place (every pair tied, nothing pruned), and clouds over one CTA's
+    sort (M 20000, N 20000: the sort in runs).  Each call bit-equal to its
+    plain version and to #2, and its fused prologue's sorted clouds, ids,
+    boxes, lb2, order and count bit-equal to the torch prologue's
+    (prologue, survivors).  At the flow sites, timed by single call and
+    device time, split into the fused prologue (sort, #3 pre-pass,
+    selection) and the search kernel, beside the torch prologue, the plain
+    version and #2 ("general"); launches of one call (derived: sort, #3,
+    selection, search, and the sort's merge and finish over one CTA's
+    sort).  Bound as #2's (the pairs in each query's
+    k-th-distance cube, D2_OPS operations each, or the bytes); the survivor
+    share is the surviving (tile, block) pairs over all."""
+    from ogc_tpu_torch.ops import knn_pruned as KP
     from ogc_tpu_torch.ops.knn import knn_exact
-    from ogc_tpu_torch.ops.knn_pruned import (CB, QT, knn_exact_pruned,
-                                              knn_exact_pruned_plain,
-                                              prologue, survivors)
+    from ogc_tpu_torch.ops.pruned_prologue import sort_launches
 
+    CB, QT = KP.CB, KP.QT
     rest = FLOW_ITERS - 1
     # (label, clouds, queries, points, k, cb, calls per flow forward)
     cases = [("flow enc_loc SA1", 2 * FLOW_B, 4096, 8192, 32, CB, 1),
@@ -1612,11 +1850,22 @@ def check_pruned(report, gen):
              ("seg SA0", BATCH, 2048, 8192, 64, CB, 0),
              ("smooth knn", TRAIN_B, 8192, 8192, SMOOTH_K, CB, 0),
              ("ragged M", 2, 2048, 5000, 32, CB, 0),
-             ("k 64 over 32-point blocks", 2, 1024, 4096, 64, 32, 0)]
+             ("k 64 over 32-point blocks", 2, 1024, 4096, 64, 32, 0),
+             ("k 1", 2, 1024, 4096, 1, CB, 0),
+             ("ragged N", 2, 1000, 4096, 32, CB, 0),
+             ("every point at one place", 2, 1024, 4096, 16, CB, 0),
+             ("M over one CTA's sort", 2, 2048, 20000, 32, CB, 0),
+             ("N over one CTA's sort", 1, 20000, 8192, 16, CB, 0)]
+    total = {"single": 0.0, "device": 0.0, "prologue": 0.0, "search": 0.0,
+             "torch prologue": 0.0}
     for label, b, nq, m, k, cb, calls in cases:
         q, p = grid_cloud(gen, b, nq), grid_cloud(gen, b, m)
-        d, i = knn_exact_pruned(q, p, k, cb)
-        pd, pi = knn_exact_pruned_plain(q, p, k, cb)
+        if label == "every point at one place":
+            p = torch.full_like(p, 7.5)
+        reset_counts()
+        d, i = KP.knn_exact_pruned(q, p, k, cb)
+        one_call = read_counts()
+        pd, pi = KP.knn_exact_pruned_plain(q, p, k, cb)
         ed, ei = knn_exact(q, p, k)
         torch.cuda.synchronize()
         for other, od, oi in (("plain", pd, pi), ("#2", ed, ei)):
@@ -1625,23 +1874,61 @@ def check_pruned(report, gen):
                     f"knn_exact_pruned {label}: kernel != {other} at "
                     f"{(i != oi).sum().item()} indices, max dist diff "
                     f"{(d - od).abs().max().item()}")
-        order, count = survivors(prologue(q, p, cb, QT), p, k, QT)
+        want = launch_counts(pruned_sort=sort_launches(m, nq),
+                             knn_blockmin=1, pruned_select=1,
+                             knn_exact_pruned=1)
+        if one_call != want:
+            raise AssertionError(f"knn_exact_pruned {label}: launches "
+                                 f"{one_call}, derived {want}")
+        srt, sel = KP.fused_prologue(q, p, k, cb, QT)
+        pro = KP.prologue(q, p, cb, QT)
+        order, count = KP.survivors(pro, p, k, QT)
+        check_prologue(f"knn_exact_pruned {label}", (
+            ("q_s", srt.q_s, pro.q_s), ("p_s", srt.p4[..., :3], pro.p_s),
+            ("pid", srt.p4[..., 3].view(torch.int32), pro.pid),
+            ("qid", srt.qid[:, :nq], pro.qid.to(torch.int32)),
+            ("q_box", srt.q_box, pro.q_box), ("p_box", srt.p_box, pro.p_box),
+            ("lb2", sel.lb2, pro.lb2), ("order", sel.blocks, order),
+            ("count", sel.count, count)))
         share = count.sum().item() / (count.numel() * order.shape[-1])
-        ms = cuda_ms(lambda: knn_exact_pruned(q, p, k, cb), 10)
-        pro_ms = cuda_ms(lambda: survivors(prologue(q, p, cb, QT), p, k, QT),
-                         10)
-        pms = cuda_ms(lambda: knn_exact_pruned_plain(q, p, k, cb), 3)
+        if not calls:
+            log(f"knn_exact_pruned {label} ({b},{nq} q,{m} p,k={k},cb={cb}): "
+                f"idx and dist bit-equal to plain and to #2, the fused "
+                f"prologue to the torch prologue; survivor share "
+                f"{share:.4f}")
+            continue
+        t = {"single": cuda_ms(lambda: KP.knn_exact_pruned(q, p, k, cb), 10),
+             "device": device_ms(lambda: KP.knn_exact_pruned(q, p, k, cb)),
+             "prologue": device_ms(lambda: KP.fused_prologue(q, p, k, cb)),
+             "search": device_ms(lambda: KP.search(srt, sel, nq, m, k)),
+             "torch prologue": device_ms(
+                 lambda: KP.survivors(KP.prologue(q, p, cb, QT), p, k, QT))}
+        pro_ms = cuda_ms(lambda: KP.survivors(KP.prologue(q, p, cb, QT), p,
+                                              k, QT), 10)
+        pms = cuda_ms(lambda: KP.knn_exact_pruned_plain(q, p, k, cb), 3)
         gms = cuda_ms(lambda: knn_exact(q, p, k), 10)
+        gdev = device_ms(lambda: knn_exact(q, p, k))
         pairs = box_pairs(q, p, d[..., -1])
         bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8), pairs * D2_OPS)
-        if calls:
-            report.add("knn_exact_pruned", 0, ms, pms, bnd, by,
-                       per_step=calls, general=gms)
+        report.add("knn_exact_pruned", 0, t["single"], pms, bnd, by,
+                   per_step=calls, general=gms, device=(t["device"], None))
+        for key in total:
+            total[key] = (None if total[key] is None or t[key] is None
+                          else total[key] + calls * t[key])
         log(f"knn_exact_pruned {label} ({b},{nq} q,{m} p,k={k},cb={cb}) "
-            f"x{calls}/forward: idx and dist bit-equal to plain and to #2; "
-            f"survivor share {share:.4f}; kernel {ms:.4f} ms (of which the "
-            f"prologue with its #3 pre-pass {pro_ms:.4f} ms), plain "
-            f"{pms:.4f} ms, #2 {gms:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"x{calls}/forward: idx and dist bit-equal to plain and to #2, "
+            f"the fused prologue to the torch prologue; survivor share "
+            f"{share:.4f}; single {t['single']:.4f} ms, device "
+            f"{t['device']:.4f} ms (fused prologue {t['prologue']:.4f}, "
+            f"search {t['search']:.4f}); torch prologue single {pro_ms:.4f}, "
+            f"device {fmt_ms(t['torch prologue'])}; plain {pms:.4f} ms, #2 "
+            f"{gms:.4f} single / {gdev:.4f} device, bound {bnd:.4f} ms "
+            f"({by})")
+    log("per KITTI-SF flow forward (gate on): knn_exact_pruned "
+        + ", ".join(f"{n} {fmt_ms(v)}" for n, v in total.items()) + " ms")
+    q, p = grid_cloud(gen, 2 * FLOW_B, 4096), grid_cloud(gen, 2 * FLOW_B, 8192)
+    profile_steps("#4 calls (flow enc_loc SA1, 16 x 4096 x 8192, k 32)",
+                  lambda _: KP.knn_exact_pruned(q, p, 32))
 
 
 def sapien_tables(gen, clouds):
@@ -2075,54 +2362,139 @@ def check_blocksparse_cases(gen):
 
 def check_knn_cand(report, gen):
     """#6 at ogc_tpu_torch.tools.bench_knn_pruned's shapes and candidate
-    settings on grid clouds, bit-equal to its plain version; timed (with
-    its prologue) beside the plain version, #3 at the same shape (the
-    bench's other arm, "general"), and #2's exact route; recall of #6 and
-    of #3 against #2 (a report, not a gate).  Bound: D2_OPS f32 operations
-    per (query, candidate) pair the candidate blocks hold, or the bytes.  No
-    single PyTorch call computes it: no library time.  Weighted once per
-    (shape, setting): one pass of the bench's calls."""
+    settings on grid clouds, and at its edge cases (a pad block among the
+    candidates at blk 1, k 1, k 64, blocks of 32 points, a ragged N and M,
+    clouds over one CTA's sort: M 20000, N 20000; real points beyond the
+    pad point, so that the pad key falls among real keys): bit-equal to
+    its plain version, and its fused prologue's sorted clouds, ids, boxes,
+    lb2, scores and candidates bit-equal to the torch prologue's.  At the
+    bench's settings, timed by single call and device time, split into
+    the fused prologue (sort, selection) and the search kernel, beside the
+    torch prologue, the plain version, #3 at the same shape (the bench's
+    other arm, "general") and #2's exact route; launches of one call
+    (derived: sort, selection, search, and the sort's merge and finish
+    over one CTA's sort); recall of #6 and of #3 against #2 (a report, not
+    a gate).  Bound: D2_OPS f32
+    operations per (query, candidate) pair the candidate blocks hold, or
+    the bytes.  No single PyTorch call computes it: no library time.
+    Weighted once per (shape, setting): one pass of the bench's calls."""
+    from ogc_tpu_torch.ops import knn_cand as KC
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import knn_blockmin
-    from ogc_tpu_torch.ops.knn_cand import (CB, knn_cand, knn_cand_plain,
-                                            prologue, resolve)
+    from ogc_tpu_torch.ops.pruned_prologue import sort_launches
     from ogc_tpu_torch.tools.bench_knn_pruned import CASES
 
     def recall(i, ref):
         return (i[..., :, None] == ref[..., None, :]).any(-1).float().mean(
             ).item()
 
+    def check(label, q, p, k, bc, blk, cb):
+        N, M = q.shape[1], p.shape[1]
+        reset_counts()
+        d, i = KC.knn_cand(q, p, k, bc, blk=blk, cb=cb)
+        one_call = read_counts()
+        pd, pi = KC.knn_cand_plain(q, p, k, bc, blk=blk, cb=cb)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, pi) and bits_equal(d, pd)):
+            raise AssertionError(
+                f"knn_cand {label}: kernel != plain at "
+                f"{(i != pi).sum().item()} indices, max dist diff "
+                f"{(d - pd).abs().max().item()}")
+        want = launch_counts(pruned_sort=sort_launches(M, N),
+                             pruned_select=1, knn_cand_pruned=1)
+        if one_call != want:
+            raise AssertionError(f"knn_cand {label}: launches {one_call}, "
+                                 f"derived {want}")
+        n_cand = KC.resolve(M, k, bc, blk, cb)[0]
+        srt, sel = KC.fused_prologue(q, p, n_cand, cb)
+        pro = KC.prologue(q, p, n_cand, cb)
+        check_prologue(f"knn_cand {label}", (
+            ("q_s", srt.q_s, pro.q_s), ("p_s", srt.p4[..., :3], pro.p_s),
+            ("pid", srt.p4[..., 3].view(torch.int32), pro.pid),
+            ("qid", srt.qid[:, :N], pro.qid.to(torch.int32)),
+            ("q_box", srt.q_box, pro.q_box), ("p_box", srt.p_box, pro.p_box),
+            ("lb2", sel.lb2, pro.lb2), ("score", sel.score, pro.score),
+            ("cand", sel.blocks, pro.cand)))
+        return d, i, n_cand, srt, sel
+
+    # (label, clouds, queries, points, k, n_cand_blocks, blk, cb)
+    edges = [("pad block among the candidates, blk 1", 2, 1000, 1000, 16, 7,
+              1, KC.CB),
+             ("k 1", 2, 2048, 4096, 1, 8, 2, KC.CB),
+             ("k 64", 2, 2048, 8192, 64, 24, 2, KC.CB),
+             ("32-point blocks", 2, 1500, 3000, 32, 40, 4, 32),
+             ("ragged N and M", 2, 1001, 5003, 32, 16, 2, KC.CB),
+             ("M over one CTA's sort", 1, 2048, 20000, 32, 24, 2, KC.CB),
+             ("N over one CTA's sort", 1, 20000, 4096, 16, 8, 2, KC.CB),
+             ("real points beyond the pad point", 2, 256, 300, 32, 2, 1,
+              KC.CB)]
+    for label, B, N, M, k, bc, blk, cb in edges:
+        q, p = grid_cloud(gen, B, N), grid_cloud(gen, B, M)
+        if label == "real points beyond the pad point":
+            # All but 20 points 2e6 away, farther than the pads at 1e6:
+            # the pad key falls among the real keys, by value.
+            p[:, 20:, 0] -= 2e6
+        _, i, n_cand, _, sel = check(label, q, p, k, bc, blk, cb)
+        pads = (sel.blocks == -(-M // cb) - 1).any().item()
+        mp = -(-M // cb) * cb
+        is_pad = i == (1 << max(1, (mp - 1).bit_length())) - 1
+        # Rows where a real key follows the pad key (no pad where mp = M).
+        early = 0 if mp == M else (
+            is_pad.any(-1) & (is_pad.int().argmax(-1) < k - 1)
+            & (i[..., -1] < M)).sum().item()
+        if label == "real points beyond the pad point" and not early:
+            raise AssertionError(f"knn_cand {label}: no row has the pad key "
+                                 f"before a real key")
+        log(f"knn_cand {label} (B{B} N{N} M{M} k{k}, n_cand {n_cand}, blk "
+            f"{blk}, cb {cb}): idx and dist bit-equal to plain, the fused "
+            f"prologue to the torch prologue; pad block among the "
+            f"candidates: {pads}; rows with a real key after the pad key: "
+            f"{early}")
+    total = {"single": 0.0, "device": 0.0, "prologue": 0.0, "search": 0.0,
+             "torch prologue": 0.0}
     for B, N, M, k, cfgs in CASES:
         q, p = grid_cloud(gen, B, N), grid_cloud(gen, B, M)
         _, ei = knn_exact(q, p, k)
         _, fi = knn_blockmin(q, p, k, 0.95)
         fms = cuda_ms(lambda: knn_blockmin(q, p, k, 0.95), 10)
+        fdev = device_ms(lambda: knn_blockmin(q, p, k, 0.95))
         ems = cuda_ms(lambda: knn_exact(q, p, k), 10)
         for bc, blk in cfgs:
-            (d, i) = knn_cand(q, p, k, bc, blk=blk)
-            (pd, pi) = knn_cand_plain(q, p, k, bc, blk=blk)
-            torch.cuda.synchronize()
-            if not (torch.equal(i, pi) and torch.equal(d, pd)):
-                raise AssertionError(
-                    f"knn_cand B{B} N{N} M{M} k{k} ({bc},{blk}): kernel != "
-                    f"plain at {(i != pi).sum().item()} indices, max dist "
-                    f"diff {(d - pd).abs().max().item()}")
-            ms = cuda_ms(lambda: knn_cand(q, p, k, bc, blk=blk), 10)
-            n_cand = resolve(M, k, bc, blk)[0]
-            pro_ms = cuda_ms(lambda: prologue(q, p, n_cand), 10)
-            pms = cuda_ms(lambda: knn_cand_plain(q, p, k, bc, blk=blk), 3)
+            label = f"B{B} N{N} M{M} k{k} (n_cand {bc}, blk {blk})"
+            d, i, n_cand, srt, sel = check(label, q, p, k, bc, blk, KC.CB)
+            t = {"single": cuda_ms(lambda: KC.knn_cand(q, p, k, bc, blk=blk),
+                                   10),
+                 "device": device_ms(lambda: KC.knn_cand(q, p, k, bc,
+                                                         blk=blk)),
+                 "prologue": device_ms(lambda: KC.fused_prologue(q, p,
+                                                                 n_cand)),
+                 "search": device_ms(lambda: KC.search(srt, sel, N, M, k,
+                                                       blk)),
+                 "torch prologue": device_ms(
+                     lambda: KC.prologue(q, p, n_cand))}
+            pro_ms = cuda_ms(lambda: KC.prologue(q, p, n_cand), 10)
+            pms = cuda_ms(lambda: KC.knn_cand_plain(q, p, k, bc, blk=blk), 3)
             bnd, by = bound_ms(B * ((N + M) * 12 + N * k * 8),
-                               B * N * n_cand * CB * D2_OPS)
-            report.add("knn_cand_pruned", 0, ms, pms, bnd, by, general=fms)
-            log(f"knn_cand_pruned B{B} N{N} M{M} k{k} (n_cand {bc}, blk "
-                f"{blk}): idx and dist bit-equal to plain; kernel {ms:.4f} "
-                f"ms with its prologue ({pro_ms:.4f} ms of it), plain "
-                f"{pms:.4f} ms, #3 {fms:.4f} ms, "
-                f"#2 {ems:.4f} ms, bound {bnd:.4f} ms ({by}); recall against "
-                f"#2: #6 {recall(i, ei):.4f}, #3 {recall(fi, ei):.4f}")
-    # Where the prologue's time goes (the last setting's).
-    profile_steps(f"#6 prologues (B{B} N{N} M{M}, n_cand {n_cand})",
-                  lambda _: prologue(q, p, n_cand))
+                               B * N * n_cand * KC.CB * D2_OPS)
+            report.add("knn_cand_pruned", 0, t["single"], pms, bnd, by,
+                       general=fms, device=(t["device"], None))
+            for key in total:
+                total[key] = (None if total[key] is None or t[key] is None
+                              else total[key] + t[key])
+            log(f"knn_cand_pruned {label}: idx and dist bit-equal to plain, "
+                f"the fused prologue to the torch prologue; single "
+                f"{t['single']:.4f} ms, device {t['device']:.4f} ms (fused "
+                f"prologue {t['prologue']:.4f}, search {t['search']:.4f}); "
+                f"torch prologue single {pro_ms:.4f}, device "
+                f"{fmt_ms(t['torch prologue'])}; plain {pms:.4f} ms, #3 "
+                f"{fms:.4f} single / {fdev:.4f} device, #2 {ems:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by}); recall against #2: "
+                f"#6 {recall(i, ei):.4f}, #3 {recall(fi, ei):.4f}")
+    log("per bench_knn_pruned pass: knn_cand_pruned "
+        + ", ".join(f"{n} {fmt_ms(v)}" for n, v in total.items()) + " ms")
+    # Where a call's time goes (the last setting's).
+    profile_steps(f"#6 calls ({label})",
+                  lambda _: KC.knn_cand(q, p, k, bc, blk=blk))
 
 
 def check_kernels():
@@ -2215,7 +2587,7 @@ def check_kernels():
             f"{e['general_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), library {e['library_ms']}"
             + (f"; device: kernel {e['device_ms']:.4f} ms, library "
-               f"{e['library_device_ms']:.4f} ms" if "device_ms" in e
+               f"{fmt_ms(e['library_device_ms'])} ms" if "device_ms" in e
                else ""))
     log(f"-- mxu edge engine: #9/#10 (KITTI-SF B={TRAIN_B} x {N_POINT} per "
         f"frame; SAPIEN; ragged; uniform)")
@@ -2305,6 +2677,7 @@ def counters():
     from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                           scatter_add_rows_onehot)
     from ogc_tpu_torch.ops.pool import rowgroup_pool
+    from ogc_tpu_torch.ops.pruned_prologue import select_blocks, sort_clouds
     from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
     return {"fps": fps, "knn_exact": knn_exact,
@@ -2315,7 +2688,8 @@ def counters():
             "pool": rowgroup_pool, "knn_exact_pruned": knn_exact_pruned,
             "gather_blocksparse": gather_blocksparse,
             "scatter_blocksparse": scatter_add_blocksparse,
-            "knn_cand_pruned": knn_cand}
+            "knn_cand_pruned": knn_cand, "pruned_sort": sort_clouds,
+            "pruned_select": select_blocks}
 
 
 def reset_counts():
@@ -3064,6 +3438,7 @@ def run_flow():
                 want["pool"] = n_pool
             if setting == "on" and exact:
                 want["knn_exact_pruned"] = FLOW_PRUNED
+                want["pruned_sort"] = want["pruned_select"] = FLOW_PRUNED
                 want["knn_blockmin"] += FLOW_PRUNED
                 want["knn_exact"] -= FLOW_PRUNED
             torch.cuda.synchronize()
@@ -3247,7 +3622,8 @@ def main():
     ptxas_report([osp.join(_build.CSRC_DIR, f)
                   for f in ("fps.cu", "knn_exact.cu", "knn_blockmin.cu",
                             "ball_query.cu", "pool.cu", "scatter_add.cu",
-                            "onehot.cu", "onehot_bs.cu")])
+                            "onehot.cu", "onehot_bs.cu", "pruned_prologue.cu",
+                            "knn_exact_pruned.cu", "knn_cand_pruned.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.
@@ -3257,8 +3633,10 @@ def main():
     bench_knn_pruned.main(["--reps", str(BENCH_REPS)])
     cand_launches = read_counts()
     calls = sum(len(c[-1]) for c in bench_knn_pruned.CASES) * (BENCH_REPS + 1)
-    want = launch_counts(knn_cand_pruned=calls, knn_blockmin=len(
-        bench_knn_pruned.CASES) * (BENCH_REPS + 1))
+    # Each #6 call: the fused prologue's sort and selection, the search.
+    want = launch_counts(knn_cand_pruned=calls, pruned_sort=calls,
+                         pruned_select=calls, knn_blockmin=len(
+                             bench_knn_pruned.CASES) * (BENCH_REPS + 1))
     log(f"bench_knn_pruned: launches {cand_launches}")
     if cand_launches != want:
         raise AssertionError(f"bench_knn_pruned: launches {cand_launches}, "

@@ -55,14 +55,18 @@ _SIGNATURES = {
     "ogc_gather_rows_onehot": [_P, _P, _I, _I, _I, _I, _P, _P],
     "ogc_scatter_add_rows_onehot": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     "ogc_rowgroup_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P, _P, _P],
+    "ogc_knn_exact_pruned": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P],
+    "ogc_pruned_sort": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "ogc_pruned_select": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _I, _P, _P,
+                          _P, _P, _P],
     "ogc_bs_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P],
     "ogc_bs_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P],
-    "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                     _P, _P],
+    "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _P, _P, _P],
 }
 
 _get_fill = torch._C._get_deterministic_fill_uninitialized_memory
@@ -141,6 +145,60 @@ def build() -> str:
     return out
 
 
+def _load(path: str, whole: bool = True) -> ctypes.CDLL:
+    """A built library with its entry points typed: every one of them
+    (``whole``; a missing one raises) or those it holds."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name) if whole else getattr(handle, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return handle
+
+
+def variants(specs):
+    """Each (source, defines) of ``specs`` built alone, ``-D`` each define,
+    into a library of its own in BUILD_DIR (keyed by a hash as
+    ``library_path`` is), all nvcc processes started together; returns the
+    loaded libraries in order.  chip_smoke.py's pruned_crossover times
+    with these the launch sizes the library is not built with."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc, paths, procs = _nvcc(), [], []
+    try:
+        for source, defines in specs:
+            flags = NVCC_FLAGS + [f"-D{n}={v}"
+                                  for n, v in sorted(defines.items())]
+            src = osp.join(CSRC_DIR, source)
+            h = hashlib.sha256(" ".join(flags).encode())
+            for f in [src] + _headers():
+                with open(f, "rb") as fh:
+                    h.update(fh.read())
+            out = osp.join(BUILD_DIR, f"libogc_{osp.splitext(source)[0]}-"
+                           f"{h.hexdigest()[:16]}.so")
+            paths.append(out)
+            if osp.exists(out):
+                continue
+            cmd = [nvcc, *flags, "-shared", "-o", f"{out}.tmp", src]
+            procs.append((cmd, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, out, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+            os.replace(f"{out}.tmp", out)
+    finally:
+        for _, out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if osp.exists(f"{out}.tmp"):
+                os.remove(f"{out}.tmp")
+    return [_load(path, whole=False) for path in paths]
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call; later calls take no
     lock).  ctypes keeps each entry point's function object once fetched."""
@@ -149,12 +207,7 @@ def lib() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = _load(build())
     return _lib
 
 

@@ -1,5 +1,5 @@
-"""Candidate-pruned approximate KNN: the CUDA kernel
-(csrc/knn_cand_pruned.cu) and its plain PyTorch version.
+"""Candidate-pruned approximate KNN: the CUDA kernels (csrc/pruned_prologue.cu,
+then csrc/knn_cand_pruned.cu) and the plain PyTorch version.
 
 Replaces ogc_tpu/ops/pallas_knn.py::_knn_pruned_kernel (#6, entry point
 ``knn_pruned``), step by step as its wrapper runs it:
@@ -21,11 +21,13 @@ Replaces ogc_tpu/ops/pallas_knn.py::_knn_pruned_kernel (#6, entry point
   one key ``(bits(d2) & ~mask_low) | id``; the k smallest distinct keys
   ascending give ``idx = key & mask_low`` and the truncated
   ``dist = sqrt(max(d2, 0))``;
-* the rows back in query order.
+* the rows back in query order (the kernel writes each row there).
 
-``knn_cand`` routes by the tensors' device: CPU tensors take
-``knn_cand_plain``; CUDA tensors launch the kernel (after the prologue) or
-raise.  ``knn_cand.launches`` counts launches of this kernel.
+The prologue is plain torch here (``prologue``) and the fused kernels of
+ops/pruned_prologue.py on the card.  ``knn_cand`` routes by the tensors'
+device: CPU tensors take ``knn_cand_plain``; CUDA tensors launch the fused
+prologue's sort and selection and the search (three launches), or raise.
+``knn_cand.launches`` counts launches of the search kernel.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ from ogc_tpu_torch.ops.knn import MAX_K, check_clouds
 from ogc_tpu_torch.ops.knn_blockmin import knn_blockmin
 from ogc_tpu_torch.ops.knn_pruned import (_argsort_rows, _block_aabb,
                                           morton_codes)
+from ogc_tpu_torch.ops.pruned_prologue import (Selection, Sorted,
+                                               select_blocks, sort_clouds)
 
 CB = 128       # points per candidate block (pallas_knn.py::_CB)
-QT = 128       # queries per tile (pallas_knn.py::_PQT), one CUDA thread each
+QT = 128       # queries per tile (pallas_knn.py::_PQT)
 PAD = 1e6      # pad coordinate of points and queries
 _C2C_W = float(np.float32(1e-3))
 _BIG = 2 ** 31 - 1
@@ -83,6 +87,11 @@ class Prologue(NamedTuple):
     cand: torch.Tensor   # (B, nbq, n_cand) int32 candidate blocks per tile
     inv: torch.Tensor    # (B, N) int64 sorted position of each query
     idx_bits: int
+    qid: torch.Tensor    # (B, N) int64 original row of each sorted query
+    q_box: torch.Tensor  # (B, nbq, 6) tile boxes (lo, hi), pads left out
+    p_box: torch.Tensor  # (B, nbp, 6) block boxes, pads left out
+    lb2: torch.Tensor    # (B, nbq, nbp) tile-block lower bounds
+    score: torch.Tensor  # (B, nbq, nbp) lb2 + 1e-3 * c2c, rounded once
 
 
 def _sorted_padded(x: torch.Tensor, size: int, pad_id: int):
@@ -121,7 +130,8 @@ def prologue(query: torch.Tensor, points: torch.Tensor, n_cand: int,
     inv = torch.empty_like(qperm)
     inv.scatter_(1, qperm, torch.arange(N, device=query.device).expand(B, N))
     return Prologue(q_s, p_s, pid, cand.to(torch.int32).contiguous(), inv,
-                    idx_bits)
+                    idx_bits, qperm, torch.cat([q_lo, q_hi], -1),
+                    torch.cat([p_lo, p_hi], -1), lb2, score)
 
 
 def _unsort(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -192,6 +202,47 @@ def knn_cand_plain(query: torch.Tensor, points: torch.Tensor, k: int,
     return _unsort(dist, pro.inv), _unsort(top & mask_low, pro.inv)
 
 
+def fused_prologue(query: torch.Tensor, points: torch.Tensor, n_cand: int,
+                   cb: int = CB, qt: int = QT) -> Tuple[Sorted, Selection]:
+    """The card's prologue (ops/pruned_prologue.py): the fused sort and the
+    fused choice of candidate blocks.  The same sorted clouds, boxes,
+    bounds, scores and candidates as ``prologue``."""
+    mp = -(-points.shape[1] // cb) * cb
+    srt = sort_clouds(query, points, cb, qt,
+                      (1 << max(1, (mp - 1).bit_length())) - 1,
+                      repeat_last=False)
+    return srt, select_blocks(srt, n_cand=n_cand)
+
+
+def _launch(srt: Sorted, sel: Selection, N: int, M: int, k: int, blk: int,
+            lib) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search kernel of library ``lib`` (``_build.lib()``, or one of
+    chip_smoke.py's builds at other launch sizes) over ``fused_prologue``'s
+    candidates."""
+    B, np_ = srt.q_s.shape[:2]
+    mp, nbp = srt.p4.shape[1], srt.p_box.shape[1]
+    dev = srt.q_s.device
+    dist = _build.empty((B, N, k), torch.float32, dev)
+    idx = _build.empty((B, N, k), torch.int32, dev)
+    err = lib.ogc_knn_cand(
+        srt.q_s.data_ptr(), srt.p4.data_ptr(), srt.qid.data_ptr(),
+        sel.blocks.data_ptr(), B, N, M, np_, mp, sel.blocks.shape[-1], k,
+        blk, mp // nbp, np_ // srt.q_box.shape[1],
+        max(1, (mp - 1).bit_length()), dist.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ogc_knn_cand")
+    return dist, idx
+
+
+def search(srt: Sorted, sel: Selection, N: int, M: int, k: int, blk: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search kernel over ``fused_prologue``'s candidates: (dist, idx),
+    each (B, N, k), rows in the caller's query order."""
+    out = _launch(srt, sel, N, M, k, blk, _build.lib())
+    knn_cand.launches += 1
+    return out
+
+
 def knn_cand(query: torch.Tensor, points: torch.Tensor, k: int,
              n_cand_blocks: Optional[int] = None, recall_target: float = 0.95,
              blk: Optional[int] = None, cb: int = CB, qt: int = QT
@@ -213,20 +264,11 @@ def knn_cand(query: torch.Tensor, points: torch.Tensor, k: int,
             and 32 <= qt <= 256 and qt % 32 == 0):
         raise ValueError(f"knn_cand: k={k}, n_cand={n_cand}, blk={blk}, "
                          f"cb={cb}, qt={qt} outside the kernel's limits")
-    pro = prologue(query.contiguous(), points.contiguous(), n_cand, cb, qt)
-    np_ = pro.q_s.shape[1]
-    dist = _build.empty((B, np_, k), torch.float32, query.device)
-    idx = _build.empty((B, np_, k), torch.int32, query.device)
     if B * N == 0:
-        return dist[:, :0], idx[:, :0]
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    err = _build.lib().ogc_knn_cand(
-        pro.q_s.data_ptr(), pro.p_s.data_ptr(), pro.pid.data_ptr(),
-        pro.cand.data_ptr(), B, np_, pro.p_s.shape[1], n_cand, k, blk, cb, qt,
-        pro.idx_bits, dist.data_ptr(), idx.data_ptr(), stream)
-    _build.check(err, "ogc_knn_cand")
-    knn_cand.launches += 1
-    return _unsort(dist, pro.inv), _unsort(idx, pro.inv)
+        return (_build.empty((B, N, k), torch.float32, query.device),
+                _build.empty((B, N, k), torch.int32, query.device))
+    srt, sel = fused_prologue(query, points, n_cand, cb, qt)
+    return search(srt, sel, N, M, k, blk)
 
 
 knn_cand.launches = 0

@@ -1,10 +1,11 @@
-"""Bound-pruned exact KNN: the CUDA kernel (csrc/knn_exact_pruned.cu) and its
-plain PyTorch version.
+"""Bound-pruned exact KNN: the CUDA kernels (csrc/pruned_prologue.cu, then
+csrc/knn_exact_pruned.cu) and the plain PyTorch version.
 
 Replaces ogc_tpu/ops/pallas_knn.py::_knn_exact_pruned_kernel (entry point
 ``knn_exact_pruned``).  The contract is #2's (ops/knn.py): ascending
-direct-form d2, ties to the lower index, sqrt distances.  The prologue runs
-in plain torch on the tensors' device, as pallas_knn.py:977-1083 does:
+direct-form d2, ties to the lower index, sqrt distances.  The prologue
+(``prologue`` and ``survivors`` in plain torch, as pallas_knn.py:977-1083
+does; on the card the fused kernels of ops/pruned_prologue.py):
 
 * queries and points are sorted by 30-bit Morton code (``morton_codes``),
   points padded with 1e6 (id 2^30) to a multiple of ``cb`` and queries with
@@ -20,15 +21,16 @@ in plain torch on the tensors' device, as pallas_knn.py:977-1083 does:
   ``count`` says how many.
 
 Every true neighbour lies in a surviving block, so searching the survivors
-alone gives #2's answer.  The kernel does that per tile; the plain version
-computes the same survivors and searches each query's surviving candidates
-with #2's plain arithmetic (direct-form d2 in the points' own order, a
-stable sort), so it holds the pruning itself to #2 as well.
+alone gives #2's answer.  The kernel does that per tile, writing each row in
+the caller's query order; the plain version computes the same survivors and
+searches each query's surviving candidates with #2's plain arithmetic
+(direct-form d2 in the points' own order, a stable sort), so it holds the
+pruning itself to #2 as well.
 
 ``knn_exact_pruned`` routes by the tensors' device: CPU tensors take
-``knn_exact_pruned_plain``; CUDA tensors launch the kernel (after the
-prologue, whose pre-pass launches #3) or raise.
-``knn_exact_pruned.launches`` counts launches of this kernel.
+``knn_exact_pruned_plain``; CUDA tensors launch the fused prologue's sort,
+the #3 pre-pass, its selection and the search (four launches), or raise.
+``knn_exact_pruned.launches`` counts launches of the search kernel.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ import torch
 from ogc_tpu_torch.ops import _build
 from ogc_tpu_torch.ops.knn import MAX_K, check_clouds, pair_d2
 from ogc_tpu_torch.ops.knn_blockmin import TILE, knn_blockmin
+from ogc_tpu_torch.ops.pruned_prologue import (Selection, Sorted,
+                                               select_blocks, sort_clouds)
 
 CB = 128          # points per candidate block (pallas_knn.py::_CB_EXACT)
-QT = 128          # queries per tile, one CUDA thread each
+QT = 128          # queries per tile
 PAD = 1e6         # pad point coordinate
 PAD_ID = 2 ** 30  # pad point id: loses every tie
 RECALL = 0.98     # the flash pre-pass's recall target (pallas_knn.py:1081)
@@ -106,6 +110,9 @@ class Prologue(NamedTuple):
     pid: torch.Tensor    # (B, mp) int32 original point ids (pads 2^30)
     lb2: torch.Tensor    # (B, nbq, nbp) tile-block lower bounds
     inv: torch.Tensor    # (B, N) int64: sorted position of each query
+    qid: torch.Tensor    # (B, N) int64: original row of each sorted query
+    q_box: torch.Tensor  # (B, nbq, 6) tile boxes: lo x, y, z, hi x, y, z
+    p_box: torch.Tensor  # (B, nbp, 6) block boxes, pads left out
 
 
 def prologue(query: torch.Tensor, points: torch.Tensor, cb: int,
@@ -135,7 +142,8 @@ def prologue(query: torch.Tensor, points: torch.Tensor, cb: int,
     lb2 = (g2[..., 0] + g2[..., 1]) + g2[..., 2]
     inv = torch.empty_like(qperm)
     inv.scatter_(1, qperm, torch.arange(N, device=query.device).expand(B, N))
-    return Prologue(q_s, p_s, pid, lb2, inv)
+    return Prologue(q_s, p_s, pid, lb2, inv, qperm,
+                    torch.cat([q_lo, q_hi], -1), torch.cat([p_lo, p_hi], -1))
 
 
 def survivors(pro: Prologue, points: torch.Tensor, k: int, qt: int
@@ -201,6 +209,46 @@ def knn_exact_pruned_plain(query: torch.Tensor, points: torch.Tensor, k: int,
     return _unsort(dist, pro.inv), _unsort(idx, pro.inv)
 
 
+def fused_prologue(query: torch.Tensor, points: torch.Tensor, k: int,
+                   cb: int = CB, qt: int = QT) -> Tuple[Sorted, Selection]:
+    """The card's prologue: the fused sort (ops/pruned_prologue.py), the #3
+    pre-pass on the sorted queries, the fused selection of survivors.  The
+    same sorted clouds, bounds, order and count as ``prologue`` and
+    ``survivors``."""
+    srt = sort_clouds(query, points, cb, qt, PAD_ID, repeat_last=True)
+    fd, _ = knn_blockmin(srt.q_s, points, k, RECALL)
+    return srt, select_blocks(srt, fd, k, theta_inflate(points.shape[1]))
+
+
+def _launch(srt: Sorted, sel: Selection, N: int, M: int, k: int, lib
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search kernel of library ``lib`` (``_build.lib()``, or one of
+    chip_smoke.py's builds at other launch sizes) over ``fused_prologue``'s
+    survivors."""
+    B, np_ = srt.q_s.shape[:2]
+    mp, nbp = srt.p4.shape[1], srt.p_box.shape[1]
+    dev = srt.q_s.device
+    dist = _build.empty((B, N, k), torch.float32, dev)
+    idx = _build.empty((B, N, k), torch.int32, dev)
+    err = lib.ogc_knn_exact_pruned(
+        srt.q_s.data_ptr(), srt.p4.data_ptr(), srt.p_box.data_ptr(),
+        srt.qid.data_ptr(), sel.blocks.data_ptr(), sel.count.data_ptr(), B,
+        N, M, np_, mp, nbp, k, mp // nbp, np_ // srt.q_box.shape[1],
+        dist.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ogc_knn_exact_pruned")
+    return dist, idx
+
+
+def search(srt: Sorted, sel: Selection, N: int, M: int, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The search kernel over ``fused_prologue``'s survivors: (dist, idx),
+    each (B, N, k), rows in the caller's query order."""
+    out = _launch(srt, sel, N, M, k, _build.lib())
+    knn_exact_pruned.launches += 1
+    return out
+
+
 def knn_exact_pruned(query: torch.Tensor, points: torch.Tensor, k: int,
                      cb: int = CB, qt: int = QT
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,21 +264,12 @@ def knn_exact_pruned(query: torch.Tensor, points: torch.Tensor, k: int,
                          f"{MAX_K})")
     if not (1 <= cb <= 128 and 32 <= qt <= 1024 and qt % 32 == 0):
         raise ValueError(f"knn_exact_pruned: cb={cb}, qt={qt}")
-    pro = prologue(query.contiguous(), points.contiguous(), cb, qt)
-    order, count = survivors(pro, points.contiguous(), k, qt)
-    np_, mp = pro.q_s.shape[1], pro.p_s.shape[1]
-    dist = _build.empty((B, np_, k), torch.float32, query.device)
-    idx = _build.empty((B, np_, k), torch.int32, query.device)
     if B * N == 0:
-        return dist[:, :0], idx[:, :0]
-    stream = torch.cuda.current_stream(query.device).cuda_stream
-    err = _build.lib().ogc_knn_exact_pruned(
-        pro.q_s.data_ptr(), pro.p_s.data_ptr(), pro.pid.data_ptr(),
-        order.data_ptr(), count.data_ptr(), B, np_, mp, order.shape[1],
-        order.shape[2], k, cb, qt, dist.data_ptr(), idx.data_ptr(), stream)
-    _build.check(err, "ogc_knn_exact_pruned")
-    knn_exact_pruned.launches += 1
-    return _unsort(dist, pro.inv), _unsort(idx, pro.inv)
+        return (_build.empty((B, N, k), torch.float32, query.device),
+                _build.empty((B, N, k), torch.int32, query.device))
+    points = points.contiguous()
+    srt, sel = fused_prologue(query, points, k, cb, qt)
+    return search(srt, sel, N, M, k)
 
 
 knn_exact_pruned.launches = 0

@@ -735,6 +735,44 @@ def _case_pruned(x, cfg, state):
     return out
 
 
+def _case_pruned_select(x, cfg, state):
+    """The torch prologues of #4 (prologue, survivors, with the #3
+    pre-pass's distances) and #6 (prologue), and both plain versions, for
+    each named case of ``cfg["exact"]`` and ``cfg["cand"]``."""
+    import torch
+
+    from ogc_tpu_torch.ops import knn_cand as KC
+    from ogc_tpu_torch.ops import knn_pruned as KP
+
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    out = {}
+    for name, (k, cb, qt) in cfg["exact"].items():
+        q, p = t[name + "/q"], t[name + "/p"]
+        pro = KP.prologue(q, p, cb, qt)
+        fd, _ = KP.knn_blockmin(pro.q_s, p, k, KP.RECALL)
+        order, count = KP.survivors(pro, p, k, qt)
+        d, i = KP.knn_exact_pruned(q, p, k, cb, qt)
+        for key, v in (("q_s", pro.q_s), ("p_s", pro.p_s), ("pid", pro.pid),
+                       ("qid", pro.qid), ("q_box", pro.q_box),
+                       ("p_box", pro.p_box), ("lb2", pro.lb2), ("fd", fd),
+                       ("order", order), ("count", count), ("dist", d),
+                       ("idx", i)):
+            out[f"{name}/{key}"] = v.numpy()
+    for name, (k, n_cand, blk, cb) in cfg["cand"].items():
+        q, p = t[name + "/q"], t[name + "/p"]
+        n, blk_r, _ = KC.resolve(p.shape[1], k, n_cand, blk, cb)
+        pro = KC.prologue(q, p, n, cb)
+        d, i = KC.knn_cand(q, p, k, n_cand, blk=blk, cb=cb)
+        for key, v in (("q_s", pro.q_s), ("p_s", pro.p_s), ("pid", pro.pid),
+                       ("qid", pro.qid), ("q_box", pro.q_box),
+                       ("p_box", pro.p_box), ("lb2", pro.lb2),
+                       ("score", pro.score), ("cand", pro.cand), ("dist", d),
+                       ("idx", i)):
+            out[f"{name}/{key}"] = v.numpy()
+        out[name + "/blk"] = np.array(blk_r)
+    return out
+
+
 def _case_blocksparse(x, cfg, state):
     """#9/#10's plain versions through ``group_blocksparse`` (forward, and
     the backward of a cotangent), the prologue's lists and presence, #9's
@@ -905,6 +943,7 @@ CASES = {
     "scatter_onehot_csr": _case_scatter_onehot_csr,
     "search_form": _case_search_form,
     "pruned": _case_pruned,
+    "pruned_select": _case_pruned_select,
     "flownet": _case_flownet,
     "blocksparse": _case_blocksparse,
     "smooth_mxu": _case_smooth_mxu,
