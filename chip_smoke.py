@@ -127,6 +127,24 @@
 13. #6's entry point: ogc_tpu_torch.tools.bench_knn_pruned.main (#3
    against #6 at its four settings, scene-like clouds) with the counts set
    to 0 before it.
+14. Flow training and the chained pipeline (main paths of their own) on a
+   synthetic SAPIEN root of 60 + 24 scenes, each stage through its CLI's
+   main in the CLI's default neighbour mode, its launches against the
+   derived ones: train_flow on config/flow/sapien/sapien_unsup.yaml (B=32
+   x 512, 4 iterations; 9 steps and a val epoch of 3 batches; SAP_FT_STEP
+   and SAP_FT_VAL) with its median step time, clouds/s, peak memory and a
+   profile of 3 steps; two seeded 3-step runs bit-equal; one step (B=2 x
+   512, 2 iterations) on the card against the CPU.  Then test_flow --save
+   (train, val, test) on its ``best``, train_seg woinv R1 on the saved
+   flows, oa_icp train and val R1 --save, vote R1 on the predicted test
+   flows: every stage's wall time and finite metrics.
+15. OGC-DR flow training: train_flow on config/flow/ogcdr/ogcdr_unsup.yaml
+   (B=16 x 2048, 4 iterations, 3 steps and a val batch, approximate: #3 in
+   training) over synthetic rooms, launches against DR_FT_STEP and
+   DR_FT_VAL.
+16. Supervised training: train_seg_sup on config/seg/sapien/sapien_sup.yaml
+   (B=128 x 512, 2 epochs of 2 steps) over phase 9's SAPIEN root, launches
+   against SUP_STEP and SUP_VAL, step times and a profile of 3 steps.
 The kernel phase also holds the row-group pool (#12) at every pool shape of
 phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group add,
 ReLU on and off; timed by single call, device time and host enqueue beside
@@ -151,7 +169,12 @@ torch.gather; and the candidate-pruned KNN (#6) at bench_knn_pruned's shapes on
 grid clouds and at its edge cases (a pad block among the candidates, k 1 and
 64, 32-point blocks, ragged N and M, 20000-point clouds, real points beyond the
 pad point), bit-equal to its plain version, its fused prologue to the torch
-prologue, timed apart from its search beside #3 and #2 with its recall.
+prologue, timed apart from its search beside #3 and #2 with its recall.  And
+the kernels of the flow-train paths at their sites (check_flow_train): #1,
+#2 (FT_KNN), #5 (32 x 512, ns 8, r 0.1), #7 / #8 and #11 (FT_GROUPS: #8 at
+the C = 3 smooth and upsample groups) of one SAPIEN step, #1 and #3
+(FT_BLOCKMIN and the smooth ball) of one OGC-DR step, bit-equal to their
+plain versions (#8 also to #11) and timed per step.
 
 The derived launches of a #4 call are four (the fused prologue's sort, the #3
 pre-pass, the fused selection, the search), of a #6 call three; two more
@@ -2612,10 +2635,209 @@ def check_kernels():
                 + (f"; device: kernel {e['device_ms']:.4f} ms, library "
                    f"{fmt_ms(e['library_device_ms'])} ms" if "device_ms" in e
                    else ""))
+    log(f"-- flow-train paths: SAPIEN (B={SAP_FT_B} x {SAP_N}, "
+        f"{SAP_FT_ITERS} iterations), OGC-DR (B={DR_FT_B} x {DR_FT_N})")
+    flow_train = check_flow_train(gen)
     return {"parity": train_report, "sapien": sapien["full"][0],
             "fast": fast_report, "flow": flow_report, "mxu": mxu_report,
-            "cand": cand_report}
+            "cand": cand_report, "flow_train": flow_train}
 
+
+# The flow-train paths (config/flow/sapien/sapien_unsup.yaml: B=32 x 512,
+# 4 iterations; config/flow/ogcdr/ogcdr_unsup.yaml: B=16 x 2048).  The
+# groups of one SAPIEN train step (name, queries M, S, source points N, C,
+# #7 forward calls, backward calls): #7 where ops/onehot.py's gate holds
+# (N <= 1024, C <= 16, M * S >= 1024), its backward #8; every other group
+# whose source needs a gradient is advanced indexing with #11 backward.
+# Calls: the encoders run on pc1 and pc2, then on the warped cloud in each
+# of the 3 refinement iterations; the loss runs once per iteration.
+FT_GROUPS = [("enc_loc sa1", 256, 16, 512, 6, 5, 0),
+             ("upsample", 512, 3, 128, 3, 4, 4),
+             ("flow_conv1", 128, 8, 128, 6, 3, 0),
+             ("smooth knn", 512, 4, 512, 3, 4, 4),
+             ("smooth ball", 512, 8, 512, 3, 4, 4),
+             ("chamfer warped", 512, 1, 512, 3, 0, 4),
+             ("enc_loc sa2", 128, 16, 256, 35, 0, 5),
+             ("enc_glob sa1", 64, 16, 128, 67, 0, 2),
+             ("enc_glob sa2", 32, 8, 64, 131, 0, 2),
+             ("corr fp0", 64, 3, 32, 3, 0, 1),
+             ("corr sa1", 64, 8, 64, 6, 0, 1),
+             ("corr fp1", 128, 3, 64, 128, 0, 1),
+             ("flow0 sa1", 128, 16, 128, 131, 0, 1),
+             ("h0 sa1", 128, 4, 128, 67, 0, 1),
+             ("h0 sa2", 128, 4, 128, 131, 0, 1),
+             ("FlowEmbedding", 128, 8, 128, 67, 0, 3),
+             ("flow_conv2", 128, 4, 128, 35, 0, 3),
+             ("gru gates", 128, 4, 128, 342, 0, 9),
+             ("flow_reg sa1", 128, 16, 128, 131, 0, 3),
+             ("flow_reg sa2", 128, 16, 128, 131, 0, 3)]
+# #2's searches of one SAPIEN train step (queries, points, k, calls): the
+# encoders' SA KNN (enc_loc x 5, enc_glob x 2), the correlation's three_nn
+# and SA, the shared 1/4-cloud table, the upsample stencil, the
+# FlowEmbedding per refinement, and per iteration the two Chamfer k = 1
+# searches and the smooth KNN (k 4).
+FT_KNN = [(256, 512, 16, 5), (128, 256, 16, 5), (64, 128, 16, 2),
+          (32, 64, 8, 2), (64, 32, 3, 1), (64, 64, 8, 1), (128, 64, 3, 1),
+          (128, 128, 16, 1), (512, 128, 3, 1), (128, 128, 8, 3),
+          (512, 512, 1, 8), (512, 512, 4, 4)]
+# #3's searches of one OGC-DR train step (B=16 x 2048, approximate): the
+# enc_loc SA KNN (x 5), and per iteration the Chamfer k = 1 searches and
+# the smooth KNN (k 4) over 2048 points; the smooth ball (ns 8, r 0.1).
+FT_BLOCKMIN = [(1024, 2048, 16, 0.95, 5), (512, 1024, 16, 0.95, 5),
+               (2048, 2048, 1, 0.99, 8), (2048, 2048, 4, 0.99, 4)]
+SAP_FT_B, SAP_FT_ITERS, DR_FT_B, DR_FT_N = 32, 4, 16, 2048
+FT_BALL_NS, FT_BALL_R = 8, 0.1
+
+
+def group_table(gen, b, m, s, n, ball=False, cross=False):
+    """A neighbour table of ``m`` queries in a SAPIEN-scale grid cloud of
+    ``n`` points (unit extent, 1/64 grid), by KNN or with ``ball`` the
+    smooth ball: (b, m * s) int32.  The queries are a prefix of the points
+    (the sampled centres) where m <= n, else, or with ``cross``, a cloud of
+    their own."""
+    from ogc_tpu_torch import ops
+
+    p = grid_cloud(gen, b, n, 1.2, 1 / 64)
+    q = (p[:, :m].contiguous() if m <= n and not cross
+         else grid_cloud(gen, b, m, 1.2, 1 / 64))
+    if ball:
+        return ops.ball_query(FT_BALL_R, s, p, q, exact=True).reshape(b, -1)
+    return ops.knn(s, q, p, exact=True)[1].reshape(b, -1)
+
+
+def check_flow_train(gen):
+    """The kernels of the flow-train paths at their sites, each bit-equal
+    to its plain version and timed by single call and device time beside
+    the plain version and the library call: for one SAPIEN step (B=32 x
+    512) #1 (FPS 512 -> 256, twice), #2 at FT_KNN, #5 (the smooth ball, 32
+    x 512, ns 8, r 0.1, 4 calls), #7 / #8 and #11 at FT_GROUPS (#8 and #11
+    also equal to each other where both apply); for one OGC-DR step (B=16 x
+    2048) #1 (2048 -> 1024, twice), #3's KNN at FT_BLOCKMIN and its ball
+    (ns 8, r 0.1, 4 calls).  Returns {"sapien" | "ogcdr": Report}."""
+    from ogc_tpu_torch.ops.ball import ball_query_exact, ball_query_plain
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                ball_query_blockmin_plain,
+                                                knn_blockmin,
+                                                knn_blockmin_plain)
+    from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                          gather_rows_onehot_plain,
+                                          scatter_add_rows_onehot)
+    from ogc_tpu_torch.ops.scatter import (scatter_add_rows,
+                                           scatter_add_rows_plain)
+
+    sap, dr = Report(), Report()
+    b = SAP_FT_B
+    check_fps(sap, gen, b, 2, [(SAP_N, SAP_N // 2)])
+    check_knn(sap, gen, [(b, nq, m, k, calls) for nq, m, k, calls in FT_KNN],
+              sum(c for *_, c in FT_KNN))
+    x = grid_cloud(gen, b, SAP_N, 1.2, 1 / 64)
+    got = ball_query_exact(x, x, FT_BALL_R, FT_BALL_NS)
+    if not torch.equal(got, ball_query_plain(x, x, FT_BALL_R, FT_BALL_NS)):
+        raise AssertionError("flow-train ball query: kernel != plain")
+    full, need = ball_need(got, SAP_N, 1)
+    pairs = box_pairs(x, x, torch.full(full.shape, FT_BALL_R, device="cuda"),
+                      need - 1)
+    ms = cuda_ms(lambda: ball_query_exact(x, x, FT_BALL_R, FT_BALL_NS), 20)
+    dev = device_ms(lambda: ball_query_exact(x, x, FT_BALL_R, FT_BALL_NS))
+    pms = cuda_ms(lambda: ball_query_plain(x, x, FT_BALL_R, FT_BALL_NS), 3)
+    bnd, by = bound_ms(b * (SAP_N * 24 + SAP_N * FT_BALL_NS * 4),
+                       pairs * D2_OPS)
+    sap.add("ball_query", 0, ms, pms, bnd, by, per_step=4, device=(dev, None))
+    log(f"ball_query flow smooth ({b},{SAP_N},ns={FT_BALL_NS},r={FT_BALL_R})"
+        f" x4/step: bit-equal; full balls {full.float().mean().item():.4f}; "
+        f"single {ms:.4f} ms, device {dev:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    for name, m, s, n, C, fwd, bwd in FT_GROUPS:
+        flat = group_table(gen, b, m, s, n, ball=name == "smooth ball",
+                           cross=name.startswith("chamfer"))
+        E = flat.shape[1]
+        onehot = fwd > 0
+        if onehot:
+            src = torch.randn((b, n, C), generator=gen, device="cuda")
+            got = gather_rows_onehot(src, flat)
+            if not torch.equal(got, gather_rows_onehot_plain(src, flat)):
+                raise AssertionError(f"flow-train gather {name}: kernel != "
+                                     f"plain")
+            lidx = flat.long()[..., None].expand(b, E, C)
+            ms = cuda_ms(lambda: gather_rows_onehot(src, flat), 20)
+            dev = device_ms(lambda: gather_rows_onehot(src, flat))
+            lib = cuda_ms(lambda: torch.gather(src, 1, lidx), 20)
+            ldev = device_ms(lambda: torch.gather(src, 1, lidx))
+            pms = cuda_ms(lambda: gather_rows_onehot_plain(src, flat), 20)
+            bnd, by = bound_ms(b * (n * C * 4 + E * 4 + E * C * 4), 0)
+            sap.add("gather_onehot", 0, ms, pms, bnd, by, lib, per_step=fwd,
+                    device=(dev, ldev))
+            log(f"gather_onehot flow {name} ({b},{n},C={C}) x {E} rows "
+                f"x{fwd}/step: bit-equal; single {ms:.4f} ms, device "
+                f"{dev:.4f} ms, torch.gather {lib:.4f} / {ldev:.4f} ms, "
+                f"plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if not bwd:
+            continue
+        g = torch.randn((b, E, C), generator=gen, device="cuda")
+        want = scatter_add_rows_plain(flat, g, n)
+        kern = scatter_add_rows_onehot if onehot else scatter_add_rows
+        for what, got in (("kernel", kern(flat, g, n)),
+                          ("#11", scatter_add_rows(flat, g, n))):
+            if not bits_equal(got, want):
+                raise AssertionError(f"flow-train scatter {name}: {what} != "
+                                     f"plain")
+        ms = cuda_ms(lambda: kern(flat, g, n), 20)
+        dev = device_ms(lambda: kern(flat, g, n))
+        pms = cuda_ms(lambda: scatter_add_rows_plain(flat, g, n), 5)
+        lib, ldev = index_add_ms(flat, g, n)
+        bnd, by = bound_ms(b * (E * 4 + E * C * 4 + n * C * 4), b * E * C)
+        label = "scatter_onehot" if onehot else "scatter_add"
+        sap.add(label, 0, ms, pms, bnd, by, lib, per_step=bwd,
+                device=(dev, ldev))
+        log(f"{label} flow {name} ({b},{E} rows,C={C})->{n} x{bwd}/step: "
+            f"bit-equal to plain and #11; single {ms:.4f} ms, device "
+            f"{dev:.4f} ms, index_add_ {lib:.4f} / {fmt_ms(ldev)} ms, plain "
+            f"{pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    b = DR_FT_B
+    check_fps(dr, gen, b, 2, [(DR_FT_N, DR_FT_N // 2)])
+    for nq, m, k, rec, calls in FT_BLOCKMIN:
+        p = grid_cloud(gen, b, m, 2.0, 1 / 64)
+        q = p[:, :nq].contiguous()
+        if not knn_bits_equal(knn_blockmin(q, p, k, rec),
+                              knn_blockmin_plain(q, p, k, rec)):
+            raise AssertionError(f"flow-train knn_blockmin q{nq} p{m} k{k}: "
+                                 f"kernel != plain")
+        ms = cuda_ms(lambda: knn_blockmin(q, p, k, rec), 20)
+        dev = device_ms(lambda: knn_blockmin(q, p, k, rec), reps=5, rounds=4)
+        pms = cuda_ms(lambda: knn_blockmin_plain(q, p, k, rec), 3)
+        bnd, by = bound_ms(b * ((nq + m) * 12 + nq * k * 8),
+                           b * nq * m * D2_OPS)
+        dr.add("knn_blockmin", 0, ms, pms, bnd, by, per_step=calls,
+               device=(dev, None))
+        log(f"knn_blockmin OGC-DR flow ({b},{nq} q,{m} p,k={k}) x{calls}/"
+            f"step: bit-equal; single {ms:.4f} ms, device {dev:.4f} ms, "
+            f"plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    x = grid_cloud(gen, b, DR_FT_N, 2.0, 1 / 64)
+    got = ball_query_blockmin(x, x, FT_BALL_R, FT_BALL_NS)
+    if not torch.equal(got, ball_query_blockmin_plain(x, x, FT_BALL_R,
+                                                      FT_BALL_NS)):
+        raise AssertionError("flow-train ball_blockmin: kernel != plain")
+    ms = cuda_ms(lambda: ball_query_blockmin(x, x, FT_BALL_R, FT_BALL_NS), 20)
+    dev = device_ms(lambda: ball_query_blockmin(x, x, FT_BALL_R, FT_BALL_NS))
+    pms = cuda_ms(lambda: ball_query_blockmin_plain(x, x, FT_BALL_R,
+                                                    FT_BALL_NS), 3)
+    bnd, by = bound_ms(b * (DR_FT_N * 24 + DR_FT_N * FT_BALL_NS * 4),
+                       b * DR_FT_N * DR_FT_N * D2_OPS)
+    dr.add("ball_blockmin", 0, ms, pms, bnd, by, per_step=4,
+           device=(dev, None))
+    log(f"ball_blockmin OGC-DR flow ({b},{DR_FT_N},ns={FT_BALL_NS},"
+        f"r={FT_BALL_R}) x4/step: bit-equal; single {ms:.4f} ms, device "
+        f"{dev:.4f} ms, plain {pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    for rep, what in ((sap, "SAPIEN flow-train step"),
+                      (dr, "OGC-DR flow-train step")):
+        for name in rep.rows:
+            e = rep.entry(name)
+            log(f"per {what}: {name} single {e['ms']:.4f} ms, device "
+                f"{e['device_ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+                f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
+                f"{fmt_ms(e['library_ms'])} ms / device "
+                f"{fmt_ms(e['library_device_ms'])} ms")
+    return {"sapien": sap, "ogcdr": dr}
 
 def kitti_scene(rng):
     """One synthetic KITTI-SF scene of N_POINT points: a static ground plane
@@ -2963,13 +3185,28 @@ def check_bf16_step(cfg, tmp, batch):
                              "step: it did not run in bf16")
 
 
-def profile_steps(what, fn, steps=3):
+#: Spin kernels (torch.cuda._sleep) launched in each profile before its
+#: window: the trace can miss the first kernels after it starts (on an
+#: NVIDIA H100 80GB HBM3, up to 33 a step of the SAPIEN flow-train
+#: profile late in this script), and these take that loss instead of the
+#: window's kernels.
+PROFILE_GUARD_SPINS = 256
+
+
+def profile_steps(what, fn, steps=3, expect=None):
     """torch.profiler over ``steps`` warm calls ``fn(i)``, i = 1..steps,
     after ``fn(0)``: the device's busy share of their host-clock time
     (device-side events' time over wall time; the profiler's own host cost
     lowers it a little), the operators whose kernels take the most device
     time, and the kernels that do.  The port's ctypes kernels are launched
-    by no operator, so they show among the kernels only."""
+    by no operator, so they show among the kernels only.
+
+    PROFILE_GUARD_SPINS spin kernels run in the trace before the window
+    and are left out of every figure; how many of them the trace holds is
+    printed.  ``expect`` maps PROFILED_KERNELS labels to the kernels one
+    call launches (the launch counters' count for a one-kernel wrapper),
+    and the profile must show exactly that many.  Returns ({label: kernels
+    per call}, device-side events per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2977,25 +3214,34 @@ def profile_steps(what, fn, steps=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_GUARD_SPINS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(1, steps + 1):
             fn(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    spins = [e for e in prof.key_averages() if "spin_kernel" in e.key]
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in events if e.device_type != DeviceType.CPU]
+    kernels = [e for e in events if e.device_type != DeviceType.CPU
+               and "spin_kernel" not in e.key]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profile of {steps} {what}: device time {dev_us / 1e3:.4f} ms "
-        f"of {wall_us / 1e3:.4f} ms wall, busy share {dev_us / wall_us:.4f}; "
-        f"{sum(e.count for e in kernels) // steps} device-side events per "
-        f"call")
+    n_events = sum(e.count for e in kernels) / steps
+    log(f"profile of {steps} {what}: device time {dev_us / 1e3:.4f} ms of "
+        f"{wall_us / 1e3:.4f} ms wall, busy share {dev_us / wall_us:.4f}; "
+        f"{n_events:g} device-side events per call; the trace holds "
+        f"{sum(e.count for e in spins)} of {PROFILE_GUARD_SPINS} guard "
+        f"spins")
+    counts = {}
     for label, symbols in PROFILED_KERNELS.items():
         mine = [e for e in kernels if e.key.removeprefix("void ")
                 .removeprefix("(anonymous namespace)::").startswith(symbols)]
         ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
-        log(f"  {label}: {ms:.4f} ms device time, "
-            f"{sum(e.count for e in mine) // steps} kernels per call")
+        counts[label] = sum(e.count for e in mine) / steps
+        log(f"  {label}: {ms:.4f} ms device time, {counts[label]:g} kernels "
+            f"per call")
     for title, rows, n in (("operators", ops, 12), ("kernels", kernels, 8)):
         log(f"  top {title} by device time (share, ms per call, count per "
             f"call):")
@@ -3005,6 +3251,12 @@ def profile_steps(what, fn, steps=3):
             log(f"  {e.self_device_time_total / dev_us:7.4f} "
                 f"{e.self_device_time_total / 1e3 / steps:9.4f} "
                 f"x{e.count // steps:<5d} {name[:100]}")
+    off = {k: (counts[k], v) for k, v in (expect or {}).items()
+           if counts[k] != v}
+    if off:
+        raise AssertionError(f"profile of {what}: kernels per call (profile, "
+                             f"counters) {off}")
+    return counts, n_events
 
 
 def profile_train(cfg, tmp, batch, steps=3):
@@ -3599,6 +3851,486 @@ def run_test_flow(tmp):
     return launches
 
 
+# Flow training (a main path of its own).  Derived launches of one SAPIEN
+# train step (B=32 x 512, 4 iterations, approximate mode as train_flow
+# runs by default; every search is below #3's 1024-point gate):
+#   fps 2          enc_loc SA1 of pc1 and pc2 (SA2 and enc_glob nest; the
+#                  refinement reuses frame 1's indices);
+#   knn_exact 34   FT_KNN;
+#   ball_query 4   the smooth ball, once per iteration;
+#   gather_onehot 20, scatter_onehot 12, scatter_add 40  FT_GROUPS.
+# A val batch (eval: both clouds in one 2B batch, the source-projected
+# groups, frozen self-KNN tables): fps 1; knn_exact 24 (the encoders 4,
+# the correlation 3, the 1/4-cloud table and the stencil, the FlowEmbedding
+# per refinement, 3 a loss iteration); the ball 4; #7 12 (the upsample
+# once plus once per refinement, the two smooth groups per iteration).
+SAP_FT_STEP = launch_counts(fps=2, knn_exact=34, ball_query=4,
+                            gather_onehot=20, scatter_onehot=12,
+                            scatter_add=40)
+SAP_FT_VAL = launch_counts(fps=1, knn_exact=24, ball_query=4,
+                           gather_onehot=12)
+# OGC-DR (B=16 x 2048, 4 iterations, approximate): #3 where the searched
+# cloud has 2048 or 1024 points (FT_BLOCKMIN: 22, and the smooth ball 4);
+# #2 at the 512-point levels (enc_glob 4, correlation 3, the 1/4-cloud
+# table, the stencil, the FlowEmbedding 3); #7 / #8 where the source has at
+# most 1024 points: the upsample (4, from 512 points), the correlation's SA
+# (C 6 over 256 points x 8) and flow_conv1 (3, forward only); #11 for every
+# other group with a gradient (11 before the refinement, 8 per refinement,
+# the Chamfer and both smooth groups per iteration over 2048 points).  A
+# val batch's source-projected groups add #7 at flow_conv2 (C 16, 512
+# points x 4, once per refinement).
+DR_FT_STEP = launch_counts(fps=2, knn_exact=12, knn_blockmin=22,
+                           ball_blockmin=4, gather_onehot=8, scatter_onehot=5,
+                           scatter_add=47)
+DR_FT_VAL = launch_counts(fps=1, knn_exact=10, knn_blockmin=14,
+                          ball_blockmin=4, gather_onehot=7)
+# Supervised (sapien_sup.yaml: B=128 x 512, 8 slots, 2 layers; frame 0,
+# approximate): SA0's FPS, its KNN and two #7 groups, SA1's and the two FP
+# searches, #11 at SA1 and the FP groups.
+SUP_STEP = launch_counts(fps=1, knn_exact=4, gather_onehot=2, scatter_add=3)
+SUP_VAL = launch_counts(fps=1, knn_exact=4, gather_onehot=2)
+SUP_B, SUP_EPOCHS = 128, 2
+# The chained pipeline's synthetic SAPIEN root (tools/synth.py; no flow
+# predictions until test_flow --save writes them): 60 scenes (48 train,
+# 12 val), 24 test scenes; OGC-DR: 8 train and 2 val rooms of 2048 points.
+FT_SCENES, FT_TEST_SCENES, DR_SCENES = 60, 24, 10
+# Card against CPU for one flow step (B=2 x 512, 2 iterations, exact):
+# iteration 0's flows within FLOW_TOL of their scale and its terms within
+# LOSS_RTOL; iteration 1's flows within FT_FLOW1_TOL of the scale and the
+# sum within FT_SUM_RTOL; the gradient's cosine above FT_COS, the gradient
+# through iteration 0 alone above FT_COS0.  Both sides run the port's code
+# (kernels bit-equal to their plain versions), so what differs is cuBLAS
+# against the CPU's rounding, which train-mode BatchNorm amplifies through
+# the refinement: an NVIDIA H100 80GB HBM3 at 700 W read 2.3e-5 of the
+# scale at iteration 1 and 4.0e-6 on the sum.  A neighbour list or a statistic gone wrong after
+# iteration 0 moves the flows it touches by a share of the flow itself.
+FT_CPU_B, FT_CPU_ITERS = 2, 2
+FT_FLOW1_TOL, FT_SUM_RTOL, FT_COS, FT_COS0 = 1e-3, 1e-4, 0.999, 0.9999
+
+
+def write_ogcdr(root, n_scenes, seed):
+    """An OGC-DR root (data/<id>/{pc,segm,pose}_%02d.npy, train.lst and
+    val.lst): rooms of DR_FT_N points in a unit cube, a static background
+    and 3 objects moved by their own SE(3)s in each of 4 views."""
+    from ogc_tpu_torch.tools.synth import rand_se3
+
+    rng = np.random.RandomState(seed)
+    ids = ["scene%03d" % i for i in range(n_scenes)]
+    for sid in ids:
+        d = osp.join(root, "data", sid)
+        os.makedirs(d)
+        base = rng.rand(DR_FT_N, 3).astype(np.float32)
+        segm = rng.randint(0, 4, size=DR_FT_N)
+        for v in range(4):
+            poses = np.stack([np.eye(4) if v == 0 else rand_se3(rng, 10, 0.1)
+                              for _ in range(3)])
+            pc = base.copy()
+            for k in range(3):
+                sel = segm == k + 1
+                pc[sel] = base[sel] @ poses[k][:3, :3].T + poses[k][:3, 3]
+            for name, arr in (("pc", pc.astype(np.float32)), ("segm", segm),
+                              ("pose", poses)):
+                np.save(osp.join(d, "%s_%02d.npy" % (name, v)), arr)
+    for split, part in (("train", ids[:-2]), ("val", ids[-2:])):
+        with open(osp.join(root, "data", split + ".lst"), "w") as f:
+            f.write("\n".join(part))
+
+
+def write_cfg(tmp, src, name, **over):
+    """A copy of the YAML ``src`` with the top-level keys ``over`` (the
+    ``data`` dict merged), written to <tmp>/<name>.yaml."""
+    import yaml
+
+    with open(src) as f:
+        cfg = yaml.safe_load(f)
+    data = over.pop("data", {})
+    cfg.update(over)
+    cfg["data"] = {**cfg["data"], **data}
+    path = osp.join(tmp, name + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg, path
+
+
+def flow_batch(cfg, n_items, seed=SEED):
+    """One augmented batch of the flow config's train set, drawn with a
+    fixed seed."""
+    import types
+
+    from ogc_tpu_torch.train_flow import build_datasets
+
+    ds = build_datasets(types.SimpleNamespace(**cfg))[0]
+    np.random.seed(seed)
+    items = [ds[i] for i in range(n_items)]
+    return tuple(np.stack(f, 0) for f in zip(*items))
+
+
+def make_flow_trainer(cfg, device, exp_base, iters=None):
+    """train_flow.py's model (seeded weights), Adam and FlowTrainer for
+    ``cfg`` on ``device``."""
+    from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
+    from ogc_tpu_torch.models.flownet import FlowStep3D
+    from ogc_tpu_torch.train.flow import FlowTrainer, make_bn_schedule
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+
+    fn = cfg["flownet"]
+    iters = iters or cfg["model_iters"]
+    model = FlowStep3D(
+        npoint=fn["npoint"], arch=cfg["dataset"],
+        loc_flow_nn=fn["loc_flow_nn"], loc_flow_rad=fn["loc_flow_rad"],
+        k_decay_fact=fn["k_decay_fact"],
+        generator=torch.Generator().manual_seed(SEED)).to(device)
+    loss = dict(cfg["loss"], iters_w=cfg["loss"]["iters_w"][:iters])
+    opt = Adam(dict(model.named_parameters()),
+               make_lr_schedule(cfg["lr"], cfg["lr_decay"], cfg["lr_clip"],
+                                cfg["decay_step"], cfg["batch_size"]))
+    return FlowTrainer(model, iters, FlowLossConfig.from_dict(loss), opt,
+                       exp_base=exp_base, device=torch.device(device),
+                       bn_schedule=make_bn_schedule(
+                           cfg["bn_momentum"], cfg["bn_decay"],
+                           cfg["decay_step"], cfg["batch_size"]))
+
+
+def log_steps(what, trainer, clouds, wall):
+    """Median step time after the first (host clock around a synchronised
+    step), clouds/s, the val epochs and peak device memory."""
+    ms = np.array(trainer.step_seconds) * 1e3
+    med = float(np.median(ms[1:]))
+    log(f"{what}: {ms.size} steps, median {med:.4f} ms after the first "
+        f"(min {ms[1:].min():.4f}, max {ms[1:].max():.4f}), "
+        f"{clouds * 1e3 / med:.4f} clouds/s; first step {ms[0]:.4f} ms; val "
+        f"epochs {[round(v * 1e3, 4) for v in trainer.val_seconds]} ms; "
+        f"wall {wall:.4f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return med
+
+
+def check_scalars(name, exp_base):
+    with open(osp.join(exp_base, "log", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    check_finite(name, {f"{d['tag']}@{d['step']}": d["value"]
+                        for d in scalars})
+    return {d["tag"]: d["value"] for d in scalars}
+
+
+def check_flow_determinism(cfg, tmp, batch, steps=3):
+    """Two seeded runs of ``steps`` train steps on one batch: bit-equal
+    weights and BatchNorm statistics."""
+    states = []
+    for run in range(2):
+        trainer = make_flow_trainer(cfg, DEVICE, osp.join(tmp, f"fdet{run}"))
+        for it in range(steps):
+            trainer.train_it(it, batch)
+        states.append({k: v.detach().clone()
+                       for k, v in trainer.model.state_dict().items()})
+    diff = [k for k in states[0] if not torch.equal(states[0][k],
+                                                    states[1][k])]
+    if diff:
+        raise AssertionError(f"two seeded {steps}-step flow runs differ in "
+                             f"{diff[:5]}")
+    log(f"flow determinism: two seeded {steps}-step runs give bit-equal "
+        f"weights and statistics ({len(states[0])} tensors)")
+
+
+def check_flow_card_vs_cpu_step(cfg, tmp, batch):
+    """One flow train step's forward and backward (FT_CPU_B x 512,
+    FT_CPU_ITERS iterations, exact) on the card and on the CPU."""
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.losses.flow_unsup import flowstep3d_loss
+    from ogc_tpu_torch.nn.flowstep3d import set_bn_momentum
+
+    ops.set_exact_neighbors(True)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        trainer = make_flow_trainer(cfg, dev, osp.join(tmp, f"fcpu_{dev}"),
+                                    FT_CPU_ITERS)
+        m = trainer.model.train()
+        set_bn_momentum(m, trainer.bn_schedule(0))
+        pc1, pc2, _ = trainer._inputs(batch)
+        flows = m(pc1, pc2, pc1, pc2, FT_CPU_ITERS)
+        loss, ld = flowstep3d_loss(pc1, pc2, flows, trainer.loss_cfg)
+        params = list(m.parameters())
+        cfg_l = trainer.loss_cfg
+        it0 = cfg_l.iters_w[0] * (cfg_l.weights[0] * ld["chamfer_loss_#0"]
+                                  + cfg_l.weights[1] * ld["smooth_loss_#0"])
+        g0 = torch.autograd.grad(it0, params, retain_graph=True,
+                                 allow_unused=True)
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        # A module that only the refinement runs has no gradient through
+        # iteration 0.
+        flat = (lambda gs: torch.cat([
+            (torch.zeros_like(p) if t is None else t).detach().double()
+            .flatten().cpu() for p, t in zip(params, gs)]))
+        out[dev] = ([f.detach().cpu() for f in flows],
+                    {k: float(v.detach()) for k, v in ld.items()}, flat(g0),
+                    flat(g))
+    (fc, lc, g0c, gc), (fr, lr, g0r, gr) = out[DEVICE], out["cpu"]
+    scale = max(1.0, fr[0].abs().max().item())
+    diff0 = (fc[0] - fr[0]).abs().max().item()
+    diff1 = (fc[1] - fr[1]).abs().max().item()
+    cos = (lambda a, b: float(a @ b / (a.norm() * b.norm())))
+    cos0, cos_all = cos(g0c, g0r), cos(gc, gr)
+    log(f"flow step card vs CPU ({FT_CPU_B} x {SAP_N}, {FT_CPU_ITERS} "
+        f"iterations): iteration 0 max abs diff {diff0:.3e} (tolerance "
+        f"{FLOW_TOL} x {scale:.4f}), iteration 1 {diff1:.3e} (tolerance "
+        f"{FT_FLOW1_TOL} x {scale:.4f}); sum rel diff "
+        f"{abs(lc['sum'] / lr['sum'] - 1):.3e} (tolerance {FT_SUM_RTOL}); "
+        f"terms {lc} vs {lr}; gradient cosine {cos_all:.8f} (> {FT_COS}), "
+        f"through iteration 0 {cos0:.8f} (> {FT_COS0})")
+    bad = [k for k in ("chamfer_loss_#0", "smooth_loss_#0")
+           if not math.isclose(lc[k], lr[k], rel_tol=LOSS_RTOL)]
+    if (diff0 > FLOW_TOL * scale or bad or diff1 > FT_FLOW1_TOL * scale
+            or not math.isclose(lc["sum"], lr["sum"], rel_tol=FT_SUM_RTOL)
+            or cos_all <= FT_COS or cos0 <= FT_COS0):
+        raise AssertionError(f"flow step: card and CPU disagree ({bad})")
+
+
+def flow_profile_probe():
+    """Not run by main: ``python -c "import chip_smoke;
+    chip_smoke.flow_profile_probe()"``.  Which of the two counts of the
+    SAPIEN flow-train step is right, the launch counters' or the profile's:
+    the counters over one step, then profiles of 1 and of 3 steps, each
+    with its kernels per step of #1, #2 and #5, its device-side events per
+    step and the guard spins its trace holds."""
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.tools.synth import make_sapien_root_coherent
+    from ogc_tpu_torch.train_seg import set_deterministic
+
+    os.chdir(REPO)
+    set_deterministic(torch.device("cuda"))
+    _build.lib()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = osp.join(tmp, "PIPE_SAPIEN")
+        make_sapien_root_coherent(osp.join(root, "mbs-shapepart"),
+                                  n_scenes=FT_SCENES, n_points=SAP_N,
+                                  seed=200 + SEED)
+        fcfg, _ = write_cfg(tmp, "config/flow/sapien/sapien_unsup.yaml",
+                            "probe_flow", data={"root": root})
+        batch = flow_batch(fcfg, SAP_FT_B)
+        set_modes({}, False)
+        trainer = make_flow_trainer(fcfg, DEVICE, osp.join(tmp, "probe"))
+        trainer.train_it(0, batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        trainer.train_it(1, batch)
+        got = read_counts()
+        log(f"counters over one SAPIEN flow-train step: fps {got['fps']}, "
+            f"knn_exact {got['knn_exact']}, ball_query {got['ball_query']} "
+            f"(derived {SAP_FT_STEP['fps']}, {SAP_FT_STEP['knn_exact']}, "
+            f"{SAP_FT_STEP['ball_query']})")
+        for steps in (1, 3, 3):
+            counts, events = profile_steps(
+                "SAPIEN flow-train steps (probe)",
+                lambda i: trainer.train_it(i, batch), steps)
+            log(f"probe: {steps} step(s): #1 {counts['#1 fps']:g}, #2 "
+                f"{counts['#2 knn_exact']:g}, #5 {counts['#5 ball_query']:g} "
+                f"kernels a step; {events:g} device-side events a step")
+
+
+def run_flow_pipeline(tmp):
+    """Flow training and the chained SAPIEN pipeline on a root of its own,
+    each stage through its CLI's main with the counts set to 0 before it
+    and read after it, in the CLI's default neighbour mode: train_flow (1
+    epoch; its launches against SAP_FT_STEP / SAP_FT_VAL; step times,
+    clouds/s, peak memory, a profile of 3 steps; two seeded 3-step runs
+    bit-equal; one step card vs CPU) -> test_flow --save on its ``best``
+    (train, val, test) -> train_seg woinv R1 on the saved flows -> oa_icp
+    train and val R1 --save -> vote R1 on the test flows.  Returns the
+    launches of train_flow."""
+    from ogc_tpu_torch import oa_icp, test_flow, train_flow, train_seg, vote
+    from ogc_tpu_torch.tools.synth import make_sapien_root_coherent
+
+    root = osp.join(tmp, "PIPE_SAPIEN")
+    t0 = time.perf_counter()
+    make_sapien_root_coherent(osp.join(root, "mbs-shapepart"),
+                              n_scenes=FT_SCENES, n_points=SAP_N,
+                              seed=200 + SEED)
+    make_sapien_root_coherent(osp.join(root, "mbs-sapien"),
+                              n_scenes=FT_TEST_SCENES, n_points=SAP_N,
+                              seed=300 + SEED, test_frac=0.99)
+    log(f"pipeline setup: {FT_SCENES} + {FT_TEST_SCENES} scenes in "
+        f"{time.perf_counter() - t0:.3f} s")
+    fcfg, fpath = write_cfg(tmp, "config/flow/sapien/sapien_unsup.yaml",
+                            "pipe_flow", epochs=1, data={"root": root},
+                            save_path=osp.join(tmp, "ckpt", "pipe_flow"))
+    n_train = int(FT_SCENES * 0.8) * 6 // SAP_FT_B
+    n_val = -(-(FT_SCENES - int(FT_SCENES * 0.8)) * 6 // SAP_FT_B)
+    stages = {}
+
+    def stage(name, fn, argv, per_unit, units_of, exact):
+        set_modes({}, exact)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, launches = run_stage(name, fn, argv, per_unit, units_of)
+        stages[name] = time.perf_counter() - t0
+        return res, launches
+
+    res, ft_launches = stage(
+        "train_flow SAPIEN", train_flow.main, [fpath, "--device", DEVICE],
+        (SAP_FT_STEP, SAP_FT_VAL),
+        lambda r: (len(r["trainer"].step_seconds), n_val), False)
+    trainer = res["trainer"]
+    if len(trainer.step_seconds) != n_train:
+        raise AssertionError(f"{len(trainer.step_seconds)} flow steps, want "
+                             f"{n_train}")
+    terms = {k: v for k, v in check_scalars(
+        "train_flow", fcfg["save_path"]).items() if k.startswith("train/")}
+    log(f"train_flow last terms: {terms}; best val loss {res['best_loss']}")
+    log_steps(f"SAPIEN flow-train step (B={SAP_FT_B} x {SAP_N}, "
+              f"{SAP_FT_ITERS} iterations)", trainer, 2 * SAP_FT_B,
+              stages["train_flow SAPIEN"])
+    log(f"launches per flow-train step {SAP_FT_STEP}, per val batch "
+        f"{SAP_FT_VAL}")
+    batch = flow_batch(fcfg, SAP_FT_B)
+    set_modes({}, False)
+    ptrainer = make_flow_trainer(fcfg, DEVICE, osp.join(tmp, "fprof"))
+    profile_steps(f"SAPIEN flow-train steps (B={SAP_FT_B} x {SAP_N}, "
+                  f"{SAP_FT_ITERS} iterations)",
+                  lambda i: ptrainer.train_it(i, batch),
+                  expect={"#1 fps": SAP_FT_STEP["fps"],
+                          "#2 knn_exact": SAP_FT_STEP["knn_exact"],
+                          "#5 ball_query": SAP_FT_STEP["ball_query"]})
+    check_flow_determinism(fcfg, tmp, batch)
+    check_flow_card_vs_cpu_step(fcfg, tmp, tuple(a[:FT_CPU_B] for a in batch))
+
+    # test_flow --save on every split, exact (its default), B=48.
+    tcfg, tpath = write_cfg(tmp, "config/flow/sapien/sapien_unsup.yaml",
+                            "pipe_test_flow", data={"root": root},
+                            save_path=fcfg["save_path"])
+    for split, n_scene in (("train", int(FT_SCENES * 0.8)),
+                           ("val", FT_SCENES - int(FT_SCENES * 0.8)),
+                           ("test", FT_TEST_SCENES - 1)):
+        res, _ = stage(
+            f"test_flow --save {split}", test_flow.main,
+            [tpath, "--split", split, "--test_batch_size", str(SAP_FLOW_B),
+             "--save", "--device", DEVICE], (SAP_FLOW,),
+            lambda r: (len(r["forward_s"]),), True)
+        check_finite(f"test_flow {split}",
+                     {k: res[k] for k in ("EPE", "AccS", "AccR", "Outlier")})
+        log(f"test_flow {split} ({n_scene} scenes x 6 pairs): EPE "
+            f"{res['EPE']} AccS {res['AccS']} AccR {res['AccR']} Outlier "
+            f"{res['Outlier']}")
+    scfg, spath = write_cfg(tmp, "config/seg/sapien/sapien_unsup_woinv.yaml",
+                            "pipe_woinv", epochs=1, data={"root": root},
+                            save_path=osp.join(tmp, "ckpt", "pipe_woinv"))
+    seg_train = int(FT_SCENES * 0.8) * 3 // SAP_B
+    seg_val = -(-(FT_SCENES - int(FT_SCENES * 0.8)) * 3 // SAP_B)
+    res, _ = stage(
+        "train_seg woinv R1", train_seg.main,
+        [spath, "--round", "1", "--device", DEVICE],
+        (dict(SAP_WOINV_STEP, fps=1), dict(SAP_VAL, fps=1)),
+        lambda r: (len(r["trainer"].step_seconds), seg_val), False)
+    if len(res["trainer"].step_seconds) != seg_train:
+        raise AssertionError("pipeline train_seg: wrong step count")
+    check_scalars("pipeline train_seg", res["trainer"].exp_base)
+    log(f"train_seg woinv R1 on the predicted flows: best val loss "
+        f"{res['best_loss']}")
+    for split, n_scene in (("train", int(FT_SCENES * 0.8)),
+                           ("val", FT_SCENES - int(FT_SCENES * 0.8))):
+        res, _ = stage(
+            f"oa_icp {split} R1", oa_icp.main,
+            [spath, "--split", split, "--round", "1", "--save",
+             "--test_batch_size", str(SAP_ICP_BATCH), "--device", DEVICE],
+            (SAP_ICP,), lambda r: (-(-n_scene * 6 // SAP_ICP_BATCH),), True)
+        for report in res.values():
+            check_finite(f"pipeline oa_icp {split}", report)
+        log(f"oa_icp {split} R1: {res}")
+    res, _ = stage(
+        "vote R1", vote.main,
+        [spath, "--split", "test", "--round", "1", "--test_batch_size",
+         str(SAP_VOTE_BATCH), "--device", DEVICE], (SAP_FWD,),
+        lambda r: (-(-(FT_TEST_SCENES - 1) * 4 // SAP_VOTE_BATCH),), True)
+    check_finite("pipeline vote", res)
+    log(f"vote R1 on the predicted test flows: {res}")
+    log(f"chained pipeline stage wall times (s): {stages}")
+    return ft_launches
+
+
+def run_ogcdr_flow_train(tmp):
+    """train_flow on an OGC-DR root (ogcdr_unsup.yaml, B=16 x 2048, 4
+    iterations, 3 steps and a val batch, approximate by default): launches
+    against DR_FT_STEP / DR_FT_VAL (#3 in training), finite terms, step
+    times.  Returns its launches."""
+    from ogc_tpu_torch import train_flow
+
+    root = osp.join(tmp, "OGCDR")
+    write_ogcdr(root, DR_SCENES, SEED)
+    cfg, path = write_cfg(tmp, "config/flow/ogcdr/ogcdr_unsup.yaml",
+                          "ogcdr_flow", epochs=1, data={"root": root},
+                          save_path=osp.join(tmp, "ckpt", "ogcdr_flow"))
+    n_train = (DR_SCENES - 2) * 6 // DR_FT_B
+    set_modes(cfg, False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = run_stage(
+        "train_flow OGC-DR", train_flow.main, [path, "--device", DEVICE],
+        (DR_FT_STEP, DR_FT_VAL),
+        lambda r: (len(r["trainer"].step_seconds), -(-2 * 6 // DR_FT_B)))
+    if len(res["trainer"].step_seconds) != n_train:
+        raise AssertionError("OGC-DR flow: wrong step count")
+    check_scalars("OGC-DR train_flow", cfg["save_path"])
+    log_steps(f"OGC-DR flow-train step (B={DR_FT_B} x {DR_FT_N}, "
+              f"{cfg['model_iters']} iterations)", res["trainer"],
+              2 * DR_FT_B, time.perf_counter() - t0)
+    log(f"launches per OGC-DR flow-train step {DR_FT_STEP}, per val batch "
+        f"{DR_FT_VAL}")
+    return launches
+
+
+def run_seg_sup(tmp, root):
+    """train_seg_sup on sapien_sup.yaml at B=128 x 512 over the SAPIEN
+    root ``root`` (SUP_EPOCHS epochs; approximate by default): launches
+    against SUP_STEP / SUP_VAL, finite terms, step times, a profile of 3
+    steps.  Returns its launches."""
+    from ogc_tpu_torch import train_seg_sup
+
+    cfg, path = write_cfg(tmp, "config/seg/sapien/sapien_sup.yaml",
+                          "sapien_sup", epochs=SUP_EPOCHS,
+                          data={"root": root},
+                          save_path=osp.join(tmp, "ckpt", "sapien_sup"))
+    n_train, n_val, _ = sapien_split_sizes({"data": {"root": root}})
+    set_modes(cfg, False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = run_stage(
+        "train_seg_sup SAPIEN", train_seg_sup.main,
+        [path, "--device", DEVICE], (SUP_STEP, SUP_VAL),
+        lambda r: (len(r["trainer"].step_seconds),
+                   SUP_EPOCHS * -(-n_val * 3 // SUP_B)))
+    steps = len(res["trainer"].step_seconds)
+    if steps != SUP_EPOCHS * (n_train * 3 // SUP_B):
+        raise AssertionError(f"train_seg_sup: {steps} steps")
+    terms = {k: v for k, v in check_scalars(
+        "train_seg_sup", cfg["save_path"]).items() if k.startswith("train/")}
+    log(f"train_seg_sup last terms: {terms}; best val loss "
+        f"{res['best_loss']}")
+    log_steps(f"supervised step (B={SUP_B} x {SAP_N}, frame 0)",
+              res["trainer"], SUP_B, time.perf_counter() - t0)
+    log(f"launches per supervised step {SUP_STEP}, per val batch {SUP_VAL}")
+    # A profile of 3 steps on one fixed batch, from the CLI's pieces.
+    import types
+
+    from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+    from ogc_tpu_torch.train.seg_sup import SupSegTrainer
+
+    ds = train_seg_sup.build_datasets(types.SimpleNamespace(**cfg))[0]
+    batch = tuple(np.stack(f, 0) for f in zip(*[ds[i]
+                                                 for i in range(SUP_B)]))
+    model = make_model(cfg, DEVICE)
+    trainer = SupSegTrainer(
+        model, SupLossConfig(weights=tuple(cfg["loss"]["weights"])),
+        Adam(dict(model.named_parameters()),
+             make_lr_schedule(cfg["lr"], cfg["lr_decay"], cfg["lr_clip"],
+                              cfg["decay_step"], cfg["batch_size"])),
+        ignore_npoint_thresh=0, exp_base=osp.join(tmp, "sup_prof"),
+        device=torch.device(DEVICE))
+    profile_steps(f"supervised steps (B={SUP_B} x {SAP_N})",
+                  lambda i: trainer.train_it(i, batch),
+                  expect={"#1 fps": SUP_STEP["fps"],
+                          "#2 knn_exact": SUP_STEP["knn_exact"]})
+    return launches
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3684,7 +4416,26 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s")
         for k, v in run_test_flow(tmp).items():
             flow_launches[k] += v
-    log(f"test_flow phase done at {time.perf_counter() - t_start:.1f} s")
+        log(f"test_flow phase done at {time.perf_counter() - t_start:.1f} s")
+        # Flow training and supervised training (their own main paths).
+        ft_launches = run_flow_pipeline(tmp)
+        log(f"flow-train pipeline done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        dr_launches = run_ogcdr_flow_train(tmp)
+        sup_launches = run_seg_sup(tmp, sap_cfgs["woinv"]["data"]["root"])
+        log(f"OGC-DR flow train and supervised train done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+    missing = [k for k in ("fps", "knn_exact", "ball_query", "gather_onehot",
+                           "scatter_onehot", "scatter_add")
+               if not ft_launches[k]]
+    missing += [k for k in ("knn_blockmin", "ball_blockmin")
+                if not dr_launches[k]]
+    missing += [k for k in ("fps", "knn_exact", "gather_onehot",
+                            "scatter_add") if not sup_launches[k]]
+    if missing:
+        raise AssertionError(f"the training paths launched no {missing}")
+    log(f"launches: SAPIEN train_flow {ft_launches}; OGC-DR train_flow "
+        f"{dr_launches}; train_seg_sup {sup_launches}")
 
     # name: (source, the TPU kernel it replaces); launches come from the
     # KITTI-SF train run, for #7/#8 from the SAPIEN alternation, for #3

@@ -1,4 +1,4 @@
-"""FlowStep3D, the recurrent scene-flow network, in eval mode (counterpart of
+"""FlowStep3D, the recurrent scene-flow network (counterpart of
 ogc_tpu/models/flownet.py).
 
 One config-parameterized model for the reference's per-dataset copies
@@ -9,27 +9,33 @@ iters - 1 GRU refinement steps: re-encode the warped cloud (reusing frame
 1's FPS indices), local FlowEmbedding correlation, GRU update, delta-flow
 regression with k_decay damping, upsample and accumulate.
 
-As the JAX package evaluates it: both clouds are encoded in one 2B batch;
-one KNN table of the 1/4-resolution cloud against itself serves every
-module that groups it; the upsample stencil is computed once.  In the
+As the JAX package computes it: one KNN table of the 1/4-resolution cloud
+against itself serves every module that groups it; the upsample stencil is
+computed once.  Eval encodes both clouds in one 2B batch; in the
 approximate neighbour mode the nested FPS samples prefixes and the warped
 cloud's self-KNN tables are frozen across the refinement (freeze_knn); the
-exact mode recomputes them per iteration.  The JAX package's ``nn.scan``
-over the refinement is a Python loop here.  Train mode raises (flow
-training is ROADMAP queue A.9's next part).
+exact mode recomputes them per iteration.  Train encodes pc1, then pc2, in
+passes of their own, so that each BatchNorm sees (and updates its running
+statistics from) one cloud at a time in the JAX package's order
+(ogc_tpu/models/flownet.py:376-389); it never freezes the self-KNN tables,
+and the gradient stops where the JAX package's does: at flow0 and flow0_lr
+where they warp the clouds (:452-455) and at the carried clouds each
+iteration starts from (:462-463).  The JAX package's ``nn.scan`` over the
+refinement is a Python loop here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.nn.flowstep3d import (FlowEmbedding, FlowFPModule,
-                                         FlowSAModule, _eval_only)
+                                         FlowSAModule)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,13 +163,31 @@ class GlobalCorrLayer(nn.Module):
         return self.fp(pc1_l[level - 1], pc1_l[level], feats)
 
 
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Redraw the convs and linears from ``generator`` with torch's default
+    inits (kaiming-uniform, a = sqrt(5); linear biases uniform in +-1 /
+    sqrt(fan_in)), as the reference's modules are built."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                         generator=generator)
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(m.weight[0].numel())
+                    nn.init.uniform_(m.bias, -bound, bound,
+                                     generator=generator)
+
+
 class FlowStep3D(nn.Module):
     """:param npoint: points per cloud; :param arch: dataset key into ARCHS.
+    :param generator: draws the initial weights (torch's default inits);
+        None keeps torch's global-RNG draws.
     State_dict keys are the reference's (models/flownet_*.py)."""
 
     def __init__(self, npoint: int = 512, arch: str = "sapien",
                  use_instance_norm: bool = False, loc_flow_nn: int = 8,
-                 loc_flow_rad: float = 0.1, k_decay_fact: float = 1.0):
+                 loc_flow_rad: float = 0.1, k_decay_fact: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         a = ARCHS[arch] if isinstance(arch, str) else arch
         self.arch = a
@@ -207,6 +231,8 @@ class FlowStep3D(nn.Module):
             n: sa(gate, a.hidden_dim + x_dim, use_act=False)
             for n in ("convz", "convr", "convq")})
         self.flow_up_sample = FlowFPModule()
+        if generator is not None:
+            init_parameters(self, generator)
 
     def _encode_loc(self, pc, feature, fps_idx=None, knn_idx=None):
         """EncoderLoc: two SA levels with reusable FPS indices; level 2's
@@ -240,26 +266,36 @@ class FlowStep3D(nn.Module):
                                   group_idx=lr_idx)[1])
         return (1 - z) * h + z * q
 
+    def _encode(self, pc1, pc2, feature1, feature2):
+        """Both clouds through the local and global encoders: (pc1_l, pc2_l,
+        feats1_loc, feats2_loc, fps_idx1, knn1, pc1_g, pc2_g, f1g, f2g)."""
+        if self.training:
+            pc1_l, feats1_loc, fps_idx1, _ = self._encode_loc(pc1, feature1)
+            pc2_l, feats2_loc, _, _ = self._encode_loc(pc2, feature2)
+            pc1_g, f1g = self._encode_glob(pc1_l[-1], feats1_loc)
+            pc2_g, f2g = self._encode_glob(pc2_l[-1], feats2_loc)
+            return (pc1_l, pc2_l, feats1_loc, feats2_loc, fps_idx1, None,
+                    pc1_g, pc2_g, f1g, f2g)
+        # Eval: running statistics, so one 2B batch encodes both clouds.
+        B = pc1.shape[0]
+        pc12_l, feats12, fps12, knn12 = self._encode_loc(
+            torch.cat([pc1, pc2]), torch.cat([feature1, feature2]))
+        # Approximate mode freezes the warped cloud's self-KNN tables.
+        knn1 = None if ops.exact_neighbors() else [k[:B] for k in knn12]
+        pc12_g, f12g = self._encode_glob(pc12_l[-1], feats12)
+        return ([p[:B] for p in pc12_l], [p[B:] for p in pc12_l],
+                feats12[:B], feats12[B:], [f[:B] for f in fps12], knn1,
+                [p[:B] for p in pc12_g], [p[B:] for p in pc12_g], f12g[:B],
+                f12g[B:])
+
     def forward(self, pc1, pc2, feature1, feature2,
                 iters: int = 1) -> List[torch.Tensor]:
         """:param pc1, pc2: (B, N, 3); :param feature1, feature2: (B, N, 3).
         :return: the per-iteration flow predictions [(B, N, 3)]."""
-        _eval_only(self)
         a = self.arch
-        B = pc1.shape[0]
-        # Eval: running statistics, so one 2B batch encodes both clouds.
-        pc12_l, feats12, fps12, knn12 = self._encode_loc(
-            torch.cat([pc1, pc2]), torch.cat([feature1, feature2]))
-        pc1_l = [p[:B] for p in pc12_l]
-        pc2_l = [p[B:] for p in pc12_l]
-        feats1_loc, feats2_loc = feats12[:B], feats12[B:]
-        fps_idx1 = [f[:B] for f in fps12]
-        # Approximate mode freezes the warped cloud's self-KNN tables.
-        knn1 = None if ops.exact_neighbors() else [k[:B] for k in knn12]
-        pc12_g, f12g = self._encode_glob(pc12_l[-1], feats12)
-        corr_feats = self.global_corr_layer(
-            [p[:B] for p in pc12_g], [p[B:] for p in pc12_g], f12g[:B],
-            f12g[B:])
+        (pc1_l, pc2_l, feats1_loc, feats2_loc, fps_idx1, knn1, pc1_g, pc2_g,
+         f1g, f2g) = self._encode(pc1, pc2, feature1, feature2)
+        corr_feats = self.global_corr_layer(pc1_g, pc2_g, f1g, f2g)
 
         pc1_lr, pc2_lr = pc1_l[2], pc2_l[-1]
         lr_k = max(a.reg_nsample, a.flow_conv1.nsample, a.flow_conv2.nsample,
@@ -275,10 +311,11 @@ class FlowStep3D(nn.Module):
         _, h, _ = self.h0_net["sa1"](pc1_lr, feats1_loc, group_idx=lr_idx)
         _, h, _ = self.h0_net["sa2"](pc1_lr, h, group_idx=lr_idx)
         h = torch.tanh(h)
-        pc1_new = pc1 + flow0
-        pc1_new_lr = pc1_lr + flow0_lr
+        pc1_new = pc1 + flow0.detach()
+        pc1_new_lr = pc1_lr + flow0_lr.detach()
         reg = self.flow_regressor
         for it in range(iters - 1):
+            pc1_new, pc1_new_lr = pc1_new.detach(), pc1_new_lr.detach()
             flow_lr = pc1_new_lr - pc1_lr
             pc1_new_l, feats1_new, _, _ = self._encode_loc(
                 pc1_new, pc1_new, fps_idx1, knn_idx=knn1)

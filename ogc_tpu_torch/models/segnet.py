@@ -165,8 +165,9 @@ class MaskFormer3D(nn.Module):
                 l_pc[i - 1], l_pc[i], l_feats[i - 1], l_feats[i])
         # The head runs in float32 whatever the compute dtype; object_mlp
         # follows it, as in the JAX package.
-        slot = self.object_mlp(self.MF_head(l_feats[-1].float(), l_pc[-1]))
-        feats = F.normalize(l_feats[0].float(), dim=-1, eps=1e-12)
-        slot = F.normalize(slot.float(), dim=-1, eps=1e-12)
+        slot = self.object_mlp(self.MF_head(ops.widen(l_feats[-1]),
+                                            l_pc[-1]))
+        feats = F.normalize(ops.widen(l_feats[0]), dim=-1, eps=1e-12)
+        slot = F.normalize(ops.widen(slot), dim=-1, eps=1e-12)
         logits = torch.einsum("bnd,bkd->bnk", feats, slot) / 0.05
         return torch.softmax(logits, dim=-1)

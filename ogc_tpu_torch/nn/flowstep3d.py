@@ -1,4 +1,4 @@
-"""FlowStep3D building blocks in eval mode, channels-last (counterpart of
+"""FlowStep3D building blocks, channels-last (counterpart of
 ogc_tpu/nn/flowstep3d.py).
 
 KNN-grouped set abstraction with BatchNorm, cross-cloud FlowEmbedding
@@ -8,24 +8,29 @@ state_dict: ``mlp_convs.{j}.weight`` (C_out, C_in, 1, 1) and
 ``mlp_bns.{j}.{weight,bias,running_mean,running_var,num_batches_tracked}``,
 so reference checkpoints load unchanged.
 
-Eval forwards only, in float32, as the JAX package computes them by
-default: every grouped stack with xyz takes the source-projected first layer
+In float32, as the JAX package computes them by default.  Eval: every
+grouped stack with xyz takes the source-projected first layer
 (ogc_tpu/nn/flowstep3d.py:179-232, on for every dtype in eval unless
 ``OGC_EVAL_FOLD=off``): the first 1x1 conv is applied to the N source
 points, the eval BatchNorm affine folded into it, the projections gathered,
 and the centre's projection subtracted per group.  The last layer of a
 multi-layer stack folds its eval BatchNorm affine and ReLU into the
-neighbour pool (``_fold_bn_pool``).  Every pool is ``ops.pool_neighbors``
-(#12 behind its gate).  Train mode (batch statistics, the momentum
-schedule), the bf16 compute mode and InstanceNorm raise: flow training is
-ROADMAP queue A.9's next part, and no flow config sets bf16 or
-``use_instance_norm``.
+neighbour pool (``_fold_bn_pool``); every eval pool is
+``ops.pool_neighbors`` (#12 behind its gate).  Train (``module.train()``):
+the reference-shaped grouped tensor (relative xyz, then features), conv,
+BatchNorm on batch statistics and ReLU per layer, and a ``torch.amax`` pool,
+whose gradient splits evenly among tied rows as ``jnp.max``'s does (the
+radius clamp duplicates rows, so ties are common).  BatchNorm takes its
+momentum from ``set_bn_momentum`` (the trainer's schedule).  The bf16
+compute mode and InstanceNorm raise: no flow config sets bf16 or
+``use_instance_norm`` (ROADMAP.md A.8, A.13).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,25 +39,47 @@ from ogc_tpu_torch import ops
 from ogc_tpu_torch.nn.layers import compute_dtype
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "FlowStep3D train mode is not ported yet (ROADMAP.md A.9, "
-            "training)")
+def _f32_only() -> None:
     if compute_dtype() is not None:
         raise NotImplementedError(
             "FlowStep3D in the bf16 compute mode is not ported (no flow "
-            "config sets it; ROADMAP.md A.9)")
+            "config sets it; ROADMAP.md A.8)")
 
 
 class SchedulableBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over every axis but the last (ogc_tpu/nn/flowstep3d.py:44),
-    in eval: the reference BatchNorm2d's parameters and running statistics,
-    applied channels-last."""
+    """BatchNorm over every axis but the last (ogc_tpu/nn/flowstep3d.py:44)
+    on the reference BatchNorm2d's parameters and running statistics,
+    applied channels-last.
+
+    Train: batch statistics in float32 (or the input's wider dtype),
+    normalised with the biased variance; the running statistics move
+    torch-style, ``(1 - m) * run + m * batch``, with the unbiased variance
+    (:103-107) and the momentum m the trainer set (``set_bn_momentum``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        _f32_only()
+        if not self.training:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var
+                                                      + self.eps)
+            return y * self.weight + self.bias
+        if self.momentum is None:
+            raise ValueError("SchedulableBatchNorm needs a momentum "
+                             "(set_bn_momentum), not a cumulative average")
+        xf = x.reshape(-1, x.shape[-1])
+        xf = xf.to(torch.promote_types(xf.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, dim=0, correction=0)
+        n = xf.shape[0]
+        with torch.no_grad():
+            f = (np.float64 if self.running_mean.dtype == torch.float64
+                 else np.float32)
+            m = f(self.momentum)
+            keep = float(f(1) - m)
+            self.running_mean.copy_(keep * self.running_mean
+                                    + float(m) * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + float(m) * (var * n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
     def eval_affine(self):
@@ -60,6 +87,14 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
         rsqrt(var + eps), b = bias - mean * k (``return_affine``)."""
         k = self.weight * torch.rsqrt(self.running_var + self.eps)
         return k, self.bias - self.running_mean * k
+
+
+def set_bn_momentum(model: nn.Module, momentum: float) -> None:
+    """The torch momentum of every SchedulableBatchNorm in ``model`` (the
+    reference's BNMomentumScheduler, utils/pytorch_util.py:112-137)."""
+    for m in model.modules():
+        if isinstance(m, SchedulableBatchNorm):
+            m.momentum = float(momentum)
 
 
 class InstanceNorm(nn.Module):
@@ -98,17 +133,32 @@ class _ConvStack(nn.Module):
 
     def _layers(self, x: torch.Tensor, start: int) -> torch.Tensor:
         """Layers ``start``.. on a grouped (B, M, S, C) tensor, then the
-        pool; the last BatchNorm layer folds into it."""
+        pool; in eval the last BatchNorm layer folds into it, in train the
+        pool is ``torch.amax``."""
         last = len(self.mlp) - 1
         for j in range(start, len(self.mlp)):
             x = F.linear(x, self._w(j))
             if not self.use_act:
                 continue
-            if j == last:
+            if j == last and not self.training:
                 k, b = self.mlp_bns[j].eval_affine()
                 return self._pool(x, scale=k, add=b, relu=True)
             x = F.relu(self.mlp_bns[j](x))
+        if self.training:
+            return torch.amax(x, 2)
         return self._pool(x)
+
+    def stack(self, xyz: torch.Tensor, new_xyz: torch.Tensor,
+              feat: Optional[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+        """(B, M, mlp[-1]) from the source points xyz (B, N, 3) with
+        ``feat`` (B, N, C), the centres new_xyz (B, M, 3) and the neighbour
+        table idx (B, M, S): ``fold`` in eval; in train the reference-shaped
+        grouped tensor (ogc_tpu/nn/flowstep3d.py:291-323)."""
+        _f32_only()
+        if not self.training:
+            return self.fold(xyz, new_xyz, feat, idx)
+        grouped, _ = ops.group_with_idx(xyz, new_xyz, idx, feat)
+        return self._layers(grouped, 0)
 
     def fold(self, xyz: torch.Tensor, new_xyz: torch.Tensor,
              feat: Optional[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
@@ -116,7 +166,6 @@ class _ConvStack(nn.Module):
         (B, M, mlp[-1]) from the source points xyz (B, N, 3) with ``feat``
         (B, N, C), the centres new_xyz (B, M, 3) and the neighbour table
         idx (B, M, S)."""
-        _eval_only(self)
         w0 = self._w(0)
         src = xyz if feat is None else torch.cat([xyz, feat], -1)
         proj = F.linear(src, w0)
@@ -180,8 +229,8 @@ class FlowSAModule(_ConvStack):
         if group_idx is not None:
             if return_knn or self.npoint not in (None, -1, xyz.shape[1]):
                 raise ValueError("group_idx needs an identity npoint")
-            out = self.fold(xyz, xyz, features,
-                            group_idx[..., :self.nsample])
+            out = self.stack(xyz, xyz, features,
+                             group_idx[..., :self.nsample])
             return xyz, out, fps_idx
         if self.npoint not in (None, -1, xyz.shape[1]):
             if fps_idx is None and fps_nested:
@@ -204,7 +253,7 @@ class FlowSAModule(_ConvStack):
             dist, idx = ops.knn(self.nsample, new_xyz, xyz)
             if self.radius is not None:
                 idx = torch.where(dist > self.radius, idx[..., :1], idx)
-        out = self.fold(xyz, new_xyz, features, idx)
+        out = self.stack(xyz, new_xyz, features, idx)
         if return_knn:
             return new_xyz, out, fps_idx, idx
         return new_xyz, out, fps_idx
@@ -250,7 +299,7 @@ class FlowEmbedding(_ConvStack):
     def forward(self, pos1, pos2, feature1, feature2):
         """:param pos1, pos2: (B, N, 3); :param feature1, feature2: (B, N, C).
         :return: (pos1, (B, N, mlp[-1]))."""
-        _eval_only(self)
+        _f32_only()
         dist, idx = ops.knn(self.nsample, pos1, pos2)
         idx = torch.where(dist > self.radius, idx[..., :1], idx)
         g = ops.group(torch.cat([pos2, feature2], -1), idx)

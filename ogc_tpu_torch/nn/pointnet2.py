@@ -84,7 +84,8 @@ class SAModuleMSG(nn.Module):
                                             self.use_xyz)
             # The split form: the first product in float32, cast to the
             # compute dtype after it.
-            h = F.linear(grouped.float(), mlp.layer0.conv.weight.flatten(1),
+            h = F.linear(ops.widen(grouped),
+                         mlp.layer0.conv.weight.flatten(1),
                          mlp.layer0.conv.bias)
             h = mlp.rest(mlp.layer0.post(h if dt is None else h.to(dt)))
             outs.append(ops.pool_neighbors(h, differentiable=self.training))

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ogc_tpu_torch.ops import _build
-from ogc_tpu_torch.ops.knn import check_clouds, pair_d2
+from ogc_tpu_torch.ops.knn import check_clouds, pair_d2, plain_dtype
 
 
 def radius_sq(radius: float) -> float:
@@ -46,13 +46,13 @@ def ball_query_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     :param xyz: (B, N, 3) points; :param new_xyz: (B, M, 3) centres.
     :return: (B, M, nsample) int32.
     """
-    p = xyz.float()
+    p = xyz.to(plain_dtype(xyz))
     N = p.shape[1]
     r2 = radius_sq(radius)
     ids = torch.arange(N, device=p.device)
     k_eff = min(nsample, N)
     cands = []
-    for c in new_xyz.float().split(chunk, dim=1):
+    for c in new_xyz.to(plain_dtype(new_xyz)).split(chunk, dim=1):
         key = torch.where(pair_d2(c, p) < r2, ids, N + ids)
         cands.append(torch.topk(key, k_eff, dim=-1, largest=False,
                                 sorted=True).values)

@@ -97,9 +97,16 @@ def set_exact_prune(mode: str) -> None:
     _EXACT_PRUNE = mode
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 (the kernels' dtype), or float64 when it is float64:
+    the CPU tests' float64 runs, where the plain versions then compute in
+    float64 too."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """:param xyz: (B, N, 3).  :return: (B, npoint) int32 indices."""
-    return fps(xyz.float(), npoint)
+    return fps(widen(xyz), npoint)
 
 
 class _Gather(torch.autograd.Function):
@@ -126,7 +133,7 @@ class _Gather(torch.autograd.Function):
             return None, None, None
         (idx,) = ctx.saved_tensors
         scatter = scatter_add_rows_onehot if ctx.onehot else scatter_add_rows
-        d = scatter(idx, grad.float().contiguous(), ctx.n_dest)
+        d = scatter(idx, widen(grad).contiguous(), ctx.n_dest)
         return d.to(grad.dtype), None, None
 
 
@@ -158,13 +165,13 @@ def knn(k: int, query: torch.Tensor, points: torch.Tensor,
     exact = _EXACT if exact is None else bool(exact)
     if not exact and M >= 1024 and -(-M // 4) >= k:
         recall = _RECALL_LARGE_K if k >= 8 else _RECALL_SMALL_K
-        return knn_blockmin(query.float(), points.float(), k, recall)
+        return knn_blockmin(widen(query), widen(points), k, recall)
     if (exact and _EXACT_PRUNE == "knn"
             and _PRUNE_MIN_M <= M <= _PRUNE_MAX_M and M >= k
             and query.shape[1] >= _PRUNE_MIN_N):
-        return knn_exact_pruned(query.float(), points.float(), k)
+        return knn_exact_pruned(widen(query), widen(points), k)
     k_eff = min(k, M)
-    dist, idx = knn_exact(query.float(), points.float(), k_eff)
+    dist, idx = knn_exact(widen(query), widen(points), k_eff)
     if k_eff < k:
         pad = k - k_eff
         dist = torch.cat([dist, dist[..., -1:].expand(*dist.shape[:-1], pad)], -1)
@@ -210,9 +217,9 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     N = xyz.shape[1]
     exact = _EXACT if exact is None else bool(exact)
     if not exact and N >= 1024 and -(-N // 4) >= nsample:
-        return ball_query_blockmin(xyz.float(), new_xyz.float(), radius,
+        return ball_query_blockmin(widen(xyz), widen(new_xyz), radius,
                                    nsample)
-    return ball_query_exact(xyz.float(), new_xyz.float(), radius, nsample)
+    return ball_query_exact(widen(xyz), widen(new_xyz), radius, nsample)
 
 
 def query_and_group(radius: Optional[float], nsample: int, xyz: torch.Tensor,

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ogc_tpu_torch.ops import _build
+from ogc_tpu_torch.ops.knn import plain_dtype
 
 # The clouds the kernel takes: the largest N of the parent kernel, which
 # held 16 bytes a point in one CTA's shared memory.
@@ -49,13 +50,14 @@ def fps_plan(n: int) -> FpsPlan:
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Greedy FPS from index 0; the lowest index among the maxima wins.
 
-    :param xyz: (B, N, 3) float32.  :return: (B, npoint) int32.
+    :param xyz: (B, N, 3) float32 (float64 runs in float64).
+    :return: (B, npoint) int32.
     """
     B, N, _ = xyz.shape
-    x = xyz.float()
+    x = xyz.to(plain_dtype(xyz))
     col = torch.arange(N, device=x.device)
     rows = torch.arange(B, device=x.device)
-    min_d2 = torch.full((B, N), 1e10, dtype=torch.float32, device=x.device)
+    min_d2 = torch.full((B, N), 1e10, dtype=x.dtype, device=x.device)
     out = torch.zeros((B, npoint), dtype=torch.int32, device=x.device)
     last = torch.zeros(B, dtype=torch.long, device=x.device)
     for i in range(1, npoint):

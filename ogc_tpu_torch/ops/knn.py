@@ -22,11 +22,19 @@ from ogc_tpu_torch.ops import _build
 MAX_K = 64
 
 
+def plain_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' dtype: float32, as the kernels compute, or
+    float64 for float64 tensors (the CPU tests' float64 runs)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def pair_d2(query: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Direct-form d2 of every (query, point) pair in float32, as the
-    kernels compute it: points minus query per coordinate, then
-    ((dx*dx + dy*dy) + dz*dz).  (B, N, 3) x (B, M, 3) -> (B, N, M)."""
-    q, p = query.float(), points.float()
+    """Direct-form d2 of every (query, point) pair in float32 (float64 for
+    float64 clouds), as the kernels compute it: points minus query per
+    coordinate, then ((dx*dx + dy*dy) + dz*dz).
+    (B, N, 3) x (B, M, 3) -> (B, N, M)."""
+    dt = torch.promote_types(plain_dtype(query), plain_dtype(points))
+    q, p = query.to(dt), points.to(dt)
     dx = p[:, None, :, 0] - q[:, :, None, 0]
     dy = p[:, None, :, 1] - q[:, :, None, 1]
     dz = p[:, None, :, 2] - q[:, :, None, 2]
@@ -52,7 +60,8 @@ def knn_exact_plain(query: torch.Tensor, points: torch.Tensor,
     """Direct-form d2, stable sort (ties to the lower index), first k.
 
     :param query: (B, N, 3); :param points: (B, M, 3); requires k <= M.
-    :return: (dist (B, N, k) float32 = sqrt(max(d2, 0)), idx (B, N, k) int32).
+    :return: (dist (B, N, k) float32 (float64 for float64 clouds)
+        = sqrt(max(d2, 0)), idx (B, N, k) int32).
     """
     d2s, idx = torch.sort(pair_d2(query, points), dim=-1, stable=True)
     return (torch.sqrt(torch.clamp(d2s[..., :k], min=0.0)),

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ogc_tpu_torch.ops import _build
+from ogc_tpu_torch.ops.knn import plain_dtype
 
 # The CTAs one launch should give the card (2 per SM of an H100).
 TARGET_CTAS = 2 * 132
@@ -114,12 +115,14 @@ def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor,
     step s adds every destination's s-th incoming row (one row per
     destination, so the indexed update is exact).
 
-    :param idx: (B, R) int; :param g: (B, R, C).  :return: (B, n_dest, C) f32.
+    :param idx: (B, R) int; :param g: (B, R, C).  :return: (B, n_dest, C)
+        float32 (float64 for float64 rows).
     """
     B, R = idx.shape
     C = g.shape[-1]
     dest, order, start = segments(idx, n_dest)
-    out = torch.zeros((B * n_dest, C), dtype=torch.float32, device=g.device)
+    dt = plain_dtype(g)
+    out = torch.zeros((B * n_dest, C), dtype=dt, device=g.device)
     if B * R == 0:
         return out.reshape(B, n_dest, C)
     rank = torch.arange(B * R, device=idx.device) - start[dest]
@@ -127,7 +130,7 @@ def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor,
     bounds = torch.searchsorted(
         rank[by_rank],
         torch.arange(int(rank.max()) + 2, device=idx.device)).tolist()
-    rows = g.reshape(B * R, C).float()
+    rows = g.reshape(B * R, C).to(dt)
     for s in range(len(bounds) - 1):
         sel = by_rank[bounds[s]:bounds[s + 1]]
         d = dest[sel]

@@ -11,17 +11,14 @@ checkpoint by validation loss.
 
 from __future__ import annotations
 
-import os
-import os.path as osp
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, ogc_loss
-from ogc_tpu_torch.metrics.seg import accumulate_eval_results, calculate_PQ_F1
-from ogc_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+from ogc_tpu_torch.train.base import EpochTrainer, add_ap, new_ap
 from ogc_tpu_torch.utils.meters import AverageMeter
 
 
@@ -76,9 +73,11 @@ class Adam:
             return False
         lr = self.schedule(self.count)
         count = self.count + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
+        # optax's bias corrections, in the parameters' precision.
+        f = (np.float64 if next(iter(self.params.values())).dtype
+             == torch.float64 else np.float32)
+        bc1 = float(f(1) - f(self.b1) ** f(count))
+        bc2 = float(f(1) - f(self.b2) ** f(count))
         for k, p in self.params.items():
             g = grads[k]
             if self.weight_decay:
@@ -104,7 +103,7 @@ class Adam:
         self.notfinite_count = int(state["notfinite_count"])
 
 
-class SegTrainer:
+class SegTrainer(EpochTrainer):
     """:param model: MaskFormer3D on ``device``.
     :param exp_base: directory of ``current``/``best`` checkpoints and the
         ``log/scalars.jsonl`` writer's output."""
@@ -113,36 +112,11 @@ class SegTrainer:
                  optimizer: Adam, aug_transform_epoch: int,
                  ignore_npoint_thresh: int, exp_base: str,
                  device: torch.device, writer=None):
-        self.model = model
+        super().__init__(model, optimizer, exp_base, device, writer)
         self.loss_cfg = loss_cfg
-        self.optimizer = optimizer
         self.aug_transform_epoch = aug_transform_epoch
         self.ignore_npoint_thresh = ignore_npoint_thresh
-        self.exp_base = exp_base
-        self.device = device
-        self.writer = writer
-        os.makedirs(exp_base, exist_ok=True)
-        self.checkpoint_name = osp.join(exp_base, "current")
-        self.best_name = osp.join(exp_base, "best")
-        #: host seconds of each train_it (ends synchronised) and eval_epoch
-        self.step_seconds = []
-        self.val_seconds = []
-
-    # -- checkpoints: full train state ------------------------------------
-
-    def save(self, is_best: bool, epoch: int = 0) -> None:
-        state = {"model_state": {k: v.detach().cpu() for k, v in
-                                 self.model.state_dict().items()},
-                 "optimizer_state": self.optimizer.state_dict(),
-                 "epoch": epoch}
-        save_train_state(state, is_best, self.checkpoint_name, self.best_name)
-
-    def resume(self, path: str) -> int:
-        """Restore weights, optimizer state and epoch; returns the epoch."""
-        state = load_train_state(path)
-        self.model.load_state_dict(state["model_state"])
-        self.optimizer.load_state_dict(state["optimizer_state"])
-        return int(state["epoch"])
+        self._train_set, self._aug = None, False
 
     # -- steps --------------------------------------------------------------
 
@@ -198,8 +172,7 @@ class SegTrainer:
         self.model.eval()
         meter = AverageMeter()
         total_loss, count = 0.0, 0
-        ap = {"Pred_IoU": [], "Pred_Matched": [], "Confidence": [],
-              "N_GT_Inst": []}
+        ap = new_ap()
         for pcs, segms, flows, _ in loader:
             pcs_d, flows_d = self._to_device(pcs, flows)
             loss, ld, masks = self._loss(pcs_d, flows_d, 0, False, False)
@@ -207,76 +180,36 @@ class SegTrainer:
             total_loss += float(loss) * b
             count += b
             meter.append_loss({k: float(v) for k, v in ld.items()})
-            iou, matched, _, n_gt = accumulate_eval_results(
-                segms[:, 0], masks[:, 0].cpu().numpy(),
-                self.ignore_npoint_thresh)
-            ap["Pred_IoU"].append(iou)
-            ap["Pred_Matched"].append(matched)
-            ap["N_GT_Inst"].append(n_gt)
+            add_ap(ap, segms[:, 0], masks[:, 0].cpu().numpy(),
+                   self.ignore_npoint_thresh)
         self.val_seconds.append(time.perf_counter() - t0)
         return total_loss / max(count, 1), meter.get_mean_loss_dict(), ap
 
-    def _log(self, prefix: str, scalars: Dict[str, float], step: int):
-        if self.writer is not None:
-            for k, v in scalars.items():
-                self.writer.add_scalar(prefix + k, v, global_step=step)
+    # -- the epoch loop's hooks ---------------------------------------------
+
+    def _set_aug(self) -> None:
+        """Phase in the augmented views and their invariance loss
+        (reference train_seg.py:150-154)."""
+        self._aug = True
+        self._train_set.aug_transform = True
+
+    def _begin_epoch(self, epoch: int) -> bool:
+        if epoch == self.aug_transform_epoch + 1:
+            self._set_aug()
+            return True
+        return False
+
+    def _train_batch(self, it: int, batch):
+        ld, segm, mask = self.train_it(it, batch, self._aug)
+        return ld, (segm, mask)
+
+    def _validate(self, loader):
+        return self.eval_epoch(loader)
 
     def train(self, n_epochs: int, train_set, train_loader, test_loader=None,
               start_epoch: int = 1) -> float:
-        it = (start_epoch - 1) * len(train_loader)
-        best_loss = 1e10
-        aug_transform = False
+        self._train_set, self._aug = train_set, False
         if start_epoch > self.aug_transform_epoch + 1:
-            aug_transform = True
-            train_set.aug_transform = True
-        if start_epoch == 1:
-            self.save(True, 0)
-
-        for epoch in range(start_epoch, n_epochs + 1):
-            meter = AverageMeter()
-            # Phase in the augmented views and their invariance loss
-            # (reference train_seg.py:150-154).
-            if epoch == self.aug_transform_epoch + 1:
-                aug_transform = True
-                train_set.aug_transform = True
-                best_loss = 1e10
-            ap = {"Pred_IoU": [], "Pred_Matched": [], "N_GT_Inst": []}
-            for batch in train_loader:
-                ld, segm, mask = self.train_it(it, batch, aug_transform)
-                it += 1
-                meter.append_loss(ld)
-                self._log("train/", ld, it)
-                iou, matched, _, n_gt = accumulate_eval_results(
-                    segm, mask, self.ignore_npoint_thresh)
-                ap["Pred_IoU"].append(iou)
-                ap["Pred_Matched"].append(matched)
-                ap["N_GT_Inst"].append(n_gt)
-            train_avg = meter.get_mean_loss_dict()
-            pq, f1, pre, rec = _pq_f1(ap)
-            msg = ", ".join(f"{k}={v:.4f}" for k, v in train_avg.items())
-            print(f"[epoch {epoch:3d}] train: {msg} | PQ@50={pq:.4f} "
-                  f"F1@50={f1:.4f}", flush=True)
-            self._log("epoch_sum_train/", {**train_avg, "PQ@50": pq,
-                                           "F1@50": f1, "Pre@50": pre,
-                                           "Rec@50": rec}, epoch)
-            if test_loader is not None:
-                val_loss, val_avg, val_ap = self.eval_epoch(test_loader)
-                pq, f1, pre, rec = _pq_f1(val_ap)
-                print(f"[epoch {epoch:3d}]   val: loss={val_loss:.4f} "
-                      f"PQ@50={pq:.4f} F1@50={f1:.4f} Pre@50={pre:.4f} "
-                      f"Rec@50={rec:.4f}", flush=True)
-                self._log("epoch_sum_val/", {**val_avg, "PQ@50": pq,
-                                             "F1@50": f1, "Pre@50": pre,
-                                             "Rec@50": rec}, epoch)
-                is_best = val_loss < best_loss
-                best_loss = min(best_loss, val_loss)
-                self.save(is_best, epoch)
-        if self.writer is not None:
-            self.writer.flush()
-        return best_loss
-
-
-def _pq_f1(ap: Dict[str, list]):
-    cat = (lambda k: np.concatenate(ap[k]) if ap[k] else np.zeros(0))
-    return calculate_PQ_F1(cat("Pred_IoU"), cat("Pred_Matched"),
-                           int(np.sum(ap["N_GT_Inst"])))
+            self._set_aug()
+        return super().train(n_epochs, train_loader, test_loader,
+                             start_epoch)

@@ -54,6 +54,26 @@ def save_train_state(state: dict, is_best: bool, filename: str,
     return out
 
 
+def save_trainer(model: torch.nn.Module, optimizer, epoch: int,
+                 is_best: bool, filename: str, bestname: str) -> str:
+    """The full train state of a trainer -- ``model_state`` (the
+    state_dict on the CPU), ``optimizer_state`` and ``epoch`` -- through
+    ``save_train_state``."""
+    state = {"model_state": {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()},
+             "optimizer_state": optimizer.state_dict(), "epoch": epoch}
+    return save_train_state(state, is_best, filename, bestname)
+
+
+def resume_trainer(model: torch.nn.Module, optimizer, path: str) -> int:
+    """Restore what ``save_trainer`` wrote into ``model`` and
+    ``optimizer``; returns the epoch."""
+    state = load_train_state(path)
+    model.load_state_dict(state["model_state"])
+    optimizer.load_state_dict(state["optimizer_state"])
+    return int(state["epoch"])
+
+
 def load_train_state(path: str) -> dict:
     """Read what ``torch.save`` wrote at ``path`` or ``path + ".pth.tar"``
     (a full train state saved by ``save_train_state``)."""

@@ -27,7 +27,11 @@ State = Dict[str, np.ndarray]
 
 
 def _a(x) -> np.ndarray:
-    return np.array(x, dtype=np.float32)
+    """float32, or float64 for a float64 tree (the CPU tests' float64
+    runs)."""
+    a = np.asarray(x)
+    return np.array(a, dtype=np.float64 if a.dtype == np.float64
+                    else np.float32)
 
 
 def _key(prefix: str, name: str) -> str:

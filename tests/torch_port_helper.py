@@ -913,6 +913,165 @@ def _case_flownet(x, cfg, state):
     return out
 
 
+
+def _flow_model(cfg, state):
+    import torch
+
+    from ogc_tpu_torch.models.flownet import FlowStep3D
+
+    m = FlowStep3D(arch=_flow_arch(cfg["arch"]), **cfg["model"])
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return m
+
+
+def _case_flow_loss(x, cfg, state):
+    """The port's flowstep3d_loss on given flows, with and without the
+    symmetric smooth gradient: the terms and d(sum)/d(flows)."""
+    import torch
+
+    from ogc_tpu_torch.losses.flow_unsup import (FlowLossConfig,
+                                                 flowstep3d_loss)
+
+    pc1, pc2 = torch.from_numpy(x["pc1"]), torch.from_numpy(x["pc2"])
+    out = {}
+    for sym in (False, True):
+        loss_cfg = dict(cfg["loss"])
+        loss_cfg["smooth_loss_params"] = dict(
+            loss_cfg["smooth_loss_params"], symmetric_grad=sym)
+        flows = torch.from_numpy(x["flows"]).requires_grad_(True)
+        loss, ld = flowstep3d_loss(pc1, pc2, list(flows),
+                                   FlowLossConfig.from_dict(loss_cfg))
+        loss.backward()
+        tag = "sym" if sym else "ref"
+        out.update({f"{tag}/ld/{k}": v.detach().numpy()
+                    for k, v in ld.items()})
+        out[f"{tag}/grad"] = flows.grad.numpy()
+    return out
+
+
+def _case_flow_train(x, cfg, state):
+    """FlowStep3D in train mode on the carried weights, in float32 and in
+    float64 (the witness of float32 rounding): one forward and backward of
+    the flow loss (flows, terms, parameter gradients, the running
+    statistics after it) for each loss block of ``cfg["losses"]``, and
+    FlowTrainer's steps of ``cfg["train_iters"]`` iterations from the same
+    weights on ``tr_*`` batches; and make_bn_schedule's values."""
+    import torch
+
+    from ogc_tpu_torch.losses.flow_unsup import (FlowLossConfig,
+                                                 flowstep3d_loss)
+    from ogc_tpu_torch.nn.flowstep3d import set_bn_momentum
+    from ogc_tpu_torch.train.flow import FlowTrainer, make_bn_schedule
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+
+    out = {}
+    for dt, dtype, dtype_np in (("f32", torch.float32, np.float32),
+                                ("f64", torch.float64, np.float64)):
+        for name, loss_cfg in cfg["losses"].items():
+            loss_cfg = FlowLossConfig.from_dict(loss_cfg)
+            m = _flow_model(cfg, state).to(dtype).train()
+            set_bn_momentum(m, cfg["bn_momentum"])
+            pc1, pc2 = (torch.from_numpy(x[k]).to(dtype)
+                        for k in ("pc1", "pc2"))
+            flows = m(pc1, pc2, pc1, pc2, cfg["iters"])
+            loss, ld = flowstep3d_loss(pc1, pc2, flows, loss_cfg)
+            loss.backward()
+            p = f"{dt}/{name}/"
+            out[p + "flows"] = torch.stack(flows).detach().numpy()
+            out.update({p + "ld/" + k: v.detach().numpy()
+                        for k, v in ld.items()})
+            out.update({p + "g/" + k: q.grad.numpy()
+                        for k, q in m.named_parameters()})
+            out.update({p + "s/" + k: v.numpy()
+                        for k, v in m.state_dict().items() if "running_" in k})
+        m = _flow_model(cfg, state).to(dtype)
+        opt = Adam(dict(m.named_parameters()),
+                   make_lr_schedule(**cfg["lr"]))
+        loss = dict(cfg["losses"]["full"])
+        loss["iters_w"] = loss["iters_w"][:cfg["train_iters"]]
+        trainer = FlowTrainer(m, cfg["train_iters"],
+                              FlowLossConfig.from_dict(loss), opt,
+                              exp_base=cfg["exp_base"],
+                              device=torch.device("cpu"),
+                              bn_schedule=make_bn_schedule(**cfg["bn"]))
+        steps = []
+        for it in range(x["tr_pcs"].shape[0]):
+            batch = (x["tr_pcs"][it].astype(dtype_np), None,
+                     x["tr_flows"][it].astype(dtype_np), None)
+            ld = trainer.train_it(it, batch)
+            steps.append([ld[k] for k in cfg["step_keys"]])
+        out[f"{dt}/steps"] = np.array(steps)
+    out["bn_schedule"] = np.array([[make_bn_schedule(**kw)(it)
+                                    for it in cfg["bn_its"]]
+                                   for kw in cfg["bn_cases"]])
+    return out
+
+
+def _case_seg_sup(x, cfg, state):
+    """supervised_mask_loss on given masks (terms, match cost, col_ind and
+    d(sum)/d(mask)), the LAP on the JAX package's costs, the unmatched
+    losses without a valid mask."""
+    import torch
+
+    from ogc_tpu_torch.losses.seg_sup import (SupLossConfig, ce_loss,
+                                              dice_loss, focal_loss,
+                                              match_cost,
+                                              supervised_mask_loss)
+    from ogc_tpu_torch.utils.lap import linear_sum_assignment
+
+    gt, valid = torch.from_numpy(x["gt"]), torch.from_numpy(x["valid"])
+    out = {}
+    for focal in (False, True):
+        tag = "focal" if focal else "ce"
+        lcfg = SupLossConfig(weights=tuple(cfg["weights"]), use_focal=focal)
+        mask = torch.from_numpy(x["mask"]).requires_grad_(True)
+        loss, ld = supervised_mask_loss(mask, gt, valid, lcfg)
+        loss.backward()
+        cost = match_cost(mask, gt, valid, lcfg).numpy()
+        out.update({f"{tag}/ld/{k}": v.detach().numpy()
+                    for k, v in ld.items()})
+        out[f"{tag}/grad"] = mask.grad.numpy()
+        out[f"{tag}/cost"] = cost
+        out[f"{tag}/col_ind"] = linear_sum_assignment(cost, False)
+        out[f"{tag}/col_ind_jax_cost"] = linear_sum_assignment(
+            x[f"jax_cost/{tag}"], False)
+    m = torch.from_numpy(x["mask"])
+    out["ce_novalid"] = ce_loss(m, gt).numpy()
+    out["dice_novalid"] = dice_loss(m, gt).numpy()
+    out["focal_novalid"] = focal_loss(m, gt).numpy()
+    return out
+
+
+def _case_seg_sup_train(x, cfg, state):
+    """SupSegTrainer's steps from the carried segnet on the ``tr_*``
+    batches, in float32 (``f32/steps``) and in float64 (``f64/steps``):
+    (sum, cross_entropy, dice) a step."""
+    import torch
+
+    from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+    from ogc_tpu_torch.train.seg_sup import SupSegTrainer
+
+    out = {}
+    for dt, dtype, dtype_np in (("f32", torch.float32, np.float32),
+                                ("f64", torch.float64, np.float64)):
+        model = _segnet(cfg, state).to(dtype)
+        opt = Adam(dict(model.named_parameters()),
+                   make_lr_schedule(**cfg["lr"]))
+        trainer = SupSegTrainer(model, SupLossConfig(weights=tuple(
+            cfg["weights"])), opt, ignore_npoint_thresh=0,
+            exp_base=cfg["exp_base"], device=torch.device("cpu"))
+        steps = []
+        for it in range(x["tr_pcs"].shape[0]):
+            batch = tuple(None if a is None else a.astype(dtype_np)
+                          for a in (x["tr_pcs"][it], x["tr_segms"][it], None,
+                                    x["tr_valids"][it]))
+            ld, _, _ = trainer.train_it(it, batch)
+            steps.append([ld[k] for k in ("sum", "cross_entropy", "dice")])
+        out[f"{dt}/steps"] = np.array(steps)
+    return out
+
+
 CASES = {
     "kernels": _case_kernels,
     "core": _case_core,
@@ -948,6 +1107,10 @@ CASES = {
     "blocksparse": _case_blocksparse,
     "smooth_mxu": _case_smooth_mxu,
     "knn_cand": _case_knn_cand,
+    "flow_loss": _case_flow_loss,
+    "flow_train": _case_flow_train,
+    "seg_sup": _case_seg_sup,
+    "seg_sup_train": _case_seg_sup_train,
 }
 
 
