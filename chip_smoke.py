@@ -145,6 +145,21 @@
 16. Supervised training: train_seg_sup on config/seg/sapien/sapien_sup.yaml
    (B=128 x 512, 2 epochs of 2 steps) over phase 9's SAPIEN root, launches
    against SUP_STEP and SUP_VAL, step times and a profile of 3 steps.
+17. The outdoor path (run_outdoor), each CLI through its main with the
+   counts set to 0 before it and read after it, raising if it launched no
+   #1 or #2 (and, for a trainer, no #11): test_flow_kittisf --save per
+   scene and --scene_batch 2 (flows within OUT_BATCH_TOL of each other) on
+   4 full-resolution synthetic KITTI-SF scenes of 40k-120k points,
+   test_flow_kittisf_benchmark (the kitti142 protocol on 2 of them and a
+   downsampled root), test_flow_waymo per scene (GPF, ICP, --bound,
+   --save) and batched (--use_odometry --denoise) on 5 Waymo frames of
+   30k-60k points, the kitti flownet at npoint 8192 with random seeded
+   weights; ICP and GPF card against CPU (ICP_ROT_TOL, ICP_T_TOL); profiles
+   of 3 scenes of each flow CLI; train_seg_waymo on waymo_unsup.yaml and
+   waymo_unsup_fast.yaml (3 steps of B=4 x 8192) and train_seg_waymo_sup
+   (2 steps of B=16 x 8192) with step times, peak memory and a profile of
+   3 Waymo steps; test_seg_waymo and test_seg on KITTI-Det and
+   SemanticKITTI (8192 points, 10 slots) with the first one's weights.
 The kernel phase also holds the row-group pool (#12) at every pool shape of
 phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group add,
 ReLU on and off; timed by single call, device time and host enqueue beside
@@ -174,7 +189,11 @@ the kernels of the flow-train paths at their sites (check_flow_train): #1,
 #2 (FT_KNN), #5 (32 x 512, ns 8, r 0.1), #7 / #8 and #11 (FT_GROUPS: #8 at
 the C = 3 smooth and upsample groups) of one SAPIEN step, #1 and #3
 (FT_BLOCKMIN and the smooth ball) of one OGC-DR step, bit-equal to their
-plain versions (#8 also to #11) and timed per step.
+plain versions (#8 also to #11) and timed per step.  And #1's cluster
+instance (clouds above one CTA, check_fps_large) bit-equal to its plain
+version at 16384, 65536 and 120000 points (B 1 and 4; grid, continuous and
+padded clouds, no padding row picked), timed at an outdoor scene's calls
+(npoint 1024, 2048, 8192) and at every cluster size.
 
 The derived launches of a #4 call are four (the fused prologue's sort, the #3
 pre-pass, the fused selection, the search), of a #6 call three; two more
@@ -202,6 +221,7 @@ import os
 # raises on a matmul without it.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os.path as osp  # noqa: E402
@@ -669,7 +689,7 @@ def fps_candidates(n):
 
     plans = set()
     for top in [t for t, _ in PLAN] + [MAX_N]:
-        ppt, most, reg = fps_plan(top)
+        ppt, most, reg, _ = fps_plan(top)
         threads = max(32, -(-n // (32 * ppt)) * 32)
         if threads <= most:
             plans.add(FpsPlan(ppt, threads, reg))
@@ -732,6 +752,88 @@ def check_fps_cases(gen):
                                  f"{(got != want).sum().item()} indices")
     log("fps cases bit-equal: " + ", ".join(
         f"{name} {tuple(x.shape)}->{npoint}" for name, x, npoint in cases))
+
+
+# #1 above ops/fps.py::MAX_N (a cluster of 4-16 CTAs a cloud): the outdoor
+# CLIs' full-resolution scenes.  Bit-equal checks at N (B 1 and 4) on 1/8-grid,
+# continuous scene-like and padded clouds (the scene's first 80% and
+# duplicates of its row 0, as the batched paths' _pad_rows), npoint 8192;
+# the times at (N, npoint) of one outdoor scene's calls: ICP's 1024, GPF's
+# 2048 and the network's 8192.
+FPS_LARGE_N = (16384, 65536, 120000)
+FPS_LARGE_NPOINT = (1024, 2048, 8192)
+
+
+def large_cloud(gen, rng, b, n, kind):
+    """(b, n, 3) float32 on the card: a 1/8 grid over 80 m, a continuous
+    scene (scene_cloud), or a scene whose last fifth repeats its row 0."""
+    if kind == "grid":
+        return grid_cloud(gen, b, n, 80.0)
+    x = np.stack([scene_cloud(rng, n) for _ in range(b)])
+    if kind == "pad":
+        x[:, n - n // 5:] = x[:, :1]
+    return torch.from_numpy(x).cuda()
+
+
+def check_fps_large(report, gen):
+    """#1's cluster instances bit-equal to the plain version at FPS_LARGE_N
+    (B 1 and 4; grid, continuous and padded clouds), and timed (single
+    call, device time, per greedy step) with its plain version and bound
+    at every (N, npoint) an outdoor scene gives it.  Also each cluster size
+    that holds the cloud (2 to 16 CTAs), bit-equal to fps_plan's and timed
+    against it: the measurement behind fps_plan's cluster sizes."""
+    from ogc_tpu_torch.ops.fps import (CLUSTER_POINTS, MAX_CLUSTER, MAX_N,
+                                       _launch, cluster_plan, fps,
+                                       fps_plain, fps_plan)
+
+    rng = np.random.RandomState(SEED)
+    for n in FPS_LARGE_N:
+        assert n > MAX_N
+        for b in (1, 4):
+            for kind in ("grid", "scene", "pad"):
+                x = large_cloud(gen, rng, b, n, kind)
+                got, want = fps(x, 8192), fps_plain(x, 8192)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"FPS {kind} ({b},{n})->8192 {fps_plan(n)}: kernel "
+                        f"!= plain at {(got != want).sum().item()} indices")
+                if kind == "pad" and (got >= n - n // 5).any():
+                    raise AssertionError(f"FPS ({b},{n}): a padding row won")
+        log(f"fps cluster {fps_plan(n)} at N {n}: bit-equal on grid, scene "
+            f"and padded clouds, B 1 and 4, npoint 8192")
+    # More samples than points (a sparse outdoor selection): zeros past N.
+    for n in (3000, MAX_N + 2000):
+        x = large_cloud(gen, rng, 2, n, "scene")
+        if not torch.equal(fps(x, n + 1000), fps_plain(x, n + 1000)):
+            raise AssertionError(f"FPS (2,{n})->{n + 1000}: kernel != plain")
+    log("fps npoint > N (3000 and MAX_N + 2000 points): bit-equal")
+    for n in FPS_LARGE_N:
+        x = large_cloud(gen, rng, 1, n, "scene")
+        for npoint in FPS_LARGE_NPOINT:
+            ms = cuda_ms(lambda: fps(x, npoint), 10)
+            dev = device_ms(lambda: fps(x, npoint), 5, 3)
+            pms = cuda_ms(lambda: fps_plain(x, npoint), 1)
+            bnd, by = bound_ms(n * 12 + npoint * 4, (npoint - 1) * n * 10)
+            report.add("fps_large", 0, ms, pms, bnd, by, device=(dev, None))
+            log(f"fps cluster (1,{n},3)->{npoint} {tuple(fps_plan(n))}: "
+                f"kernel {ms:.4f} ms, device {dev:.4f} ms "
+                f"({dev / (npoint - 1) * 1e6:.1f} ns per step), plain "
+                f"{pms:.4f} ms, bound {bnd:.4f} ms ({by})")
+        want = fps(x, 2048)
+        row = []
+        for c in range(2, MAX_CLUSTER + 1):
+            if -(-n // c) > CLUSTER_POINTS:
+                continue
+            plan = cluster_plan(n, c)
+            if not torch.equal(_launch(x, 2048, plan), want):
+                raise AssertionError(f"FPS (1,{n}): {plan} != fps_plan's")
+            row.append((device_ms(lambda: _launch(x, 2048, plan), 5, 3)
+                        / 2047 * 1e6, plan))
+        log(f"fps cluster sizes (1,{n})->2048, ns per step (ppt, threads, "
+            f"reg_xyz, cluster; * planned): " + "; ".join(
+                f"{'*' if p == fps_plan(n) else ''}{tuple(p)} {ns:.1f}"
+                for ns, p in sorted(row)))
 
 
 def knn_bits_equal(got, want):
@@ -2638,9 +2740,13 @@ def check_kernels():
     log(f"-- flow-train paths: SAPIEN (B={SAP_FT_B} x {SAP_N}, "
         f"{SAP_FT_ITERS} iterations), OGC-DR (B={DR_FT_B} x {DR_FT_N})")
     flow_train = check_flow_train(gen)
+    log("-- #1 above one CTA (the outdoor CLIs' full-resolution clouds)")
+    outdoor_report = Report()
+    check_fps_large(outdoor_report, gen)
     return {"parity": train_report, "sapien": sapien["full"][0],
             "fast": fast_report, "flow": flow_report, "mxu": mxu_report,
-            "cand": cand_report, "flow_train": flow_train}
+            "cand": cand_report, "flow_train": flow_train,
+            "outdoor": outdoor_report}
 
 
 # The flow-train paths (config/flow/sapien/sapien_unsup.yaml: B=32 x 512,
@@ -2915,9 +3021,10 @@ def counters():
 
 
 def reset_counts():
-    """Every launch count to 0."""
+    """Every launch count to 0, #1's cluster instance's too."""
     for fn in counters().values():
         fn.launches = 0
+    counters()["fps"].cluster_launches = 0
 
 
 def read_counts():
@@ -4331,6 +4438,360 @@ def run_seg_sup(tmp, root):
                           "#2 knn_exact": SUP_STEP["knn_exact"]})
     return launches
 
+# The outdoor phase: the six outdoor CLIs and test_seg's single-frame
+# datasets at full width on synthetic roots (ogc_tpu_torch/tools/synth.py),
+# random seeded weights.  KITTI-SF full-resolution scenes of these sizes
+# (about half of each is ground, removed by height), Waymo frames of
+# 30k-60k points in the front field of view, the trainers' 8192-point
+# frames.
+OUT_KITTI_N = (40000, 70000, 100000, 120000)
+OUT_WAYMO_FRAMES, OUT_WAYMO_N = 5, (30000, 60000)
+OUT_TRAIN_STEPS, OUT_SUP_STEPS = 3, 2
+OUT_SEG_SCENES = 16
+# Card against CPU for the batched ICP, as the CPU tests hold the port to
+# the JAX package: rotation entries and translation (m) of the transform.
+ICP_ROT_TOL, ICP_T_TOL = 2e-5, 5e-4
+# Batched (--scene_batch 2) against per-scene flows on the card: the
+# network runs at another batch size (other library kernels), and the ICP's
+# transforms on other batches; a sanity bound, the gap is printed.
+OUT_BATCH_TOL = 0.05
+
+
+def outdoor_stage(name, fn, argv, need):
+    """One outdoor CLI's ``main(argv)`` with the counts set to 0 just
+    before and read just after, #1's cluster instance's as
+    ``fps_cluster``; raises if a kernel of ``need`` never launched.
+    Returns (result, launches, wall seconds)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    launches["fps_cluster"] = counters()["fps"].cluster_launches
+    missing = [k for k in need if not launches[k]]
+    log(f"{name}: {wall:.3f} s, launches {launches}")
+    if missing:
+        raise AssertionError(f"{name} launched no {missing}")
+    return res, launches, wall
+
+
+def split_files(cwd, files):
+    """data_prepare/<name> files under ``cwd``: {name: [lines]}."""
+    for name, lines in files.items():
+        path = osp.join(cwd, "data_prepare", name)
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write("\n".join(lines))
+
+
+def saved_flows(root, name):
+    d = osp.join(root, "flow_preds", name)
+    out = {osp.relpath(osp.join(p, f), d): np.load(osp.join(p, f))
+           for p, _, fs in os.walk(d) for f in fs if f.endswith(".npy")}
+    if not out or not all(np.isfinite(v).all() and v.ndim == 2
+                          and v.shape[1] == 3 for v in out.values()):
+        raise AssertionError(f"bad saved flows under {d}")
+    return out
+
+
+def flow_gap(a, b):
+    if sorted(a) != sorted(b):
+        raise AssertionError("saved flow files differ")
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def check_icp_gpf(kroot, wroot, seq):
+    """The batched ICP on a KITTI-SF scene's FPS-1024 subclouds and the
+    batched GPF on padded Waymo frames (valid and FPS fit masks): the card
+    against the CPU (plain kernels), ICP within ICP_ROT_TOL / ICP_T_TOL,
+    GPF marks equal but for points within 1e-3 m of the threshold."""
+    from ogc_tpu_torch.ops.fps import fps
+    from ogc_tpu_torch.outdoor import bucket, pad_rows
+    from ogc_tpu_torch.utils.gpf import ground_plane_fitting_batched
+    from ogc_tpu_torch.utils.icp import icp_batched
+
+    d = osp.join(kroot, "processed", "%06d" % 0)
+    pc1, pc2 = (np.load(osp.join(d, f"pc{i}.npy")) for i in (1, 2))
+    keep = ~((pc1[:, 1] < -1.4) & (pc2[:, 1] < -1.4))
+    c = np.concatenate([pc1[keep], pc2[keep]]).mean(0)
+    sub = [torch.from_numpy(p[keep] - c).to(DEVICE)[None] for p in (pc1, pc2)]
+    A, B = (x[:, fps(x, 1024)[0].long()].contiguous() for x in sub)
+    got = icp_batched(A, B, 50).cpu()
+    want = icp_batched(A.cpu(), B.cpu(), 50)
+    rot = (got[:, :3, :3] - want[:, :3, :3]).abs().max().item()
+    tr = (got[:, :3, 3] - want[:, :3, 3]).abs().max().item()
+    log(f"ICP card vs CPU (1024-point subclouds of a {len(pc1)}-point "
+        f"scene, 50 iterations): rotation {rot:.3e} (tolerance "
+        f"{ICP_ROT_TOL}), translation {tr:.3e} m ({ICP_T_TOL})")
+    if rot > ICP_ROT_TOL or tr > ICP_T_TOL:
+        raise AssertionError("ICP card and CPU transforms differ")
+    frames = [np.load(osp.join(wroot, "data", seq, "pc_%04d.npy" % t))
+              for t in range(min(4, OUT_WAYMO_FRAMES))]
+    n = bucket(max(len(f) for f in frames))
+    P = torch.from_numpy(np.stack([pad_rows(f, n) for f in frames])).to(DEVICE)
+    V = torch.zeros(P.shape[:2], dtype=torch.bool, device=DEVICE)
+    for i, f in enumerate(frames):
+        V[i, :len(f)] = True
+    FV = torch.zeros_like(V)
+    FV.scatter_(1, fps(P, 2048).long(), True)
+    kw = dict(n_iter=5, n_lpr=50, thresh_seed=0.4, thresh_dist=0.4)
+    got = ground_plane_fitting_batched(P, V, FV, **kw).cpu()
+    want = ground_plane_fitting_batched(P.cpu(), V.cpu(), FV.cpu(), **kw)
+    bad = int((got != want).sum())
+    log(f"GPF card vs CPU ({len(frames)} Waymo frames padded to {n}): "
+        f"{bad} of {int(V.sum())} marks differ; {int(want.sum())} ground")
+    if bad > 0.001 * int(V.sum()):
+        raise AssertionError("GPF card and CPU marks differ")
+
+
+def run_outdoor(tmp):
+    """The outdoor CLIs at full width (see the module docstring); returns
+    {CLI: launches} and the per-scene / per-step times."""
+    import types
+
+    import yaml
+
+    from ogc_tpu_torch import (outdoor, test_flow_kittisf,
+                               test_flow_kittisf_benchmark, test_flow_waymo,
+                               test_seg, test_seg_waymo, train_seg_waymo,
+                               train_seg_waymo_sup)
+    from ogc_tpu_torch.tools import synth
+    from ogc_tpu_torch.utils.checkpoint import save_model_state
+    from ogc_tpu_torch.utils.config import load_config_into_args
+
+    base = osp.join(tmp, "outdoor")
+    cwd = osp.join(base, "cwd")
+    os.makedirs(cwd)
+    t_start = time.perf_counter()
+    launches, times = {}, {}
+    net = make_flownet(FLOW_KW, "cpu")
+    flow_ckpt = save_model_state(net.state_dict(),
+                                 osp.join(base, "ckpt", "flow", "best"))
+    flownet = {k: FLOW_KW[k] for k in ("npoint", "loc_flow_nn",
+                                        "loc_flow_rad")}
+    flownet["use_instance_norm"] = False
+
+    def flow_cfg(name, dataset, root, mapping):
+        path = osp.join(base, name + ".yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump({"dataset": dataset, "save_path": flow_ckpt,
+                            "data": {"root": root, "mapping_path": mapping},
+                            "flownet": flownet}, f)
+        return path
+
+    # KITTI-SF: per scene, batched, and the kitti142 benchmark.
+    ids = ["%06d" % i for i in range(len(OUT_KITTI_N))]
+    kroot = synth.make_kittisf_full_root(osp.join(base, "kitti"), ids,
+                                         list(OUT_KITTI_N), seed=SEED)
+    kmap = osp.join(kroot, "val.txt")
+    with open(kmap, "w") as f:
+        f.write("\n".join(ids))
+    kcfg = flow_cfg("kitti", "kittisf", kroot, kmap)
+    flags = [kcfg, "--split", "val", "--save", "--device", DEVICE]
+    res, launches["test_flow_kittisf"], _ = outdoor_stage(
+        "test_flow_kittisf per scene", test_flow_kittisf.main, flags,
+        ("fps", "fps_cluster", "knn_exact"))
+    times["test_flow_kittisf"] = res["scene_s"]
+    per_scene = saved_flows(kroot, "flowstep3d")
+    res_b, launches["test_flow_kittisf --scene_batch 2"], _ = outdoor_stage(
+        "test_flow_kittisf --scene_batch 2", test_flow_kittisf.main,
+        flags + ["--scene_batch", "2"], ("fps", "fps_cluster", "knn_exact"))
+    times["test_flow_kittisf --scene_batch 2"] = res_b["scene_s"]
+    gap = flow_gap(saved_flows(kroot, "flowstep3d"), per_scene)
+    log(f"test_flow_kittisf: EPE per scene {res['EPE']:.6f}, batched "
+        f"{res_b['EPE']:.6f}; saved flows {len(per_scene)} files, batched "
+        f"against per scene within {gap:.3e} m (bound {OUT_BATCH_TOL})")
+    if gap > OUT_BATCH_TOL:
+        raise AssertionError("test_flow_kittisf batched != per scene")
+    bench_ids = ids[:2]
+    down = osp.join(base, "kitti_downsampled")
+    write_kittisf(down, bench_ids, SEED)
+    os.rename(osp.join(down, "flow_preds", "flowstep3d"),
+              osp.join(down, "flow_preds", "flowstep3d_for-benchmark_R2"))
+    split_files(cwd, {"kittisf/splits/kitti142.txt": bench_ids})
+    with contextlib.chdir(cwd):
+        res, launches["test_flow_kittisf_benchmark"], wall = outdoor_stage(
+            "test_flow_kittisf_benchmark", test_flow_kittisf_benchmark.main,
+            [flow_cfg("bench", "kittisf", kroot, kmap), "--device", DEVICE],
+            ("fps", "knn_exact"))
+    times["test_flow_kittisf_benchmark"] = [wall / len(bench_ids)]
+    check_finite("benchmark", {**res["FlowStep3D"], **{
+        "ours " + k: v for k, v in res["Ours"].items()}})
+
+    # Waymo: per scene (GPF, ICP, --bound) and batched (odometry, denoise).
+    seq = "segment-outdoor_smoke"
+    wroot = synth.make_waymo_root(osp.join(base, "waymo"), [seq],
+                                  OUT_WAYMO_FRAMES, OUT_WAYMO_N, seed=SEED)
+    wmap = osp.join(wroot, "train.txt")
+    with open(wmap, "w") as f:
+        f.write(seq + ".tfrecord")
+    wcfg = flow_cfg("waymo", "waymo", wroot, wmap)
+    res, launches["test_flow_waymo"], _ = outdoor_stage(
+        "test_flow_waymo per scene", test_flow_waymo.main,
+        [wcfg, "--split", "train", "--bound", "--save", "--device", DEVICE],
+        ("fps", "fps_cluster", "knn_exact"))
+    times["test_flow_waymo"] = res["scene_s"]
+    saved_flows(wroot, "flowstep3d_gpf_bound")
+    res_b, launches["test_flow_waymo --scene_batch 2"], _ = outdoor_stage(
+        "test_flow_waymo --scene_batch 2 --use_odometry --denoise",
+        test_flow_waymo.main,
+        [wcfg, "--split", "train", "--bound", "--save", "--use_odometry",
+         "--denoise", "--scene_batch", "2", "--device", DEVICE],
+        ("fps", "fps_cluster", "knn_exact"))
+    times["test_flow_waymo --scene_batch 2"] = res_b["scene_s"]
+    saved_flows(wroot, "flowstep3d_gpf_odo_bound_denoise")
+    log(f"test_flow_waymo: EPE (ICP) {res['EPE']:.6f}, (odometry, denoise) "
+        f"{res_b['EPE']:.6f}")
+    check_finite("test_flow_waymo", {"EPE": res["EPE"],
+                                     "EPE odometry": res_b["EPE"]})
+    check_icp_gpf(kroot, wroot, seq)
+
+    # Where a scene's time goes: profiles of 3 per-scene calls of each.
+    for name, cfg_path, extra in (("test_flow_kittisf", kcfg, []),
+                                  ("test_flow_waymo", wcfg, ["--bound"])):
+        parser = outdoor.flow_parser()
+        parser.add_argument("--use_odometry", action="store_true")
+        parser.add_argument("--denoise", action="store_true")
+        parser.add_argument("--bound", action="store_true")
+        args = parser.parse_args([cfg_path, "--split", "train", "--device",
+                                  DEVICE] + extra)
+        load_config_into_args(args)
+        dev = outdoor.OutdoorFlow(args)
+        if name == "test_flow_kittisf":
+            from ogc_tpu_torch.data.kittisf import KITTISceneFlowDataset
+
+            ds = KITTISceneFlowDataset(kroot, kmap, downsampled=False,
+                                       view_sels=[[0, 1], [1, 0]])
+            from ogc_tpu_torch.utils.meters import AverageMeter
+
+            meter = AverageMeter()
+            fn = lambda i: test_flow_kittisf.eval_scene(  # noqa: E731
+                args, dev, ds, 2 * (i % 4), meter, None)
+        else:
+            from ogc_tpu_torch.data.waymo import WaymoOpenDataset
+
+            run = test_flow_waymo.WaymoFlow(args, dev, WaymoOpenDataset(
+                wroot, wmap), None)
+            fn = lambda i: run.scene(i % (OUT_WAYMO_FRAMES - 1))  # noqa
+        profile_steps(f"{name} scenes (per scene)", fn)
+
+    # The Waymo trainers at B=4 x 8192 (waymo_unsup and its fast mode) and
+    # B=16 x 8192 (waymo_sup), then test_seg_waymo on the first one's
+    # checkpoint, and test_seg on KITTI-Det and SemanticKITTI with it (the
+    # same KITTI segnet, 10 slots).
+    tseq = "segment-outdoor_train"
+    n_frames = 4 * (OUT_TRAIN_STEPS + 1) + 1
+    droot = synth.make_waymo_root(osp.join(base, "waymo_ds"), [tseq],
+                                  n_frames, N_POINT, seed=SEED,
+                                  downsampled=True)
+    dmap = osp.join(droot, "train.txt")
+    with open(dmap, "w") as f:
+        f.write(tseq + ".tfrecord")
+    pairs = [[tseq, t, t - 1] for t in range(1, n_frames)]
+    frames = [[tseq, t % n_frames] for t in range(16 * (OUT_SUP_STEPS + 1))]
+    sel = {}
+    for name, rows in (("train2", pairs[:4 * OUT_TRAIN_STEPS]),
+                       ("val2", pairs[4 * OUT_TRAIN_STEPS:]),
+                       ("train1", frames[:16 * OUT_SUP_STEPS]),
+                       ("val1", frames[16 * OUT_SUP_STEPS:])):
+        sel[name] = osp.join(droot, name + ".json")
+        with open(sel[name], "w") as f:
+            json.dump(rows, f)
+    data = {"root": droot, "train_mapping": dmap, "val_mapping": dmap}
+    seg_save = osp.join(base, "ckpt", "waymo_unsup")
+    set_modes({}, False)  # the trainers' default: approximate neighbours
+    for src, name in (("waymo_unsup", "train_seg_waymo"),
+                      ("waymo_unsup_fast", "train_seg_waymo fast")):
+        cfg, path = write_cfg(
+            base, f"config/seg/waymo/{src}.yaml", src, epochs=1,
+            predflow_path="None", save_path=seg_save + ("_fast" if "fast"
+                                                        in name else ""),
+            data={**data, "train_select_frame": sel["train2"],
+                  "val_select_frame": sel["val2"]})
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, launches[name], _ = outdoor_stage(
+            name, train_seg_waymo.main, [path, "--round", "1", "--device",
+                                         DEVICE],
+            ("fps", "knn_exact", "scatter_add"))
+        set_modes({"compute_dtype": None})
+        log_steps(f"{name} step (B={cfg['batch_size']} x {N_POINT}, frame "
+                  f"stride 2)", res["trainer"], cfg["batch_size"],
+                  time.perf_counter() - t0)
+        times[name] = [float(np.median(res["trainer"].step_seconds[1:]))]
+        check_finite(name, {"best_loss": res["best_loss"]})
+    cfg, path = write_cfg(
+        base, "config/seg/waymo/waymo_sup.yaml", "waymo_sup", epochs=1,
+        save_path=osp.join(base, "ckpt", "waymo_sup"),
+        data={**data, "train_select_frame": sel["train1"],
+              "val_select_frame": sel["val1"]})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches["train_seg_waymo_sup"], _ = outdoor_stage(
+        "train_seg_waymo_sup", train_seg_waymo_sup.main,
+        [path, "--device", DEVICE],
+        ("fps", "knn_exact", "scatter_add"))
+    log_steps(f"train_seg_waymo_sup step (B={cfg['batch_size']} x "
+              f"{N_POINT})", res["trainer"], cfg["batch_size"],
+              time.perf_counter() - t0)
+    times["train_seg_waymo_sup"] = [
+        float(np.median(res["trainer"].step_seconds[1:]))]
+    check_finite("train_seg_waymo_sup", {"best_loss": res["best_loss"]})
+
+    # A profile of 3 Waymo train steps on one batch, from the CLI's pieces.
+    cfg, _ = write_cfg(base, "config/seg/waymo/waymo_unsup.yaml", "prof",
+                       predflow_path="None",
+                       data={**data, "train_select_frame": sel["train2"]})
+    set_modes(cfg, False)
+    from ogc_tpu_torch.data.waymo import WaymoOpenDataset
+
+    ds = WaymoOpenDataset(droot, dmap, downsampled=True,
+                          select_frame=sel["train2"], aug_transform=True,
+                          aug_transform_args=cfg["data"]["aug_transform_args"],
+                          decentralize=True)
+    np.random.seed(SEED)
+    batch = tuple(np.stack(f, 0) for f in zip(*[ds[i] for i in range(4)]))
+    trainer = make_trainer(cfg, make_model(cfg, DEVICE), DEVICE,
+                           osp.join(base, "exp_prof"))
+    trainer.frame_stride = 2
+    profile_steps(f"Waymo train steps (B=4 x {N_POINT})",
+                  lambda i: trainer.train_it(i, batch, True))
+
+    split_files(cwd, {"waymo/splits/val.txt": [tseq + ".tfrecord"],
+                      "kittidet/splits/val.txt": [
+                          "%06d" % i for i in range(OUT_SEG_SCENES)]})
+    det = synth.make_single_frame_root(
+        osp.join(base, "kittidet"), ["%06d" % i for i in range(
+            OUT_SEG_SCENES)], N_POINT, seed=SEED)
+    sem = synth.make_single_frame_root(
+        osp.join(base, "semantickitti"), ["%02d_%06d" % (i % 11, i)
+                                          for i in range(OUT_SEG_SCENES)],
+        N_POINT, seed=SEED + 1)
+    with contextlib.chdir(cwd):
+        for name, dataset, root, split, mod in (
+                ("test_seg_waymo", "waymo", droot, "val", test_seg_waymo),
+                ("test_seg kittidet", "kittidet", det, "val", test_seg),
+                ("test_seg semantickitti", "semantickitti", sem, "test",
+                 test_seg)):
+            _, path = write_cfg(
+                base, osp.join(REPO, "config/seg/waymo/waymo_unsup.yaml"),
+                "eval_" + dataset, dataset=dataset, save_path=seg_save,
+                data={"root": root})
+            res, launches[name], wall = outdoor_stage(
+                name, mod.main, [path, "--split", split, "--round", "1",
+                                 "--test_batch_size", "8", "--device",
+                                 DEVICE],
+                ("fps", "knn_exact"))
+            times[name] = [float(np.median(res["forward_s"]))]
+            check_finite(name, {k: res[k] for k in ("AP", "PQ",
+                                                    "per_scan_iou_avg")})
+    log(f"outdoor phase done in {time.perf_counter() - t_start:.1f} s; "
+        f"seconds per scene / step (median): " + "; ".join(
+            f"{k} {float(np.median(v)):.4f}" for k, v in times.items()))
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -4425,6 +4886,8 @@ def main():
         sup_launches = run_seg_sup(tmp, sap_cfgs["woinv"]["data"]["root"])
         log(f"OGC-DR flow train and supervised train done at "
             f"{time.perf_counter() - t_start:.1f} s")
+        out_launches, _ = run_outdoor(tmp)
+        log(f"outdoor phase done at {time.perf_counter() - t_start:.1f} s")
     missing = [k for k in ("fps", "knn_exact", "ball_query", "gather_onehot",
                            "scatter_onehot", "scatter_add")
                if not ft_launches[k]]
@@ -4486,6 +4949,12 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": counts[name],
                         **rep_.entry(name)})
+    # #1's cluster instance (above one CTA): its times summed over one
+    # outdoor scene's calls at each FPS_LARGE_N, and its launches in the
+    # outdoor phase (the clouds above MAX_N points).
+    kernels[0]["large_n"] = {
+        **reports["outdoor"].entry("fps_large"),
+        "launches": sum(v["fps_cluster"] for v in out_launches.values())}
     log(smi.stdout.strip())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t).
 _SIGNATURES = {
-    "ogc_fps": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "ogc_fps": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "ogc_knn_exact": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "ogc_ball_query": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "ogc_knn_blockmin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,

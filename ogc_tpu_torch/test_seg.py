@@ -37,8 +37,10 @@ from ogc_tpu_torch.utils.meters import AverageMeter
 
 
 def build_test_dataset(args, predflow_path: Optional[str] = None):
-    """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py;
-    vote.py passes the flow predictions to read (None: the true flows)."""
+    """(test_set, n_frame, ignore_npoint_thresh, data_root), as test_seg.py
+    (sapien, ogcdr, kittisf, and the single-frame kittidet and
+    semantickitti); vote.py passes the flow predictions to read (None: the
+    true flows)."""
     data_root = args.data["root"]
     if args.dataset in ("sapien", "ogcdr"):
         if args.dataset == "sapien":
@@ -66,8 +68,24 @@ def build_test_dataset(args, predflow_path: Optional[str] = None):
             view_sels=view_sels, predflow_path=predflow_path,
             decentralize=args.data["decentralize"])
         return test_set, len(view_sels), 50, data_root
-    raise NotImplementedError(
-        f"dataset {args.dataset!r} is not ported yet (ROADMAP.md queue A)")
+    if args.dataset == "kittidet":
+        from ogc_tpu_torch.data.kittidet import KITTIDetectionDataset
+
+        mapping_path = ("data_prepare/kittidet/splits/val.txt"
+                        if args.split == "val"
+                        else "data_prepare/kittidet/splits/train.txt")
+        test_set = KITTIDetectionDataset(
+            data_root=data_root, mapping_path=mapping_path,
+            decentralize=args.data["decentralize"])
+        return test_set, 1, 50, data_root
+    if args.dataset == "semantickitti":
+        from ogc_tpu_torch.data.semantickitti import SemanticKITTIDataset
+
+        test_set = SemanticKITTIDataset(
+            data_root=data_root, sequence_list=list(range(11)),
+            decentralize=args.data["decentralize"])
+        return test_set, 1, 50, data_root
+    raise KeyError("Unrecognized dataset!")
 
 
 def load_segnet(args) -> Tuple[MaskFormer3D, torch.device]:

@@ -106,13 +106,17 @@ class Adam:
 class SegTrainer(EpochTrainer):
     """:param model: MaskFormer3D on ``device``.
     :param exp_base: directory of ``current``/``best`` checkpoints and the
-        ``log/scalars.jsonl`` writer's output."""
+        ``log/scalars.jsonl`` writer's output.
+    :param frame_stride: take every ``frame_stride``-th frame of an item
+        (Waymo items duplicate their one frame: the reference takes
+        pcs[:, ::2], train_seg_waymo.py:58)."""
 
     def __init__(self, model: torch.nn.Module, loss_cfg: OGCLossConfig,
                  optimizer: Adam, aug_transform_epoch: int,
                  ignore_npoint_thresh: int, exp_base: str,
-                 device: torch.device, writer=None):
+                 device: torch.device, writer=None, frame_stride: int = 1):
         super().__init__(model, optimizer, exp_base, device, writer)
+        self.frame_stride = frame_stride
         self.loss_cfg = loss_cfg
         self.aug_transform_epoch = aug_transform_epoch
         self.ignore_npoint_thresh = ignore_npoint_thresh
@@ -154,9 +158,14 @@ class SegTrainer(EpochTrainer):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in arrays]
 
+    def _frames(self, batch):
+        """(pcs, segms, flows) of a batch at the trainer's frame stride."""
+        s = self.frame_stride
+        return tuple(a[:, ::s] for a in batch[:3])
+
     def train_it(self, it: int, batch, aug_transform: bool = False):
         t0 = time.perf_counter()
-        pcs, segms, flows, _ = batch
+        pcs, segms, flows = self._frames(batch)
         pcs_d, flows_d = self._to_device(pcs, flows)
         # start_steps gate on the number of samples seen (reference
         # train_seg.py:101).
@@ -173,7 +182,8 @@ class SegTrainer(EpochTrainer):
         meter = AverageMeter()
         total_loss, count = 0.0, 0
         ap = new_ap()
-        for pcs, segms, flows, _ in loader:
+        for batch in loader:
+            pcs, segms, flows = self._frames(batch)
             pcs_d, flows_d = self._to_device(pcs, flows)
             loss, ld, masks = self._loss(pcs_d, flows_d, 0, False, False)
             b = pcs.shape[0]

@@ -34,6 +34,26 @@ from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.logging import JsonlWriter
 
 
+def segnet_for(args, arch: str,
+               generator: Optional[torch.Generator] = None) -> MaskFormer3D:
+    """The config's MaskFormer3D with the architecture ``arch``."""
+    sn = args.segnet
+    return MaskFormer3D(
+        n_slot=sn["n_slot"], n_point=sn["n_point"], arch=arch,
+        use_xyz=sn["use_xyz"], n_transformer_layer=sn["n_transformer_layer"],
+        transformer_embed_dim=sn["transformer_embed_dim"],
+        transformer_input_pos_enc=sn["transformer_input_pos_enc"],
+        generator=generator)
+
+
+def round_predflow(args) -> str:
+    """The config's ``predflow_path``, from round 2 with the suffix
+    ``_R<round - 1>`` (the flows the last round's OA-ICP wrote)."""
+    if args.round > 1:
+        return args.predflow_path + "_R%d" % (args.round - 1)
+    return args.predflow_path
+
+
 def build_model_and_datasets(args, predflow_path: Optional[str],
                              generator: Optional[torch.Generator] = None):
     """(model, train_set, val_set) as the repo's train_seg.py:22-80."""
@@ -51,14 +71,7 @@ def build_model_and_datasets(args, predflow_path: Optional[str],
     else:
         raise KeyError("Unrecognized dataset!")
 
-    sn = args.segnet
-    model = MaskFormer3D(
-        n_slot=sn["n_slot"], n_point=sn["n_point"], arch=args.dataset,
-        use_xyz=sn["use_xyz"], n_transformer_layer=sn["n_transformer_layer"],
-        transformer_embed_dim=sn["transformer_embed_dim"],
-        transformer_input_pos_enc=sn["transformer_input_pos_enc"],
-        generator=generator)
-
+    model = segnet_for(args, args.dataset, generator)
     common = dict(predflow_path=predflow_path,
                   decentralize=args.data["decentralize"])
     if args.dataset in ("sapien", "ogcdr"):
@@ -106,27 +119,15 @@ def set_deterministic(device: torch.device) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
-    """Train; returns the best validation loss and the trainer (whose
-    ``step_seconds``/``val_seconds`` hold the host-clock times)."""
-    args = parse_args(argv)
-    if args.remat is not None:
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
-    load_config_into_args(args)
+def run(args, model: MaskFormer3D, train_set, val_set,
+        frame_stride: int = 1) -> Dict[str, object]:
+    """Train ``model`` on ``args.device`` over the datasets: the loaders,
+    Adam with the config's schedule, SegTrainer writing
+    ``<save_path>_R<round>``, ``--resume``.  Returns the best validation
+    loss and the trainer (whose ``step_seconds``/``val_seconds`` hold the
+    host-clock times)."""
     device = torch.device(args.device)
-    set_deterministic(device)
-
-    np.random.seed(args.random_seed)
-    gen = torch.Generator().manual_seed(args.random_seed)
-    predflow_path = args.predflow_path
-    if args.round > 1:
-        predflow_path = args.predflow_path + "_R%d" % (args.round - 1)
-    model, train_set, val_set = build_model_and_datasets(args, predflow_path,
-                                                         gen)
     model.to(device)
-
     train_loader = DataLoader(train_set, batch_size=args.batch_size,
                               shuffle=True, seed=args.random_seed,
                               num_workers=4, drop_last=True)
@@ -141,7 +142,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         model, OGCLossConfig.from_dict(args.loss), optimizer,
         aug_transform_epoch=args.aug_transform_epoch,
         ignore_npoint_thresh=args.ignore_npoint_thresh, exp_base=exp_base,
-        device=device, writer=JsonlWriter(osp.join(exp_base, "log")))
+        device=device, writer=JsonlWriter(osp.join(exp_base, "log")),
+        frame_stride=frame_stride)
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(exp_base, "current")) + 1
@@ -149,6 +151,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     best = trainer.train(args.epochs, train_set, train_loader, val_loader,
                          start_epoch=start_epoch)
     return {"best_loss": best, "trainer": trainer}
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Train; returns what ``run`` returns."""
+    args = parse_args(argv)
+    if args.remat is not None:
+        raise NotImplementedError(
+            "--remat is a TPU memory option of the JAX package; the port "
+            "does not rematerialize")
+    load_config_into_args(args)
+    set_deterministic(torch.device(args.device))
+
+    np.random.seed(args.random_seed)
+    gen = torch.Generator().manual_seed(args.random_seed)
+    model, train_set, val_set = build_model_and_datasets(
+        args, round_predflow(args), gen)
+    return run(args, model, train_set, val_set)
 
 
 if __name__ == "__main__":

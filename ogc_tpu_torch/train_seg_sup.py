@@ -25,10 +25,9 @@ import torch
 
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.losses.seg_sup import SupLossConfig
-from ogc_tpu_torch.models.segnet import MaskFormer3D
 from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
 from ogc_tpu_torch.train.seg_sup import SupSegTrainer
-from ogc_tpu_torch.train_seg import set_deterministic
+from ogc_tpu_torch.train_seg import segnet_for, set_deterministic
 from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.logging import JsonlWriter
 
@@ -77,26 +76,14 @@ def build_datasets(args):
         for split in ("train", "val"))
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
-    """Train; returns the best validation loss and the trainer."""
-    args = parse_args(argv)
-    if args.remat not in (None, "off"):
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
-    load_config_into_args(args)
+def run(args, model, train_set, val_set,
+        loss_cfg: SupLossConfig) -> Dict[str, object]:
+    """Train ``model`` on ``args.device`` over the datasets with
+    ``loss_cfg``: the loaders, Adam with the config's schedule,
+    SupSegTrainer writing ``<save_path>``, ``--resume``.  Returns the best
+    validation loss and the trainer."""
     device = torch.device(args.device)
-    set_deterministic(device)
-
-    np.random.seed(args.random_seed)
-    sn = args.segnet
-    model = MaskFormer3D(
-        n_slot=sn["n_slot"], n_point=sn["n_point"], arch=args.dataset,
-        use_xyz=sn["use_xyz"], n_transformer_layer=sn["n_transformer_layer"],
-        transformer_embed_dim=sn["transformer_embed_dim"],
-        transformer_input_pos_enc=sn["transformer_input_pos_enc"],
-        generator=torch.Generator().manual_seed(args.random_seed)).to(device)
-    train_set, val_set = build_datasets(args)
+    model.to(device)
     train_loader = DataLoader(train_set, batch_size=args.batch_size,
                               shuffle=True, seed=args.random_seed,
                               num_workers=4, drop_last=True)
@@ -107,7 +94,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                                       args.decay_step, args.batch_size),
                      args.weight_decay)
     trainer = SupSegTrainer(
-        model, SupLossConfig(weights=tuple(args.loss["weights"])), optimizer,
+        model, loss_cfg, optimizer,
         ignore_npoint_thresh=args.ignore_npoint_thresh,
         exp_base=args.save_path, device=device,
         writer=JsonlWriter(osp.join(args.save_path, "log")))
@@ -118,6 +105,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     best = trainer.train(args.epochs, train_loader, val_loader,
                          start_epoch=start_epoch)
     return {"best_loss": best, "trainer": trainer}
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Train; returns what ``run`` returns."""
+    args = parse_args(argv)
+    if args.remat not in (None, "off"):
+        raise NotImplementedError(
+            "--remat is a TPU memory option of the JAX package; the port "
+            "does not rematerialize")
+    load_config_into_args(args)
+    set_deterministic(torch.device(args.device))
+
+    np.random.seed(args.random_seed)
+    model = segnet_for(args, args.dataset,
+                       torch.Generator().manual_seed(args.random_seed))
+    train_set, val_set = build_datasets(args)
+    return run(args, model, train_set, val_set,
+               SupLossConfig(weights=tuple(args.loss["weights"])))
 
 
 if __name__ == "__main__":

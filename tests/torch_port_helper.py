@@ -608,15 +608,16 @@ def _case_ball_select(x, cfg, state):
 
 def _case_fps_select(x, cfg, state):
     """FPS on CPU tensors (fps_plain) for every cloud of the case, and
-    ops/fps.py::fps_plan for every N of ``cfg["plan_n"]`` as (N, ppt,
-    threads, reg_xyz) rows."""
+    ops/fps.py::fps_plan for every N of ``cfg["plan_n"]`` (at most MAX_N)
+    as (N, ppt, threads, reg_xyz) rows."""
     import torch
 
     from ogc_tpu_torch.ops.fps import fps, fps_plan
 
     out = {name: fps(torch.from_numpy(x[name]), npoint).numpy()
            for name, npoint in cfg["clouds"].items()}
-    out["plans"] = np.array([[n, *map(int, fps_plan(n))]
+    # Up to MAX_N a cloud takes one CTA (the plan's cluster is 1).
+    out["plans"] = np.array([[n, *map(int, fps_plan(n)[:3])]
                              for n in cfg["plan_n"]])
     return out
 
@@ -1072,6 +1073,91 @@ def _case_seg_sup_train(x, cfg, state):
     return out
 
 
+def _case_outdoor_utils(x, cfg, state):
+    """The outdoor path's utilities on CPU tensors: FPS (fps_plain) of
+    every ``fps/<name>`` cloud and fps_plan of ``cfg["plan_n"]`` as (N,
+    ppt, threads, reg_xyz, cluster) rows; icp_batched and the numpy icp on
+    ``icp/A`` -> ``icp/B``; ground_plane_fitting_batched on ``gpf/P`` with
+    each ``cfg["gpf"]`` mask setting, and the numpy ground_plane_fitting of
+    every ``gpf_np/<i>`` cloud; the KITTI benchmark's preproc from numpy
+    seed 18 on ``bench/<i>/{pc1,pc2,flow}``."""
+    import torch
+
+    from ogc_tpu_torch.ops.fps import fps, fps_plan
+    from ogc_tpu_torch.test_flow_kittisf_benchmark import preproc
+    from ogc_tpu_torch.utils.gpf import (ground_plane_fitting,
+                                         ground_plane_fitting_batched)
+    from ogc_tpu_torch.utils.icp import icp, icp_batched
+
+    out = {}
+    for name, npoint in cfg["fps"].items():
+        out["fps/" + name] = fps(torch.from_numpy(x["fps/" + name]),
+                                 npoint).numpy()
+    out["plans"] = np.array([[n, *map(int, fps_plan(n))]
+                             for n in cfg["plan_n"]])
+    it = cfg["icp_iters"]
+    out["icp/T"] = icp_batched(torch.from_numpy(x["icp/A"]),
+                               torch.from_numpy(x["icp/B"]), it).numpy()
+    out["icp/T_np"] = np.stack([icp(a, b, max_iterations=it)[0]
+                                for a, b in zip(x["icp/A"], x["icp/B"])])
+    P = torch.from_numpy(x["gpf/P"])
+    for name, (v, fv) in cfg["gpf"].items():
+        out["gpf/" + name] = ground_plane_fitting_batched(
+            P, valid=None if v is None else torch.from_numpy(x[v]),
+            fit_valid=None if fv is None else torch.from_numpy(x[fv]),
+            **cfg["gpf_kw"]).numpy()
+    for i in range(cfg["n_gpf_np"]):
+        out[f"gpf_np/{i}"] = ground_plane_fitting(
+            x[f"gpf_np/{i}"], device="cpu", **cfg["gpf_np_kw"])
+    np.random.seed(18)
+    for i in range(cfg["n_bench"]):
+        for k, v in zip(("pc1", "pc2", "flow"), preproc(
+                *(x[f"bench/{i}/{k}"] for k in ("pc1", "pc2", "flow")),
+                remove_ground=True, n_sample_point=cfg["bench_n"])):
+            out[f"bench/{i}/{k}"] = v
+    return out
+
+
+def _case_waymo_train(x, cfg, state):
+    """One step of the port's train_seg_waymo trainer (SegTrainer, frame
+    stride 2) on ``unsup/*`` and of its train_seg_waymo_sup trainer
+    (SupSegTrainer on FlowPad items) on ``sup/*``, from the carried
+    segnets ``unsup.<key>`` / ``sup.<key>``: the loss terms."""
+    import torch
+
+    from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
+    from ogc_tpu_torch.train.seg import Adam, SegTrainer, make_lr_schedule
+    from ogc_tpu_torch.train.seg_sup import SupSegTrainer
+
+    out = {}
+    for tag in ("unsup", "sup"):
+        model = _segnet({"segnet": cfg[tag + "_segnet"]},
+                        {k[len(tag) + 1:]: v for k, v in state.items()
+                         if k.startswith(tag + ".")})
+        opt = Adam(dict(model.named_parameters()),
+                   make_lr_schedule(**cfg["lr"]))
+        common = dict(ignore_npoint_thresh=cfg["ignore_npoint_thresh"],
+                      exp_base=cfg["exp_base"] + tag,
+                      device=torch.device("cpu"))
+        if tag == "unsup":
+            trainer = SegTrainer(model, OGCLossConfig.from_dict(cfg["loss"]),
+                                 opt, aug_transform_epoch=0, frame_stride=2,
+                                 **common)
+            batch = tuple(x[f"unsup/{k}"] for k in ("pcs", "segms", "flows",
+                                                    "valids"))
+            ld, _, _ = trainer.train_it(0, batch, aug_transform=True)
+        else:
+            trainer = SupSegTrainer(model, SupLossConfig(weights=tuple(
+                cfg["sup_weights"])), opt, **common)
+            batch = tuple(x[f"sup/{k}"] for k in ("pcs", "segms", "flows",
+                                                  "valids"))
+            ld, _, _ = trainer.train_it(0, batch)
+        for k, v in ld.items():
+            out[f"{tag}/{k}"] = np.array(v)
+    return out
+
+
 CASES = {
     "kernels": _case_kernels,
     "core": _case_core,
@@ -1111,6 +1197,8 @@ CASES = {
     "flow_train": _case_flow_train,
     "seg_sup": _case_seg_sup,
     "seg_sup_train": _case_seg_sup_train,
+    "outdoor_utils": _case_outdoor_utils,
+    "waymo_train": _case_waymo_train,
 }
 
 
