@@ -160,6 +160,32 @@
    (2 steps of B=16 x 8192) with step times, peak memory and a profile of
    3 Waymo steps; test_seg_waymo and test_seg on KITTI-Det and
    SemanticKITTI (8192 points, 10 slots) with the first one's weights.
+18. Data parallelism (run_dp; ogc_tpu_torch/parallel/mesh.py): NCCL at
+   world size 1 (the launcher's variables set here, one rank on cuda:0):
+   3 SAPIEN full SegTrainer steps (B=32 x 512, pinned exact) and 3 SAPIEN
+   FlowTrainer steps (B=32 x 512, 4 iterations) bit-equal to the same
+   steps without a process group.  Two gloo ranks sharing cuda:0
+   (``share_device``; ``python3 chip_smoke.py dp_worker ...`` processes),
+   each loading its 16-item block through the port's DataLoader, 3 steps
+   of each trainer: SegTrainer and FlowTrainer under local sync against one
+   process taking the ranks' steps at their shapes (split_steps): every
+   step's terms within DP_LOSS_RTOL, the first averaged gradient within
+   DP_GRAD_RTOL, local-sync running statistics within DP_STATS_RTOL;
+   FlowTrainer under global sync against one process on the global batch,
+   within those bounds or DP_WITNESS_X times what nudging the batch's
+   clouds by one ulp moves that process; a checkpoint written by rank 0 alone and a
+   resumed step equal to the continuing one; #1, #2 and #11 launched on
+   each rank.  dp_eval_fwd over [cuda:0, cuda:0]: the KITTI-SF segnet on
+   B=7 (padded to 8) within MASK_TOL of --dp 1, the kitti flownet (B=8 x
+   8192) within DP_FLOW_TOL of its scale.  test_seg --dp (card count + 1)
+   raises.  With two cards or more, two NCCL ranks on two cards held as
+   the gloo ranks are, dp_eval_fwd over every card (``--dp 0``), and #1
+   and #2 on cuda:1 after init_data_parallel("cuda:1") (a CLI's
+   ``--device cuda:1``) bit-equal to their plain versions.
+   Each arm's step ms and peak MiB beside the card's name and power limit.
+   ``python3 chip_smoke.py dp_phase`` runs this phase alone on its own
+   inputs; ``dp_phase cards`` only the references and the arms that need
+   two cards.
 The kernel phase also holds the row-group pool (#12) at every pool shape of
 phases 10 and 11 (max and mean, float32 and bf16, broadcast and per-group add,
 ReLU on and off; timed by single call, device time and host enqueue beside
@@ -4072,7 +4098,7 @@ def flow_batch(cfg, n_items, seed=SEED):
     return tuple(np.stack(f, 0) for f in zip(*items))
 
 
-def make_flow_trainer(cfg, device, exp_base, iters=None):
+def make_flow_trainer(cfg, device, exp_base, iters=None, bn_sync="local"):
     """train_flow.py's model (seeded weights), Adam and FlowTrainer for
     ``cfg`` on ``device``."""
     from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
@@ -4095,7 +4121,8 @@ def make_flow_trainer(cfg, device, exp_base, iters=None):
                        exp_base=exp_base, device=torch.device(device),
                        bn_schedule=make_bn_schedule(
                            cfg["bn_momentum"], cfg["bn_decay"],
-                           cfg["decay_step"], cfg["batch_size"]))
+                           cfg["decay_step"], cfg["batch_size"]),
+                       bn_sync=bn_sync)
 
 
 def log_steps(what, trainer, clouds, wall):
@@ -4791,8 +4818,588 @@ def run_outdoor(tmp):
             f"{k} {float(np.median(v)):.4f}" for k, v in times.items()))
     return launches, times
 
+# ---------------------------------------------------------------------------
+# Data parallelism (ogc_tpu_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+# Steps of each arm: SAPIEN full (B=32 x 512, 4 frames, pinned exact) and
+# the SAPIEN flow trainer (B=32 x 512, the config's 4 iterations, exact).
+DP_STEPS = 3
+# Two ranks against one process that takes their steps itself
+# (split_steps: each row block's forward and backward at the ranks'
+# shapes, the gradients, terms and local-sync running statistics averaged
+# as the ranks' collective averages them, one Adam step): every step's
+# loss terms (rtol), the first step's averaged gradient (relative
+# Frobenius, PARITY.md's gradient tolerance), the running statistics after
+# the steps (relative to each tensor's largest entry); the eval forward
+# over two shards against one (MASK_TOL; flows relative to their scale).
+DP_LOSS_RTOL, DP_GRAD_RTOL, DP_STATS_RTOL, DP_FLOW_TOL = 1e-4, 3e-3, 1e-5, 2e-5
+DP_EVAL_B = 7
+# Global sync couples the row blocks in every BatchNorm, so no process can
+# take the ranks' steps alone: the reference is one process on the global
+# batch, whose statistics, weight gradients and loss means round another
+# way.  Train-mode FlowStep3D amplifies rounding ~10-100x an iteration
+# (the CPU float64 test holds the semantics to 1e-9; in float32 the outputs
+# of 4 iterations part by percents), so that arm is held to the bounds
+# above or, where larger, to DP_WITNESS_X times the distance the same
+# one-process run moves when its clouds move by one unit in the last place
+# (the largest over DP_NUDGES).
+DP_WITNESS_X = 10
+DP_NUDGES = (("one ulp up", np.inf), ("one ulp down", -np.inf))
+#: the command that runs one rank (dp_worker)
+DP_WORKER = [sys.executable, osp.join(REPO, "chip_smoke.py"), "dp_worker"]
+
+
+class ItemList:
+    """Items held in memory, as a dataset for the port's DataLoader."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def __len__(self):
+        return len(self.arrays[0])
+
+    def __getitem__(self, i):
+        return tuple(a[i] for a in self.arrays)
+
+
+def dp_batch(arrays, rank=None, size=None):
+    """This rank's block of the global batch ``arrays`` through the port's
+    DataLoader (the whole batch without a process group)."""
+    from ogc_tpu_torch.data.base import DataLoader
+
+    (batch,) = list(DataLoader(ItemList(arrays), batch_size=len(arrays[0]),
+                               num_workers=1, rank=rank, world_size=size))
+    return batch
+
+
+def flat_grads(model):
+    return torch.cat([p.grad.detach().double().flatten().cpu()
+                      for p in model.parameters() if p.grad is not None])
+
+
+def split_steps(trainer, blocks, its, step):
+    """``step(trainer, it, block)`` for each ``it`` of ``its`` as two ranks
+    take it, in one process with no process group: every row block's
+    forward and backward from the same weights and running statistics,
+    their gradients, terms and running statistics averaged as the ranks'
+    collective averages them (the sum, then halved, in their dtype), then
+    one Adam step.  The ranks' shapes, so the ranks' rounding.  Returns the
+    terms a step (keys sorted) and the first step's averaged gradient."""
+    model, opt = trainer.model, trainer.optimizer
+    params = list(model.parameters())
+    bufs = dict(model.named_buffers())
+    lds, grads = [], None
+    for it in its:
+        start = {k: b.clone() for k, b in bufs.items()}
+        got = []
+        opt.step = lambda: None     # the ranks step after the average
+        try:
+            for block in blocks:
+                for k, b in bufs.items():
+                    b.copy_(start[k])
+                ld = step(trainer, it, block)
+                got.append(([p.grad.clone() for p in params],
+                            torch.tensor([ld[k] for k in sorted(ld)],
+                                         dtype=torch.float32),
+                            {k: b.clone() for k, b in bufs.items()}))
+        finally:
+            del opt.step
+        (g0, t0, b0), (g1, t1, b1) = got
+        for p, a, b in zip(params, g0, g1):
+            p.grad = (a + b) / 2
+        for k, b in bufs.items():
+            b.copy_((b0[k] + b1[k]) / 2 if "running_" in k else b0[k])
+        lds.append(((t0 + t1) / 2).tolist())
+        if grads is None:
+            grads = flat_grads(model)
+        opt.step()
+    return np.array(lds), grads
+
+
+def dp_seg_steps(cfg, batch, exp_base, save_at=None, blocks=None):
+    """DP_STEPS SegTrainer steps of ``cfg`` (from the first step with every
+    term on) on ``batch``, or with ``blocks`` as two ranks take them on
+    those row blocks (split_steps): (trainer, terms a step (keys sorted),
+    the first step's gradient as the optimizer saw it, step ms, extra).
+    With ``save_at``, a checkpoint after that many steps (rank 0 writes,
+    counted) and the last step again from a trainer resumed from it."""
+    from ogc_tpu_torch.utils import checkpoint
+
+    set_modes(cfg, True)
+    it0 = first_it_all_terms(cfg, SAP_B)
+    model = make_model(cfg, DEVICE)
+    trainer = make_trainer(cfg, model, torch.device(DEVICE), exp_base)
+    if blocks is not None:
+        lds, grads = split_steps(
+            trainer, blocks, [it0 + i for i in range(DP_STEPS)],
+            lambda tr, it, b: tr.train_it(it, b, aug_transform=True)[0])
+        return trainer, lds, grads, None, {}
+    lds, grads, extra = [], None, {}
+    for i in range(DP_STEPS):
+        if save_at == i:
+            writes = []
+            real = checkpoint.save_train_state
+            checkpoint.save_train_state = (
+                lambda *a: writes.append(1) or real(*a))
+            try:
+                trainer.save(True, 1)
+            finally:
+                checkpoint.save_train_state = real
+            extra["writes"] = len(writes)
+        ld, _, _ = trainer.train_it(it0 + i, batch, aug_transform=True)
+        lds.append([ld[k] for k in sorted(ld)])
+        extra["keys"] = sorted(ld)
+        if i == 0:
+            grads = flat_grads(model)
+    if save_at is not None:
+        resumed = make_trainer(cfg, make_model(cfg, DEVICE),
+                               torch.device(DEVICE), exp_base)
+        extra["epoch"] = resumed.resume(trainer.checkpoint_name + ".pth.tar")
+        ld, _, _ = resumed.train_it(it0 + save_at, batch, aug_transform=True)
+        extra["resumed"] = [ld[k] for k in sorted(ld)]
+    ms = np.array(trainer.step_seconds) * 1e3
+    return trainer, np.array(lds), grads, ms, extra
+
+
+def dp_flow_steps(cfg, batch, exp_base, bn_sync, blocks=None):
+    """DP_STEPS FlowTrainer steps of the config's iterations on ``batch``,
+    or with ``blocks`` as two ranks take them (split_steps; local sync
+    only): (trainer, terms a step (keys sorted), the first step's gradient,
+    step ms)."""
+    from ogc_tpu_torch import ops
+
+    ops.set_exact_neighbors(True)
+    trainer = make_flow_trainer(cfg, DEVICE, exp_base, bn_sync=bn_sync)
+    if blocks is not None:
+        lds, grads = split_steps(trainer, blocks, range(DP_STEPS),
+                                 lambda tr, it, b: tr.train_it(it, b))
+        return trainer, lds, grads, None
+    lds, grads = [], None
+    for it in range(DP_STEPS):
+        ld = trainer.train_it(it, batch)
+        lds.append([ld[k] for k in sorted(ld)])
+        if it == 0:
+            grads = flat_grads(trainer.model)
+    return trainer, np.array(lds), grads, np.array(trainer.step_seconds) * 1e3
+
+
+def running_stats(model):
+    return {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+            if "running_" in k}
+
+
+def dp_inputs(tmp, scfg):
+    """The phase's configs (SAPIEN full of phase 9, the SAPIEN flow config
+    on phase 14's root) and global batches, saved for the rank processes:
+    the path of their spec."""
+    cfg = dict(scfg, save_path=osp.join(tmp, "ckpt", "dp_seg"))
+    fcfg, _ = write_cfg(tmp, "config/flow/sapien/sapien_unsup.yaml",
+                        "dp_flow", data={"root": osp.join(tmp, "PIPE_SAPIEN")},
+                        save_path=osp.join(tmp, "ckpt", "dp_flow"))
+    arrays = {"seg": fixed_batch(cfg, SAP_B), "flow": flow_batch(fcfg,
+                                                                 SAP_FT_B)}
+    np.savez(osp.join(tmp, "dp_batches.npz"),
+             **{f"{k}{i}": a for k, v in arrays.items()
+                for i, a in enumerate(v)})
+    spec = osp.join(tmp, "dp_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"tmp": tmp, "cfg": cfg, "fcfg": fcfg}, f)
+    return spec
+
+
+def dp_load(spec_path):
+    """(cfg, fcfg, seg arrays, flow arrays, spec) of ``dp_inputs``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with np.load(osp.join(spec["tmp"], "dp_batches.npz")) as z:
+        seg = tuple(z[f"seg{i}"] for i in range(4))
+        flow = tuple(z[f"flow{i}"] for i in range(4))
+    return spec["cfg"], spec["fcfg"], seg, flow, spec
+
+
+def dp_worker(spec_path):
+    """One rank of a data-parallel arm (``python3 chip_smoke.py dp_worker
+    <spec.json> share|own <out dir>``, the launcher's variables set by the
+    parent; ``share``: every rank on card 0, gloo): SegTrainer
+    with a rank-0 checkpoint and a resume, FlowTrainer under global and
+    local sync, each on this rank's row block of the global batches; the
+    launch counts of the seg steps; writes rank<r>.npz."""
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.parallel import mesh
+    from ogc_tpu_torch.train_seg import set_deterministic
+
+    share, out_dir = sys.argv[3] == "share", sys.argv[4]
+    device = mesh.init_data_parallel("cuda", share_device=share)
+    global DEVICE
+    DEVICE = str(device)
+    set_deterministic(device)
+    _build.lib()
+    rank, size = mesh.world()
+    cfg, fcfg, seg_arrays, flow_arrays, spec = dp_load(spec_path)
+    tmp = spec["tmp"]
+    out = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    seg = dp_seg_steps(cfg, dp_batch(seg_arrays), osp.join(tmp, "dp_seg_w"),
+                       save_at=DP_STEPS - 1)
+    out["launches"] = np.array([read_counts()[k] for k in KERNELS])
+    out["seg_ld"], out["seg_grads"], out["seg_ms"] = seg[1], seg[2].numpy(), \
+        seg[3]
+    out["seg_keys"] = np.array(seg[4]["keys"])
+    out["seg_writes"] = np.array(seg[4]["writes"])
+    out["seg_epoch"] = np.array(seg[4]["epoch"])
+    out["seg_resumed"] = np.array(seg[4]["resumed"])
+    flow_batch_r = dp_batch(flow_arrays)
+    for sync in ("global", "local"):
+        tr, ld, grads, ms = dp_flow_steps(
+            fcfg, flow_batch_r, osp.join(tmp, f"dp_f{sync}_w"), sync)
+        out[f"{sync}_ld"], out[f"{sync}_grads"] = ld, grads.numpy()
+        out[f"{sync}_ms"] = ms
+    for k, v in running_stats(tr.model).items():
+        out["local/" + k] = v.numpy()
+    out["peak_mib"] = np.array(torch.cuda.max_memory_allocated(device) / 2**20)
+    out["rows"] = np.array([seg_arrays[0].shape[0],
+                            dp_batch(seg_arrays).true_b])
+    np.savez(osp.join(out_dir, f"rank{rank}.npz"), **out)
+    mesh.shutdown()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(spec, size, share):
+    """``size`` rank processes of dp_worker on the inputs of ``spec`` (the
+    launcher's variables set here, one card each or all on card 0 with
+    ``share``); returns their outputs by rank and the wall seconds."""
+    out = osp.join(osp.dirname(spec), f"dp_{size}_{int(share)}")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*DP_WORKER, spec, "share" if share else "own", out],
+        cwd=REPO, env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(size),
+                           LOCAL_RANK=str(0 if share else r),
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(size)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {size} failed "
+                                 f"({p.returncode}):\n{text[-6000:]}")
+    res = []
+    for r in range(size):
+        with np.load(osp.join(out, f"rank{r}.npz")) as z:
+            res.append({k: z[k] for k in z.files})
+    return res, wall
+
+
+def rel_frobenius(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+def step_rtol(a, b):
+    """Each step's largest relative distance of the terms ``a`` from
+    ``b``."""
+    return np.abs(np.asarray(a) / np.asarray(b) - 1).max(1)
+
+
+def dp_references(tmp, spec, smi):
+    """The phase's one-process runs (no process group): SegTrainer and
+    FlowTrainer (global sync, i.e. plain BatchNorm) on the global batches,
+    the ranks' steps taken in one process (split_steps) for SegTrainer and
+    local-sync FlowTrainer, and the global-sync witnesses (the global
+    batch's clouds nudged by one ulp).  Returns them by name."""
+    cfg, fcfg, seg_arrays, flow_arrays, _ = dp_load(spec)
+    torch.cuda.reset_peak_memory_stats()
+    ref = {"seg": dp_seg_steps(cfg, dp_batch(seg_arrays),
+                               osp.join(tmp, "dp_seg_1")),
+           "flow": dp_flow_steps(fcfg, dp_batch(flow_arrays),
+                                 osp.join(tmp, "dp_f_1"), "global")}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    blocks = (lambda arrays: [dp_batch(arrays, r, 2) for r in range(2)])
+    ref["seg_split"] = dp_seg_steps(cfg, None, osp.join(tmp, "dp_seg_s"),
+                                    blocks=blocks(seg_arrays))
+    ref["local_split"] = dp_flow_steps(fcfg, None, osp.join(tmp, "dp_fl_s"),
+                                       "local", blocks=blocks(flow_arrays))
+    flow_ld, flow_g = ref["flow"][1], ref["flow"][2].numpy()
+    terms, grads = [], []
+    for name, to in DP_NUDGES:
+        pcs = np.nextafter(flow_arrays[0], np.float32(to))
+        _, ld, g, _ = dp_flow_steps(
+            fcfg, dp_batch((pcs, *flow_arrays[1:])),
+            osp.join(tmp, "dp_f_w"), "global")
+        terms.append(step_rtol(ld, flow_ld))
+        grads.append(rel_frobenius(g.numpy(), flow_g))
+        log(f"data parallel witness, one process on the global flow batch "
+            f"({name}): terms' rtol a step {terms[-1].tolist()}, first "
+            f"gradient's relative Frobenius {grads[-1]:.3e}")
+    ref["witness"] = (np.max(terms, 0), max(grads))
+    log(f"data parallel, one process: step ms seg "
+        f"{np.round(ref['seg'][3], 4).tolist()}, flow "
+        f"{np.round(ref['flow'][3], 4).tolist()}; peak {peak:.1f} MiB; {smi}")
+    return ref
+
+
+def check_ranks(what, ranks, ref, smi):
+    """The ranks of one multi-rank arm against the one-process references
+    of ``dp_references``."""
+    seg_s, local_s = ref["seg_split"], ref["local_split"]
+    flow_ld, flow_g = ref["flow"][1], ref["flow"][2].numpy()
+    w_terms, w_grad = ref["witness"]
+    local_stats = running_stats(local_s[0].model)
+    for r, o in enumerate(ranks):
+        checks = {
+            "seg terms, every step": (
+                float(step_rtol(o["seg_ld"], seg_s[1]).max()), DP_LOSS_RTOL),
+            "seg gradient": (rel_frobenius(o["seg_grads"], seg_s[2]),
+                             DP_GRAD_RTOL),
+            "flow (local) terms, every step": (
+                float(step_rtol(o["local_ld"], local_s[1]).max()),
+                DP_LOSS_RTOL),
+            "flow (local) gradient": (
+                rel_frobenius(o["local_grads"], local_s[2]), DP_GRAD_RTOL),
+            "flow (local) statistics": (max(
+                float(np.abs(o["local/" + k] - v.numpy()).max()
+                      / np.abs(v.numpy()).max())
+                for k, v in local_stats.items()), DP_STATS_RTOL),
+            "flow (global) gradient": (
+                rel_frobenius(o["global_grads"], flow_g),
+                max(DP_GRAD_RTOL, DP_WITNESS_X * w_grad))}
+        for s, (d, w) in enumerate(zip(step_rtol(o["global_ld"], flow_ld),
+                                       w_terms)):
+            checks[f"flow (global) terms, step {s + 1}"] = (
+                float(d), max(DP_LOSS_RTOL, DP_WITNESS_X * float(w)))
+        log(f"{what} rank {r}: " + ", ".join(
+            f"{k} {v:.3e} (bound {b:.3e})" for k, (v, b) in checks.items())
+            + "; not bounded, from one process on the global batch: seg "
+            f"terms' rtol a step "
+            f"{step_rtol(o['seg_ld'], ref['seg'][1]).tolist()}, gradient "
+            f"{rel_frobenius(o['seg_grads'], ref['seg'][2]):.3e}")
+        bad = [k for k, (v, b) in checks.items() if not v <= b]
+        launched = dict(zip(KERNELS, o["launches"].tolist()))
+        missing = [k for k in ("fps", "knn_exact", "scatter_add")
+                   if not launched[k]]
+        if bad or missing:
+            raise AssertionError(f"{what} rank {r}: out of bounds {bad}, "
+                                 f"launched no {missing}")
+        if int(o["seg_writes"]) != (1 if r == 0 else 0) or \
+                int(o["seg_epoch"]) != 1:
+            raise AssertionError(f"{what} rank {r}: checkpoint written "
+                                 f"{int(o['seg_writes'])} times, epoch "
+                                 f"{int(o['seg_epoch'])}")
+        resumed = float(np.abs(o["seg_resumed"] / o["seg_ld"][-1] - 1).max())
+        if not resumed <= DP_LOSS_RTOL:
+            raise AssertionError(f"{what} rank {r}: the resumed step's terms "
+                                 f"are {resumed:.3e} from the continuing "
+                                 f"one's")
+        log(f"{what} rank {r}: rows {o['rows'].tolist()} (global, own); "
+            f"launches of the seg steps {launched}; checkpoint written by "
+            f"rank 0 only, the resumed step {resumed:.3e} from the "
+            f"continuing one; step ms seg "
+            f"{np.round(o['seg_ms'], 4).tolist()}, flow global "
+            f"{np.round(o['global_ms'], 4).tolist()}, local "
+            f"{np.round(o['local_ms'], 4).tolist()}; peak "
+            f"{float(o['peak_mib']):.1f} MiB; {smi}")
+
+
+def check_dp_eval(pcfg, devices, smi):
+    """dp_eval_fwd over ``devices`` against one shard on cuda:0: the
+    KITTI-SF segnet forward on an odd batch (masks within MASK_TOL) and
+    the kitti flownet forward (flows within DP_FLOW_TOL of their scale)."""
+    from ogc_tpu_torch.parallel import mesh
+
+    set_modes(pcfg, True)
+    segnet = make_model(pcfg, DEVICE).eval()
+    pc = fixed_batch(pcfg, DP_EVAL_B)[0][:, 0]
+    fwd = (lambda m, x: m(x, x))
+    one = [torch.device(DEVICE)]
+    masks = {}
+    for name, d in (("1", one), ("n", devices)):
+        f = mesh.dp_eval_fwd(fwd, d, segnet)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks[name] = f(pc)
+        masks[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    mdiff = float(np.abs(masks["n"] - masks["1"]).max())
+    flownet = make_flownet(FLOW_KW, DEVICE)
+    pc1, pc2 = flow_scenes(FLOW_B, SEED)
+    ffwd = (lambda m, a, b: m(a, b, a, b, FLOW_ITERS)[-1])
+    flows = {n: mesh.dp_eval_fwd(ffwd, d, flownet)(pc1, pc2)
+             for n, d in (("1", one), ("n", devices))}
+    scale = max(1.0, float(np.abs(flows["1"]).max()))
+    fdiff = float(np.abs(flows["n"] - flows["1"]).max())
+    n = len(devices)
+    names = [f"cuda:{torch.cuda.current_device()}" if str(d) == "cuda"
+             else str(d) for d in devices]
+    log(f"dp_eval_fwd over {names}: KITTI-SF segnet "
+        f"B={DP_EVAL_B} x {N_POINT} (padded to {n * -(-DP_EVAL_B // n)}) "
+        f"masks {mdiff:.3e} from --dp 1 (MASK_TOL {MASK_TOL}), "
+        f"{masks['n_ms']:.4f} ms against {masks['1_ms']:.4f} ms; kitti "
+        f"flownet B={FLOW_B} x {N_POINT} flows {fdiff:.3e} (bound "
+        f"{DP_FLOW_TOL} x {scale:.4f}); {smi}")
+    if masks["n"].shape != masks["1"].shape or not mdiff <= MASK_TOL or \
+            not fdiff <= DP_FLOW_TOL * scale:
+        raise AssertionError(f"dp_eval_fwd over {n} shards disagrees")
+
+
+def check_card_index():
+    """A CLI's ``--device cuda:1`` without the launcher's variables:
+    init_data_parallel makes that card current (the kernels launch with
+    the current card), then #1 and #2 on its tensors are bit-equal to
+    their plain versions."""
+    from ogc_tpu_torch.ops.fps import fps, fps_plain
+    from ogc_tpu_torch.ops.knn import knn_exact, knn_exact_plain
+    from ogc_tpu_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = (torch.randint(0, 64, (2, 4096, 3), generator=gen) / 8.0)
+    try:
+        x = x.to(mesh.init_data_parallel("cuda:1"))
+        got = (fps(x, 512), *knn_exact(x, x, 16))
+        want = (fps_plain(x, 512), *knn_exact_plain(x, x, 16))
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_device(0)
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    log(f"--device cuda:1 (cuda:1 made current): #1, #2 bit-equal to "
+        f"their plain versions: {same}")
+    if not all(same):
+        raise AssertionError("kernels on cuda:1 disagree with plain")
+
+
+def run_dp(tmp, scfg, pcfg, pcfg_path, smi, shared=True):
+    """The data-parallel phase: NCCL at world size 1 bit-equal to no
+    process group; two gloo ranks sharing card 0 against one process
+    (SegTrainer with a rank-0 checkpoint and a resume, FlowTrainer in
+    global and local sync); dp_eval_fwd over [cuda:0, cuda:0]; --dp above
+    the card count raising; where the machine has two cards or more, two
+    NCCL ranks on two cards and dp_eval_fwd over every card.  Without
+    ``shared``, only the one-process references and the arms that need
+    more than one card."""
+    from ogc_tpu_torch import test_seg
+    from ogc_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    spec = dp_inputs(tmp, scfg)
+    cfg, fcfg, seg_arrays, flow_arrays, _ = dp_load(spec)
+    ref = dp_references(tmp, spec, smi)
+    seg, flow = ref["seg"], ref["flow"]
+
+    if shared:
+        # NCCL, world size 1: an average over one rank is the identity.
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+        os.environ.update(env)
+        try:
+            device = mesh.init_data_parallel("cuda")
+            if torch.distributed.get_backend() != "nccl" or \
+                    mesh.world() != (0, 1):
+                raise AssertionError("world size 1: no NCCL group")
+            torch.cuda.reset_peak_memory_stats()
+            seg1 = dp_seg_steps(cfg, dp_batch(seg_arrays),
+                                osp.join(tmp, "dp_seg_n"))
+            flow1 = dp_flow_steps(fcfg, dp_batch(flow_arrays),
+                                  osp.join(tmp, "dp_f_n"), "global")
+            peak1 = torch.cuda.max_memory_allocated() / 2**20
+        finally:
+            mesh.shutdown()
+            for k in env:
+                os.environ.pop(k)
+        diff = [k for k, a, b in (
+            ("seg terms", seg1[1], seg[1]), ("flow terms", flow1[1], flow[1]))
+            if not np.array_equal(a, b)]
+        for name, (a, b) in (("seg", (seg1[0].model, seg[0].model)),
+                             ("flow", (flow1[0].model, flow[0].model))):
+            sa, sb = a.state_dict(), b.state_dict()
+            diff += [f"{name} {k}" for k in sa
+                     if not torch.equal(sa[k], sb[k])]
+        log(f"NCCL world size 1 on {device}: {DP_STEPS} seg and {DP_STEPS} "
+            f"flow steps against no process group: {len(diff)} differences; "
+            f"step ms seg {np.round(seg1[3], 4).tolist()}, flow "
+            f"{np.round(flow1[3], 4).tolist()}; peak {peak1:.1f} MiB; {smi}")
+        if diff:
+            raise AssertionError(f"NCCL world size 1 differs: {diff[:5]}")
+
+        # Two gloo ranks sharing card 0 (stages through the host: a
+        # correctness arm, not a scaling figure).
+        ranks, wall = launch_ranks(spec, 2, share=True)
+        log(f"gloo, 2 ranks sharing cuda:0 (a correctness arm; gloo stages "
+            f"through the host): wall {wall:.3f} s")
+        check_ranks("gloo 2 ranks on cuda:0", ranks, ref, smi)
+        check_dp_eval(pcfg, [torch.device(DEVICE)] * 2, smi)
+
+    # --dp above the card count raises the JAX package's message.
+    n = torch.cuda.device_count()
+    try:
+        test_seg.main([pcfg_path, "--split", "val", "--dp", str(n + 1)])
+    except ValueError as e:
+        if f"n_devices={n + 1} exceeds the {n} local devices" not in str(e):
+            raise
+        log(f"test_seg --dp {n + 1} on {n} card(s) raises: {e}")
+    else:
+        raise AssertionError(f"test_seg --dp {n + 1} ran on {n} card(s)")
+    if n >= 2:
+        ranks, wall = launch_ranks(spec, 2, share=False)
+        log(f"NCCL, 2 ranks on 2 cards: wall {wall:.3f} s")
+        check_ranks("NCCL 2 ranks on 2 cards", ranks, ref, smi)
+        check_dp_eval(pcfg, mesh.eval_devices(0, "cuda"), smi)
+        check_card_index()
+    else:
+        log("NCCL on two cards and dp_eval_fwd over two cards: not run "
+            "(this machine has one card)")
+    log(f"data-parallel phase: {time.perf_counter() - t_phase:.3f} s")
+
+
+def dp_phase(shared=True):
+    """The data-parallel phase alone (``python3 chip_smoke.py dp_phase
+    [cards]``): its inputs built as main builds them (the SAPIEN root of
+    phase 9, phase 14's flow root, the KITTI-SF parity config), then
+    run_dp; ``cards``: only what needs two cards or more, and the
+    references it is held to."""
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.tools.synth import make_sapien_root_coherent
+    from ogc_tpu_torch.train_seg import set_deterministic
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    os.chdir(REPO)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    set_deterministic(torch.device("cuda"))
+    _build.lib()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = setup_data(tmp)
+        sap_cfgs, _ = setup_sapien(tmp)
+        make_sapien_root_coherent(osp.join(tmp, "PIPE_SAPIEN",
+                                           "mbs-shapepart"),
+                                  n_scenes=FT_SCENES, n_points=SAP_N,
+                                  seed=200 + SEED)
+        run_dp(tmp, sap_cfgs["full"], *cfgs["parity"], smi, shared=shared)
+    log(smi)
+
 
 def main():
+    if len(sys.argv) == 5 and sys.argv[1] == "dp_worker":
+        return dp_worker(sys.argv[2])
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "dp_phase":
+        return dp_phase(shared=sys.argv[2:] != ["cards"])
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     os.chdir(REPO)
@@ -4888,6 +5495,9 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s")
         out_launches, _ = run_outdoor(tmp)
         log(f"outdoor phase done at {time.perf_counter() - t_start:.1f} s")
+        run_dp(tmp, full, *cfgs["parity"], smi.stdout.strip())
+        log(f"data-parallel phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
     missing = [k for k in ("fps", "knn_exact", "ball_query", "gather_onehot",
                            "scatter_onehot", "scatter_add")
                if not ft_launches[k]]

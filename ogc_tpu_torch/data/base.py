@@ -2,9 +2,10 @@
 ogc_tpu/data/base.py: the port imports nothing of ``ogc_tpu``).
 
 The reference uses torch DataLoader workers (train_seg.py:324); here the host
-pipeline is a plain thread pool feeding stacked numpy batches, which JAX
-device-puts asynchronously.  All datasets return the uniform item
-(pcs (T,N,3), segms, flows (T,N,3), valids) of the reference (SURVEY §2b).
+pipeline is a plain thread pool feeding stacked numpy batches.  All datasets
+return the uniform item (pcs (T,N,3), segms, flows (T,N,3), valids) of the
+reference (SURVEY §2b).  Under data parallelism the loader yields this
+rank's row block of each global batch (``DataLoader``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ogc_tpu_torch.data.augment import (
     batch_segm_to_mask,
     compress_label_id,
 )
+from ogc_tpu_torch.parallel import mesh
 
 
 class PairFrameDataset:
@@ -79,12 +81,27 @@ class PairFrameDataset:
         )
 
 
+class Batch(tuple):
+    """A loader's batch: the stacked fields, with ``true_b``, how many of
+    its rows are true (the rest repeat the global batch's last row), and
+    ``global_b``, the global batch's true rows."""
+
+    true_b: int
+    global_b: int
+
+
 class DataLoader:
     """Minimal batching loader: shuffle, stack, background prefetch.
 
-    Drops no remainder by default (pads are the caller's concern only for
-    jit-shape-stability; the reference keeps partial batches, and so do we —
-    eval code must handle a smaller final batch).
+    Drops no remainder by default (the reference keeps partial batches, and
+    so do we — eval code must handle a smaller final batch).
+
+    Under a world of W ranks (``rank``/``world_size``, by default the
+    process group's) every rank draws the same seeded permutation and loads
+    only its row block of each global batch of ``batch_size``, padded to a
+    multiple of W by repeating the last index (``mesh.shard_padded``'s
+    blocks); a repeated index is loaded once.  The union over ranks is the
+    single-process batch.
     """
 
     def __init__(
@@ -96,7 +113,12 @@ class DataLoader:
         num_workers: int = 4,
         drop_last: bool = False,
         prefetch: int = 2,
+        rank: Optional[int] = None,
+        world_size: Optional[int] = None,
     ):
+        if rank is None:
+            rank, world_size = mesh.world()
+        self.rank, self.world_size = rank, world_size
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -121,15 +143,32 @@ class DataLoader:
             for i in range(nb)
         ]
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
+    def _local(self, idx: np.ndarray) -> Tuple[np.ndarray, int]:
+        """This rank's padded indices of a global batch and how many of
+        them are true."""
+        b, r, w = len(idx), self.rank, self.world_size
+        if w == 1:
+            return idx, b
+        (block,), _ = mesh.shard_padded([idx], r, w)
+        return block, mesh.true_rows(b, r, w)
+
+    def __iter__(self) -> Iterator[Batch]:
         batches = self._batch_indices()
         pool = _futures.ThreadPoolExecutor(max_workers=self.num_workers)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
-        def fetch(batch_idx):
-            items = list(pool.map(self.dataset.__getitem__, batch_idx))
-            return tuple(np.stack(f, 0) for f in zip(*items))
+        def fetch(global_idx):
+            idx, true_b = self._local(global_idx)
+            # Each distinct index loaded once, so a padded row is a copy.
+            _, first = np.unique(idx, return_index=True)
+            uniq = idx[np.sort(first)]
+            items = dict(zip(uniq.tolist(),
+                             pool.map(self.dataset.__getitem__, uniq)))
+            out = Batch(np.stack(f, 0)
+                        for f in zip(*(items[i] for i in idx.tolist())))
+            out.true_b, out.global_b = true_b, len(global_idx)
+            return out
 
         def producer():
             # Worker exceptions are forwarded to the consumer and re-raised

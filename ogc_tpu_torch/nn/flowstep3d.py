@@ -37,6 +37,7 @@ from torch import nn
 
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.nn.layers import compute_dtype
+from ogc_tpu_torch.parallel import mesh
 
 
 def _f32_only() -> None:
@@ -54,7 +55,15 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
     Train: batch statistics in float32 (or the input's wider dtype),
     normalised with the biased variance; the running statistics move
     torch-style, ``(1 - m) * run + m * batch``, with the unbiased variance
-    (:103-107) and the momentum m the trainer set (``set_bn_momentum``)."""
+    (:103-107) and the momentum m the trainer set (``set_bn_momentum``).
+    With ``sync = "global"`` under data parallelism the statistics are the
+    global batch's, in two passes (:95-113): the mean averaged over ranks,
+    then the second moment centred on that mean averaged over ranks (not
+    E[x^2] - E[x]^2, which cancels on a low-variance channel), both
+    differentiable, and the unbiased variance over n x W rows."""
+
+    #: "local" (each rank's batch statistics) or "global"
+    sync = "local"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _f32_only()
@@ -67,8 +76,14 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
                              "(set_bn_momentum), not a cumulative average")
         xf = x.reshape(-1, x.shape[-1])
         xf = xf.to(torch.promote_types(xf.dtype, torch.float32))
-        var, mean = torch.var_mean(xf, dim=0, correction=0)
         n = xf.shape[0]
+        ranks = mesh.world()[1] if self.sync == "global" else 1
+        if ranks > 1:
+            mean = mesh.mean_over_ranks(xf.mean(0))
+            var = mesh.mean_over_ranks((xf - mean).square().mean(0))
+            n *= ranks
+        else:
+            var, mean = torch.var_mean(xf, dim=0, correction=0)
         with torch.no_grad():
             f = (np.float64 if self.running_mean.dtype == torch.float64
                  else np.float32)

@@ -11,8 +11,9 @@ predictions from ``flow_preds/flowstep3d`` (round 1) or
 ``flow_preds/flowstep3d_R<round-1>``.  ``--save`` writes
 ``flow_preds/<saveflow_path>_R<round>`` (plus its ``.json`` view list on
 SAPIEN) in the layout the datasets of both packages read.  Runs with TF32
-off and exact neighbours unless ``--approx_knn``; ``--dp`` other than 1 is
-not ported yet and raises.
+off and exact neighbours unless ``--approx_knn``.  The segnet on both
+clouds, the weighted Kabsch and OA-ICP run as one sharded call: ``--dp N``
+spreads each batch over N devices, as test_seg.
 """
 
 from __future__ import annotations
@@ -23,10 +24,9 @@ import os
 import os.path as osp
 from typing import Dict, List, Optional
 
-import torch
-
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.metrics.flow import eval_flow
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.refine.oa_icp import object_aware_icp, weighted_kabsch
 from ogc_tpu_torch.test_seg import load_segnet
 from ogc_tpu_torch.utils.config import load_config_into_args
@@ -45,7 +45,7 @@ def parse_args(argv: Optional[List[str]] = None):
                         help="Which round of iterative optimization")
     parser.add_argument("--test_batch_size", type=int, default=48)
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data-parallel devices (only 1 is ported)")
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--save", default=False, action="store_true",
                         help="Save updated flow predictions")
     parser.add_argument("--saveflow_path", type=str, default=None)
@@ -98,12 +98,9 @@ def build_datasets(args):
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Refine; print the reference's three flow reports and return them."""
     args = parse_args(argv)
-    if args.dp != 1:
-        raise NotImplementedError(
-            "--dp: data-parallel refinement is not ported yet (ROADMAP.md "
-            "A.12)")
     load_config_into_args(args)
-    segnet, device = load_segnet(args)
+    devices = mesh.eval_devices(args.dp, args.device)
+    segnet, _ = load_segnet(args)
 
     test_set, test_set_pf, view_sels, thresh, data_root = \
         build_datasets(args)
@@ -123,6 +120,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             with open(save_dir + ".json", "w") as f:
                 json.dump({"view_sel": view_sels}, f)
 
+    def refine_batch(m, pc1, pc2, f):
+        m1, m2 = m(pc1, pc1), m(pc2, pc2)
+        return (weighted_kabsch(pc1, f, m1),
+                object_aware_icp(pc1, pc2, f, m1, m2, icp_iter=icp_iter))
+
+    refine = mesh.dp_eval_fwd(refine_batch, devices, segnet)
     meters = {"Original flow": AverageMeter(),
               "Weighted Kabsch flow": AverageMeter(),
               "Object-Aware ICP flow": AverageMeter()}
@@ -134,14 +137,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         pcs, _, flows, _ = batch1
         flow_pred = batch2[2][:, 0]
         gt_flow = flows[:, 0]
-        with torch.no_grad():
-            pc1 = torch.from_numpy(pcs[:, 0]).to(device)
-            pc2 = torch.from_numpy(pcs[:, 1]).to(device)
-            f = torch.from_numpy(flow_pred).to(device)
-            m1, m2 = segnet(pc1, pc1), segnet(pc2, pc2)
-            flow_kabsch = weighted_kabsch(pc1, f, m1).cpu().numpy()
-            flow_oaicp = object_aware_icp(pc1, pc2, f, m1, m2,
-                                          icp_iter=icp_iter).cpu().numpy()
+        flow_kabsch, flow_oaicp = refine(pcs[:, 0], pcs[:, 1], flow_pred)
         for meter, fl in zip(meters.values(),
                              (flow_pred, flow_kabsch, flow_oaicp)):
             epe, acc_s, acc_r, outlier = eval_flow(gt_flow, fl,

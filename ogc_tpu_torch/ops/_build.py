@@ -6,8 +6,11 @@ library with a plain C interface,
 ``ogc_tpu_torch/_build/libogc_kernels-<hash>.so``, keyed by a hash of the
 sources and the headers they include (csrc/*.cuh); ctypes loads it.  No
 PyTorch headers are included, so a build takes seconds.  There is no
-fallback: a failed build raises.  ``empty`` and ``raw_stream`` serve the
-wrappers' launches.
+fallback: a failed build raises.  Builds take an exclusive file lock on
+``_build/.lock``, so processes that start together (the ranks of a
+data-parallel run) compile once: the first builds, the others wait and
+find the library.  ``empty`` and ``raw_stream`` serve the wrappers'
+launches.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` (``sqrtf`` stays
 correctly rounded), and ``-fmad=false`` on top of the ``__fmul_rn`` /
@@ -17,7 +20,9 @@ change a distance and with it a neighbour's tie order.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -102,13 +107,34 @@ def library_path() -> str:
     return osp.join(BUILD_DIR, f"libogc_kernels-{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's exclusive lock (released when the process
+    ends, whatever the way)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(osp.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> str:
-    """Compile the kernels if the cached library is missing; return its path."""
-    global build_seconds
+    """Compile the kernels if the cached library is missing; return its
+    path.  Under the build lock: a process that waited finds the library
+    another one built."""
     out = library_path()
     if osp.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _build_lock():
+        if not osp.exists(out):
+            _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
+    global build_seconds
     tmp = f"{out}.tmp.{os.getpid()}"
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -142,7 +168,6 @@ def build() -> str:
             if osp.exists(path):
                 os.remove(path)
     build_seconds = time.perf_counter() - t0
-    return out
 
 
 def _load(path: str, whole: bool = True) -> ctypes.CDLL:
@@ -163,7 +188,12 @@ def variants(specs):
     ``library_path`` is), all nvcc processes started together; returns the
     loaded libraries in order.  chip_smoke.py's pruned_crossover times
     with these the launch sizes the library is not built with."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _build_lock():
+        paths = _compile_variants(specs)
+    return [_load(path, whole=False) for path in paths]
+
+
+def _compile_variants(specs) -> list:
     nvcc, paths, procs = _nvcc(), [], []
     try:
         for source, defines in specs:
@@ -196,7 +226,7 @@ def variants(specs):
                 proc.wait()
             if osp.exists(f"{out}.tmp"):
                 os.remove(f"{out}.tmp")
-    return [_load(path, whole=False) for path in paths]
+    return paths
 
 
 def lib() -> ctypes.CDLL:

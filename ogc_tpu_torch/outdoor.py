@@ -15,6 +15,7 @@ import torch
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.metrics.flow import eval_flow
 from ogc_tpu_torch.models.flownet import FlowStep3D
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.utils.checkpoint import load_model_state
 from ogc_tpu_torch.utils.gpf import fps_downsample
 from ogc_tpu_torch.utils.icp import icp_batched
@@ -45,10 +46,6 @@ def bucket(n: int, least: int = 0) -> int:
 
 def check_flags(args) -> None:
     """The flag combinations the outdoor flow CLIs refuse."""
-    if args.dp != 1:
-        raise NotImplementedError(
-            "--dp: data-parallel evaluation is not ported yet (ROADMAP.md "
-            "A.12)")
     if args.scene_batch > 1 and args.host_preproc:
         raise SystemExit("--scene_batch requires the batched on-device "
                          "preprocessing (drop --host_preproc)")
@@ -68,7 +65,8 @@ def flow_parser() -> argparse.ArgumentParser:
                         help="Run the preprocessing with the host numpy "
                              "oracles")
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data-parallel devices (only 1 is ported)")
+                        help="With --scene_batch: shard the scene batch "
+                             "over N local devices (0 = all)")
     parser.add_argument("--scene_batch", type=int, default=1,
                         help="Process K scenes per device dispatch")
     parser.add_argument("--device", type=str, default="cuda",
@@ -79,7 +77,9 @@ def flow_parser() -> argparse.ArgumentParser:
 class OutdoorFlow:
     """The device side of the outdoor flow CLIs on numpy arrays: FPS, ICP,
     the flownet (``kitti`` arch, k_decay_fact 0.5, the config's weights)
-    and the 3-NN upsample, each batched over a leading axis."""
+    and the 3-NN upsample, each batched over a leading axis.  With
+    ``--scene_batch`` above 1 each call shards its batch over ``--dp``
+    devices (``mesh.dp_eval_fwd``), as the JAX CLIs' batched paths do."""
 
     def __init__(self, args):
         ops.set_exact_neighbors(not args.approx_knn)
@@ -98,30 +98,40 @@ class OutdoorFlow:
         self.net.load_state_dict(load_model_state(args.save_path))
         self.net.to(self.device).eval()
         print("Loaded weights from", args.save_path)
+        dp = getattr(args, "dp", 1) if getattr(args, "scene_batch", 1) > 1 \
+            else 1
+        self.devices = mesh.eval_devices(dp, args.device)
+        self._flow = mesh.dp_eval_fwd(
+            lambda net, p1, p2, full: ops.upsample_feat(
+                full, p1, net(p1, p2, p1, p2, self.iters)[-1]),
+            self.devices, self.net)
 
     def tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             self.device)
 
-    @torch.no_grad()
+    def shard(self, fn, *arrays: np.ndarray):
+        """``fn(None, *tensors)`` over the float32 ``arrays``, sharded over
+        the devices."""
+        return mesh.dp_eval_fwd(fn, self.devices)(
+            *(np.asarray(a, np.float32) for a in arrays))
+
     def fps(self, P: np.ndarray, npoint: int) -> np.ndarray:
         """(K, N, 3) -> (K, npoint) FPS indices."""
-        return ops.furthest_point_sample(self.tensor(P), npoint).cpu() \
-            .numpy()
+        return self.shard(lambda _, p: ops.furthest_point_sample(p, npoint),
+                          P)
 
     def icp(self, A: np.ndarray, B: np.ndarray) -> np.ndarray:
         """(K, P, 3) x 2 -> (K, 4, 4) float32 transforms mapping A onto B."""
-        return icp_batched(self.tensor(A), self.tensor(B),
-                           max_iterations=MAX_ICP_ITERS).cpu().numpy()
+        return self.shard(lambda _, a, b: icp_batched(
+            a, b, max_iterations=MAX_ICP_ITERS), A, B)
 
-    @torch.no_grad()
     def flow(self, pc1: np.ndarray, pc2: np.ndarray,
              pc1_full: np.ndarray) -> np.ndarray:
         """The network's flow on (K, npoint, 3) ``pc1``/``pc2``, upsampled
         by 3-NN onto (K, N, 3) ``pc1_full``."""
-        p1, p2 = self.tensor(pc1), self.tensor(pc2)
-        f = self.net(p1, p2, p1, p2, self.iters)[-1]
-        return ops.upsample_feat(self.tensor(pc1_full), p1, f).cpu().numpy()
+        return self._flow(*(np.asarray(a, np.float32)
+                            for a in (pc1, pc2, pc1_full)))
 
     def subsample(self, pc: np.ndarray, npoint: int) -> np.ndarray:
         """One cloud's FPS subcloud."""

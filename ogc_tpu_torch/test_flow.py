@@ -12,7 +12,9 @@ state_dict}`` with the reference's keys.  ``--save`` writes
 ``<root>/flow_preds/flowstep3d/<id>.npy`` (the 6 view pairs of a scene) and
 ``flowstep3d.json``.  Neighbour search is exact unless ``--approx_knn``
 (block-min search, nested FPS, frozen self-KNN), as in the JAX package's
-test_flow.py; ``--dp`` other than 1 raises.
+test_flow.py.  ``--dp N`` shards each batch over N local cards (0: all;
+more than the machine has raises), or N replicas with ``--device cpu``
+(parallel/mesh.py::dp_eval_fwd).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ogc_tpu_torch import ops
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.metrics.flow import eval_flow
 from ogc_tpu_torch.models.flownet import FlowStep3D
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.utils.checkpoint import load_model_state
 from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.meters import AverageMeter
@@ -51,7 +54,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Approximate neighbour search (block-min, nested "
                              "FPS, frozen self-KNN)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data-parallel devices (only 1 is ported)")
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model runs on")
     return parser.parse_args(argv)
@@ -71,11 +74,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Evaluate; print the reference's report and return the mean metrics
     plus the per-batch forward times (seconds)."""
     args = parse_args(argv)
-    if args.dp != 1:
-        raise NotImplementedError(
-            "--dp: data-parallel evaluation is not ported yet (ROADMAP.md "
-            "A.12)")
     load_config_into_args(args)
+    devices = mesh.eval_devices(args.dp, args.device)
     ops.set_exact_neighbors(not args.approx_knn)
     # Full float32 matmuls (TF32 keeps ~3 digits).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,6 +100,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     flownet.load_state_dict(load_model_state(path))
     flownet.to(device).eval()
     print("Loaded weights from", path)
+    iters = args.test_model_iters
+    forward = mesh.dp_eval_fwd(
+        lambda m, pc1, pc2: m(pc1, pc2, pc1, pc2, iters)[-1], devices,
+        flownet)
 
     test_set = TestDataset(data_root=data_root, split=args.split,
                            view_sels=VIEW_SELS)
@@ -120,11 +124,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                         num_workers=4)
     for i, (pcs, _, flows, _) in enumerate(loader):
         t0 = time.perf_counter()
-        with torch.no_grad():
-            pc1 = torch.from_numpy(pcs[:, 0]).to(device)
-            pc2 = torch.from_numpy(pcs[:, 1]).to(device)
-            flow_pred = flownet(pc1, pc2, pc1, pc2,
-                                args.test_model_iters)[-1].cpu().numpy()
+        flow_pred = forward(pcs[:, 0], pcs[:, 1])
         forward_s.append(time.perf_counter() - t0)
         epe, acc_s, acc_r, outlier = eval_flow(flows[:, 0], flow_pred,
                                                epe_norm_thresh=epe_norm_thresh)

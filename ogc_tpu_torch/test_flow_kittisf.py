@@ -17,7 +17,8 @@ the network and the upsample (#2 or #3) run on ``--device``; the ICP's
 Kabsch SVD is ``torch.linalg.svd``.  ``--host_preproc`` runs ICP with the
 numpy oracle.  ``--scene_batch K`` runs K scenes a dispatch over clouds
 padded to a multiple of 4096 points with duplicates of their first point
-(``outdoor.pad_rows``), as the JAX CLI does.  ``--dp`` other than 1 raises.
+(``outdoor.pad_rows``), as the JAX CLI does; with it ``--dp N`` shards
+each batched call over N devices (``outdoor.OutdoorFlow``).
 """
 
 from __future__ import annotations

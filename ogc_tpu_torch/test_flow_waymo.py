@@ -18,7 +18,8 @@ subcloud) and ICP as in test_flow_kittisf; ``--host_preproc`` takes the
 numpy oracles.  ``--scene_batch K`` runs K scenes a dispatch in three
 device phases (GPF over the 2K clouds, ICP, network and upsample), the
 next group's phases in a worker thread while the main thread scores and
-saves the last group, as the JAX CLI does.  ``--dp`` other than 1 raises.
+saves the last group, as the JAX CLI does; with ``--scene_batch``, ``--dp
+N`` shards each batched call over N devices (``outdoor.OutdoorFlow``).
 """
 
 from __future__ import annotations
@@ -84,11 +85,13 @@ class WaymoFlow:
     def gpf(self, P: np.ndarray, V: np.ndarray, FV) -> np.ndarray:
         """Batched GPF on the device: (K, N, 3), valid, fit-valid -> (K, N)
         ground marks."""
-        t = self.dev.tensor
-        return ground_plane_fitting_batched(
-            t(P), valid=t(V).bool(), fit_valid=None if FV is None
-            else t(FV).bool(), n_iter=N_GPF_ITER, n_lpr=N_GPF_LPR,
-            thresh_seed=THRESH_SEED, thresh_dist=THRESH_DIST).cpu().numpy()
+        def gpf(_, p, v, fv=None):
+            return ground_plane_fitting_batched(
+                p, valid=v.bool(), fit_valid=None if fv is None
+                else fv.bool(), n_iter=N_GPF_ITER, n_lpr=N_GPF_LPR,
+                thresh_seed=THRESH_SEED, thresh_dist=THRESH_DIST)
+
+        return self.dev.shard(gpf, P, V, *(() if FV is None else (FV,)))
 
     def not_ground(self, pc: np.ndarray) -> np.ndarray:
         """Per scene: ground by height OR GPF (the numpy oracle with

@@ -1,14 +1,16 @@
 """Evaluate the object segmentation network (AP@50, PQ/F1/Pre/Rec, mIoU, RI)
 with the PyTorch port.
 
-Usage (the flags of the repo's test_seg.py, minus --dp and --visualize):
+Usage (the flags of the repo's test_seg.py, minus --visualize):
     python -m ogc_tpu_torch.test_seg <config.yaml> --split val --round R \
-        [--test_batch_size 8] [--device cuda] [--save]
+        [--test_batch_size 8] [--dp N] [--device cuda] [--save]
 
 Weights are read from ``<save_path>[_R<round>]/best.pth.tar`` as
 ``{"model_state": state_dict}``.  Neighbour search is exact unless
 ``--approx_knn`` asks for the approximate mode (block-min search, nested
-FPS), as in the JAX package's test_seg.py.
+FPS), as in the JAX package's test_seg.py.  ``--dp N`` shards each batch
+over N local cards (0: all; more than the machine has raises), or N
+replicas with ``--device cpu`` (parallel/mesh.py::dp_eval_fwd).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ogc_tpu_torch.metrics.seg import (
     clustering_metrics,
 )
 from ogc_tpu_torch.models.segnet import MaskFormer3D
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.utils.checkpoint import load_model_state, weight_path
 from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.meters import AverageMeter
@@ -171,9 +174,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Save segmentation predictions")
     parser.add_argument("--approx_knn", default=False, action="store_true",
                         help="Approximate neighbour search (block-min, nested FPS)")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model runs on")
     return parser.parse_args(argv)
+
+
+def segnet_forward(args):
+    """The loaded segnet's forward sharded over ``--dp`` devices:
+    (B, N, 3) points -> (B, N, K) masks on the host."""
+    devices = mesh.eval_devices(args.dp, args.device)
+    segnet, _ = load_segnet(args)
+    return mesh.dp_eval_fwd(lambda m, x: m(x, x), devices, segnet)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
@@ -181,7 +194,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     metrics plus the per-batch forward times (seconds)."""
     args = parse_args(argv)
     load_config_into_args(args)
-    segnet, device = load_segnet(args)
+    forward = segnet_forward(args)
 
     test_set, n_frame, ignore_npoint_thresh, data_root = build_test_dataset(args)
     batch_size = args.test_batch_size
@@ -207,9 +220,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             continue
 
         t0 = time.perf_counter()
-        with torch.no_grad():
-            x = torch.from_numpy(pc).to(device)
-            mask = segnet(x, x).cpu().numpy()  # the copy waits for the device
+        mask = forward(pc)  # the copy to the host waits for the device
         forward_s.append(time.perf_counter() - t0)
         metrics.add(segm, mask, n_frame)
 

@@ -11,7 +11,7 @@ Usage (the flags of the repo's test_seg_waymo.py):
 Weights are read from ``<save_path>[_R<round>]/best.pth.tar``.  Classes 2
 and 3 (pedestrians, cyclists) and objects under 50 points are ignored, as
 in the JAX CLI.  Neighbour search is exact unless ``--approx_knn``;
-``--dp`` other than 1 raises.
+``--dp N`` shards each batch over N devices, as test_seg.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.data.waymo import WaymoOpenSingleFrameDataset
@@ -33,7 +32,7 @@ from ogc_tpu_torch.metrics.seg import (
     calculate_PQ_F1,
     clustering_metrics,
 )
-from ogc_tpu_torch.test_seg import load_segnet
+from ogc_tpu_torch.test_seg import segnet_forward
 from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.meters import AverageMeter
 
@@ -45,7 +44,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--round", type=int, default=0)
     parser.add_argument("--test_batch_size", type=int, default=64)
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data-parallel devices (only 1 is ported)")
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--save", default=False, action="store_true")
     parser.add_argument("--approx_knn", default=False, action="store_true",
                         help="Approximate neighbour search (block-min, nested "
@@ -59,12 +58,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Evaluate; print the JAX CLI's report and return its numbers plus the
     per-batch forward times (seconds)."""
     args = parse_args(argv)
-    if args.dp != 1:
-        raise NotImplementedError(
-            "--dp: data-parallel evaluation is not ported yet (ROADMAP.md "
-            "A.12)")
     load_config_into_args(args)
-    segnet, device = load_segnet(args)
+    forward = segnet_forward(args)
 
     data_root = args.data["root"]
     mapping_path = ("data_prepare/waymo/splits/val.txt" if args.split == "val"
@@ -88,9 +83,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     for i, (pcs, segms, valids) in enumerate(loader):
         segm, ignore = segms[:, 0], 1 - valids[:, 0]
         t0 = time.perf_counter()
-        with torch.no_grad():
-            x = torch.from_numpy(pcs[:, 0]).to(device)
-            mask = segnet(x, x).cpu().numpy()
+        mask = forward(pcs[:, 0])
         forward_s.append(time.perf_counter() - t0)
         for key, v in zip(ap, accumulate_eval_results_ignmask(segm, mask,
                                                               ignore)):

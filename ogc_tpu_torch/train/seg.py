@@ -6,7 +6,10 @@ batch, the OGC loss, its backward (every grouping backward is the
 deterministic scatter-add kernel), and an Adam step with optax's constants,
 the staircase learning rate and a finite-gradient guard.  Epochs report
 PQ/F1 of frame 0, evaluate on the validation set, and keep the best
-checkpoint by validation loss.
+checkpoint by validation loss.  Under data parallelism each rank computes
+the loss on its rows, the gradients and loss terms are averaged over ranks
+before Adam (whose finite-gradient guard then decides alike on every
+rank), and the start-steps gate counts global samples.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, ogc_loss
-from ogc_tpu_torch.train.base import EpochTrainer, add_ap, new_ap
+from ogc_tpu_torch.parallel.mesh import local_values
+from ogc_tpu_torch.train.base import (EpochTrainer, add_ap, batch_counts,
+                                      new_ap, step_collective)
 from ogc_tpu_torch.utils.meters import AverageMeter
 
 
@@ -150,9 +155,11 @@ class SegTrainer(EpochTrainer):
             p.grad = None
         loss, ld, masks = self._loss(pcs, flows, it_samples, True, aug)
         loss.backward()
+        vals = torch.stack([v.detach().to(self._scalar_dtype())
+                            for v in ld.values()])
+        step_collective(self.model.parameters(), vals)
         self.optimizer.step()
-        vals = torch.stack([v.detach().float() for v in ld.values()]).tolist()
-        return dict(zip(ld.keys(), vals)), masks.detach()
+        return dict(zip(ld.keys(), vals.tolist())), masks.detach()
 
     def _to_device(self, *arrays: np.ndarray):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -166,14 +173,15 @@ class SegTrainer(EpochTrainer):
     def train_it(self, it: int, batch, aug_transform: bool = False):
         t0 = time.perf_counter()
         pcs, segms, flows = self._frames(batch)
+        true_b, global_b = batch_counts(batch)
         pcs_d, flows_d = self._to_device(pcs, flows)
-        # start_steps gate on the number of samples seen (reference
-        # train_seg.py:101).
-        ld, masks = self.train_step(pcs_d, flows_d, it * pcs.shape[0],
+        # start_steps gate on the number of global samples seen (reference
+        # train_seg.py:101, ogc_tpu/train/seg.py:313-318).
+        ld, masks = self.train_step(pcs_d, flows_d, it * global_b,
                                     aug_transform)
-        mask = masks[:, 0].cpu().numpy()
+        mask = local_values(masks[:, 0], true_b)
         self.step_seconds.append(time.perf_counter() - t0)
-        return ld, segms[:, 0], mask
+        return ld, segms[:true_b, 0], mask
 
     @torch.no_grad()
     def eval_epoch(self, loader):
@@ -184,13 +192,14 @@ class SegTrainer(EpochTrainer):
         ap = new_ap()
         for batch in loader:
             pcs, segms, flows = self._frames(batch)
+            true_b, global_b = batch_counts(batch)
             pcs_d, flows_d = self._to_device(pcs, flows)
             loss, ld, masks = self._loss(pcs_d, flows_d, 0, False, False)
-            b = pcs.shape[0]
-            total_loss += float(loss) * b
-            count += b
-            meter.append_loss({k: float(v) for k, v in ld.items()})
-            add_ap(ap, segms[:, 0], masks[:, 0].cpu().numpy(),
+            loss, ld = self._mean_eval(loss, ld)
+            total_loss += loss * global_b
+            count += global_b
+            meter.append_loss(ld)
+            add_ap(ap, segms[:true_b, 0], local_values(masks[:, 0], true_b),
                    self.ignore_npoint_thresh)
         self.val_seconds.append(time.perf_counter() - t0)
         return total_loss / max(count, 1), meter.get_mean_loss_dict(), ap

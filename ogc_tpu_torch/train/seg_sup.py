@@ -5,7 +5,10 @@ One step: MaskFormer3D on frame 0 of every item, the Hungarian-matched CE
 + Dice loss against the one-hot ground truth with its valid mask, its
 backward, and the port's Adam (train/seg.py).  Epochs report PQ/F1,
 evaluate on the validation set and keep the best checkpoint by validation
-loss; ``save``/``resume`` carry the full train state.
+loss; ``save``/``resume`` carry the full train state.  Under data
+parallelism each rank matches (the numpy LAP) and computes the loss on its
+own rows, and the gradients and terms are averaged over ranks before Adam,
+as in train/seg.py.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import numpy as np
 import torch
 
 from ogc_tpu_torch.losses.seg_sup import SupLossConfig, supervised_mask_loss
-from ogc_tpu_torch.train.base import EpochTrainer, add_ap, new_ap
+from ogc_tpu_torch.parallel.mesh import local_values
+from ogc_tpu_torch.train.base import (EpochTrainer, add_ap, batch_counts,
+                                      new_ap, step_collective)
 from ogc_tpu_torch.train.seg import Adam
 from ogc_tpu_torch.utils.meters import AverageMeter
 
@@ -52,19 +57,24 @@ class SupSegTrainer(EpochTrainer):
             p.grad = None
         loss, ld, mask = self._loss(pc, gt_mask, valid)
         loss.backward()
+        vals = torch.stack([v.detach().to(self._scalar_dtype())
+                            for v in ld.values()])
+        step_collective(self.model.parameters(), vals)
         self.optimizer.step()
-        return {k: v.detach() for k, v in ld.items()}, mask.detach()
+        return dict(zip(ld.keys(), vals)), mask.detach()
 
     def train_it(self, it: int, batch):
-        """:return: (loss terms, ground-truth segmentation (B, N), masks
-        (B, N, K)) on the host."""
+        """:return: (loss terms, ground-truth segmentation (b, N), masks
+        (b, N, K)) on the host, b this rank's true rows."""
         t0 = time.perf_counter()
+        true_b, _ = batch_counts(batch)
         pc, gt_mask, valid = self._inputs(batch)
         ld, mask = self.train_step(pc, gt_mask, valid)
         vals = torch.stack([v.double() for v in ld.values()]).tolist()
-        mask = mask.cpu().numpy()
+        mask = local_values(mask, true_b)
         self.step_seconds.append(time.perf_counter() - t0)
-        return dict(zip(ld.keys(), vals)), batch[1][:, 0].argmax(2), mask
+        return (dict(zip(ld.keys(), vals)), batch[1][:true_b, 0].argmax(2),
+                mask)
 
     @torch.no_grad()
     def eval_epoch(self, loader):
@@ -74,13 +84,14 @@ class SupSegTrainer(EpochTrainer):
         total_loss, count = 0.0, 0
         ap = new_ap()
         for batch in loader:
+            true_b, global_b = batch_counts(batch)
             loss, ld, mask = self._loss(*self._inputs(batch))
-            b = mask.shape[0]
-            total_loss += float(loss) * b
-            count += b
-            meter.append_loss({k: float(v) for k, v in ld.items()})
-            add_ap(ap, batch[1][:, 0].argmax(2), mask.cpu().numpy(),
-                   self.ignore_npoint_thresh)
+            loss, ld = self._mean_eval(loss, ld)
+            total_loss += loss * global_b
+            count += global_b
+            meter.append_loss(ld)
+            add_ap(ap, batch[1][:true_b, 0].argmax(2),
+                   local_values(mask, true_b), self.ignore_npoint_thresh)
         self.val_seconds.append(time.perf_counter() - t0)
         return total_loss / max(count, 1), meter.get_mean_loss_dict(), ap
 

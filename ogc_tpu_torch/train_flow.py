@@ -14,9 +14,12 @@ train state; ``model_state`` is what ``ogc_tpu_torch.test_flow`` reads) and
 approximate (block-min search where the searched cloud has >= 1024
 points, nested FPS) by default, exact with ``OGC_EXACT_NEIGHBORS=1``.  On
 CUDA it runs deterministic, with TF32 off (``train_seg.set_deterministic``).
-``--bn_sync`` is accepted: on one device its two values are the same
-computation.  ``--remat`` other than ``off`` raises: it is a memory option
-of the JAX package, and no config sets it.
+Under ``torchrun`` it trains data parallel, one rank a card (gloo with
+``--device cpu``; parallel/mesh.py), ``batch_size`` being the global batch;
+``--bn_sync`` picks each rank's (``local``, the default) or the global
+batch's (``global``) BatchNorm statistics, the same computation on one
+rank.  ``--remat`` other than ``off`` raises: it is a memory option of the
+JAX package, and no config sets it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
 from ogc_tpu_torch.models.flownet import FlowStep3D
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.train.flow import FlowTrainer, make_bn_schedule
 from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
 from ogc_tpu_torch.train_seg import set_deterministic
@@ -52,8 +56,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "ported)")
     parser.add_argument("--bn_sync", type=str, default="local",
                         choices=["local", "global"],
-                        help="Multi-device BatchNorm statistics; one device "
-                             "computes the same either way")
+                        help="BatchNorm statistics under data parallelism: "
+                             "each rank's (local) or the global batch's")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model trains on")
     return parser.parse_args(argv)
@@ -89,8 +93,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             "--remat is a TPU memory option of the JAX package; the port "
             "does not rematerialize")
     load_config_into_args(args)
-    device = torch.device(args.device)
-    set_deterministic(device)
+    set_deterministic(torch.device(args.device))
+    device = mesh.init_data_parallel(args.device)
 
     np.random.seed(args.random_seed)
     fn = args.flownet
@@ -116,13 +120,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         optimizer, exp_base=args.save_path, device=device,
         bn_schedule=make_bn_schedule(args.bn_momentum, args.bn_decay,
                                      args.decay_step, args.batch_size),
-        writer=JsonlWriter(osp.join(args.save_path, "log")))
+        writer=JsonlWriter(osp.join(args.save_path, "log")),
+        bn_sync=args.bn_sync)
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(args.save_path, "current")) + 1
-        print(f"Resumed from epoch {start_epoch - 1}")
+        trainer._print(f"Resumed from epoch {start_epoch - 1}")
     best = trainer.train(args.epochs, train_loader, val_loader,
                          start_epoch=start_epoch)
+    mesh.shutdown()
     return {"best_loss": best, "trainer": trainer}
 
 

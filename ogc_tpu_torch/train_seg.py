@@ -14,6 +14,11 @@ Writes ``<save_path>_R<round>/{current,best}.pth.tar`` (full train state;
 ``torch.use_deterministic_algorithms`` (with the cuBLAS workspace setting
 that mode requires) and turns TF32 off, so two runs from one seed give the
 same bits.
+
+Data parallel: launched by ``torchrun`` (``python -m torch.distributed.run
+--nproc_per_node N -m ogc_tpu_torch.train_seg ...``) it runs one rank a
+card (NCCL; with ``--device cpu``, gloo), ``batch_size`` being the global
+batch, each rank loading its row block of it (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
 from ogc_tpu_torch.models.segnet import MaskFormer3D
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.train.seg import Adam, SegTrainer, make_lr_schedule
 from ogc_tpu_torch.utils.config import load_config_into_args
 from ogc_tpu_torch.utils.logging import JsonlWriter
@@ -121,12 +127,12 @@ def set_deterministic(device: torch.device) -> None:
 
 def run(args, model: MaskFormer3D, train_set, val_set,
         frame_stride: int = 1) -> Dict[str, object]:
-    """Train ``model`` on ``args.device`` over the datasets: the loaders,
-    Adam with the config's schedule, SegTrainer writing
-    ``<save_path>_R<round>``, ``--resume``.  Returns the best validation
-    loss and the trainer (whose ``step_seconds``/``val_seconds`` hold the
-    host-clock times)."""
-    device = torch.device(args.device)
+    """Train ``model`` on ``args.device`` (this rank's card under torchrun)
+    over the datasets: the loaders, Adam with the config's schedule,
+    SegTrainer writing ``<save_path>_R<round>``, ``--resume``.  Returns the
+    best validation loss and the trainer (whose
+    ``step_seconds``/``val_seconds`` hold the host-clock times)."""
+    device = mesh.init_data_parallel(args.device)
     model.to(device)
     train_loader = DataLoader(train_set, batch_size=args.batch_size,
                               shuffle=True, seed=args.random_seed,
@@ -147,9 +153,10 @@ def run(args, model: MaskFormer3D, train_set, val_set,
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(exp_base, "current")) + 1
-        print(f"Resumed from epoch {start_epoch - 1}")
+        trainer._print(f"Resumed from epoch {start_epoch - 1}")
     best = trainer.train(args.epochs, train_set, train_loader, val_loader,
                          start_epoch=start_epoch)
+    mesh.shutdown()
     return {"best_loss": best, "trainer": trainer}
 
 

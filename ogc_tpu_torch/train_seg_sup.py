@@ -11,7 +11,8 @@ Writes ``<save_path>/{current,best}.pth.tar`` (full train state;
 ``<save_path>/log/scalars.jsonl``.  Neighbour search follows
 ``OGC_EXACT_NEIGHBORS`` (approximate by default), as in train_seg.  On CUDA
 it runs deterministic, with TF32 off.  ``--remat`` other than ``off``
-raises, as in train_seg.
+raises, as in train_seg.  Under ``torchrun`` it trains data parallel, one
+rank a card (gloo with ``--device cpu``), as train_seg does.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
 from ogc_tpu_torch.train.seg_sup import SupSegTrainer
 from ogc_tpu_torch.train_seg import segnet_for, set_deterministic
@@ -81,8 +83,9 @@ def run(args, model, train_set, val_set,
     """Train ``model`` on ``args.device`` over the datasets with
     ``loss_cfg``: the loaders, Adam with the config's schedule,
     SupSegTrainer writing ``<save_path>``, ``--resume``.  Returns the best
-    validation loss and the trainer."""
-    device = torch.device(args.device)
+    validation loss and the trainer.  Under torchrun each rank trains on
+    its card (parallel/mesh.py)."""
+    device = mesh.init_data_parallel(args.device)
     model.to(device)
     train_loader = DataLoader(train_set, batch_size=args.batch_size,
                               shuffle=True, seed=args.random_seed,
@@ -101,9 +104,10 @@ def run(args, model, train_set, val_set,
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(args.save_path, "current")) + 1
-        print(f"Resumed from epoch {start_epoch - 1}")
+        trainer._print(f"Resumed from epoch {start_epoch - 1}")
     best = trainer.train(args.epochs, train_loader, val_loader,
                          start_epoch=start_epoch)
+    mesh.shutdown()
     return {"best_loss": best, "trainer": trainer}
 
 

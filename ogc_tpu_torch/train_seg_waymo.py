@@ -12,7 +12,8 @@ deterministic on CUDA), on ``WaymoOpenDataset`` with the ``waymo`` (KITTI)
 segnet, taking every second frame of an item (the reference's
 pcs[:, ::2]).  The flows are ``<root>/flow_preds/<predflow_path>`` (with
 ``_R<round - 1>`` from round 2), or the dataset's own with
-``predflow_path: None``.  ``--remat`` other than ``off`` raises.
+``predflow_path: None``.  ``--remat`` other than ``off`` raises.  Under
+``torchrun`` it trains data parallel, as train_seg.
 """
 
 from __future__ import annotations

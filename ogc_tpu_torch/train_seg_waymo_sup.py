@@ -12,7 +12,8 @@ neighbours unless ``OGC_EXACT_NEIGHBORS=1``; deterministic on CUDA) on
 classes 2 and 3 and objects under ``ignore_npoint_thresh`` points ignored,
 and the ``waymo`` (KITTI) segnet.  The items' two frames (the frame and,
 with ``aug_transform``, its augmented view) get zero flows, as the JAX
-CLI's ``_FlowPad``.  ``--remat`` other than ``off`` raises.
+CLI's ``_FlowPad``.  ``--remat`` other than ``off`` raises.  Under
+``torchrun`` it trains data parallel, as train_seg_sup.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ Evaluation reads ``{"model_state": state_dict}``, the reference format
 ``model_state``, ``optimizer_state`` and ``epoch`` -- to
 ``<save_path>_R<round>/current`` and copies it to ``best`` when the
 validation loss improves, so a run can resume and the evaluation reads the
-same file.
+same file.  Under data parallelism rank 0 alone writes (ogc_tpu/utils/
+checkpoint.py:91), and every rank waits for the write; every rank resumes
+from the same file.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import shutil
 from typing import Dict
 
 import torch
+
+from ogc_tpu_torch.parallel import mesh
 
 SUFFIX = ".pth.tar"
 
@@ -58,11 +62,15 @@ def save_trainer(model: torch.nn.Module, optimizer, epoch: int,
                  is_best: bool, filename: str, bestname: str) -> str:
     """The full train state of a trainer -- ``model_state`` (the
     state_dict on the CPU), ``optimizer_state`` and ``epoch`` -- through
-    ``save_train_state``."""
-    state = {"model_state": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
-             "optimizer_state": optimizer.state_dict(), "epoch": epoch}
-    return save_train_state(state, is_best, filename, bestname)
+    ``save_train_state``, written by rank 0; every rank returns once it is
+    on disk."""
+    if mesh.is_main():
+        state = {"model_state": {k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()},
+                 "optimizer_state": optimizer.state_dict(), "epoch": epoch}
+        save_train_state(state, is_best, filename, bestname)
+    mesh.barrier()
+    return filename + SUFFIX
 
 
 def resume_trainer(model: torch.nn.Module, optimizer, path: str) -> int:

@@ -10,7 +10,8 @@ holds whole scenes (test_batch_size a multiple of the 4 frames); the
 segnet runs on all their frames in one forward, then the masks are voted
 scene by scene, all scenes of the batch at once.  Prints AP@50,
 PQ/F1/Pre/Rec@50 and the per-scan IoU/RI.  Runs with TF32 off and exact
-neighbours unless ``--approx_knn``; ``--dp`` other than 1 raises.
+neighbours unless ``--approx_knn``.  ``--dp N`` spreads each batch's
+scenes over N devices, as test_seg.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ import os
 import os.path as osp
 from typing import Dict, List, Optional
 
-import torch
-
 from ogc_tpu_torch.data.base import DataLoader
+from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.refine.vote import mask_voting_batch
 from ogc_tpu_torch.test_seg import SegMetrics, build_test_dataset, load_segnet
 from ogc_tpu_torch.utils.config import load_config_into_args
@@ -40,7 +40,7 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--approx_knn", default=False, action="store_true",
                         help="Approximate neighbour search (block-min, nested FPS)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data-parallel devices (only 1 is ported)")
+                        help="Data-parallel devices (0 = all local devices)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model and voting run on")
     return parser.parse_args(argv)
@@ -49,11 +49,9 @@ def parse_args(argv: Optional[List[str]] = None):
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     """Vote and evaluate; print the reference's report and return it."""
     args = parse_args(argv)
-    if args.dp != 1:
-        raise NotImplementedError(
-            "--dp: data-parallel voting is not ported yet (ROADMAP.md A.12)")
     load_config_into_args(args)
-    segnet, device = load_segnet(args)
+    devices = mesh.eval_devices(args.dp, args.device)
+    segnet, _ = load_segnet(args)
 
     if args.use_gt_flow:
         predflow_path = None
@@ -71,23 +69,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                             "segm_preds/Vote_T%d" % args.time_window_size)
         os.makedirs(save_dir, exist_ok=True)
 
+    def vote_batch(m, pc, fl):
+        """Every frame of S scenes in one segnet forward, then the voting:
+        (S, T, N, 3) points, (S, T - 1, 2, N, 3) flows -> (S, T, N, K)."""
+        S, T, N, _ = pc.shape
+        flat = pc.reshape(S * T, N, 3)
+        mask = m(flat, flat)
+        return mask_voting_batch(pc, mask.reshape(S, T, N, -1), fl,
+                                 time_window_size=args.time_window_size)
+
+    vote = mesh.dp_eval_fwd(vote_batch, devices, segnet)
     metrics = SegMetrics(ignore_npoint_thresh)
     loader = DataLoader(test_set, batch_size=batch_size, shuffle=False,
                         num_workers=4)
     for i, (pcs, segms, flows, _) in enumerate(loader):
         segm = segms[:, 0]
-        n_scene = segm.shape[0] // n_frame
-        with torch.no_grad():
-            pc = torch.from_numpy(pcs[:, 0]).to(device)
-            mask = segnet(pc, pc)
-            N, K = mask.shape[1:]
-            fl = torch.from_numpy(flows).to(device).reshape(
-                n_scene, n_frame, 2, N, 3)[:, :n_frame - 1]
-            voted = mask_voting_batch(
-                pc.reshape(n_scene, n_frame, N, 3),
-                mask.reshape(n_scene, n_frame, N, K), fl,
-                time_window_size=args.time_window_size)
-            mask_voted = voted.reshape(n_scene * n_frame, N, K).cpu().numpy()
+        n_scene, N = segm.shape[0] // n_frame, pcs.shape[2]
+        voted = vote(pcs[:, 0].reshape(n_scene, n_frame, N, 3),
+                     flows.reshape(n_scene, n_frame, 2, N, 3)[:, :n_frame - 1])
+        mask_voted = voted.reshape(n_scene * n_frame, N, -1)
         metrics.add(segm, mask_voted, n_frame)
         if args.save:
             test_set._save_predsegm(mask_voted, save_root=save_dir,

@@ -3,9 +3,10 @@ synthetic roots (ogc_tpu_torch/tools/synth.py) with the same weights (a
 flax checkpoint, and the port checkpoint converted from it by
 ogc_tpu_torch.utils.params).
 
-* ``test_flow_kittisf`` (per scene and ``--scene_batch 2``) and
-  ``test_flow_waymo`` (GPF and ICP, ``--bound``; per scene and
-  ``--scene_batch 2``), ``--save``, 2 iterations of the ``kitti`` flownet
+* ``test_flow_kittisf`` (per scene and ``--scene_batch 2 --dp 2``: each
+  batched call sharded over 2 CPU replicas) and ``test_flow_waymo`` (GPF
+  and ICP, ``--bound``; per scene and ``--scene_batch 2 --dp 2``),
+  ``--save``, 2 iterations of the ``kitti`` flownet
   at npoint 128 on clouds of 600-900 points, exact neighbours: each port
   run against the JAX CLI's per-scene run (which the JAX package holds
   equal to its batched path).  EPE3D within 2e-4 (relative 1e-3), AccS,
@@ -26,8 +27,9 @@ ogc_tpu_torch.utils.params).
   flows): every loss term within rtol 1e-4 of JAX's, exact neighbours and
   the reference-shaped SA chain on both sides, on a 1/16 grid (both d2
   forms exact).  And both port CLIs run an epoch on CPU and checkpoint.
-* ``test_seg_waymo`` and ``test_seg`` on ``kittidet`` and
-  ``semantickitti``: every printed metric within 1e-6 of the JAX CLI's.
+* ``test_seg_waymo`` (``--dp 2``: each batch over 2 CPU replicas) and
+  ``test_seg`` on ``kittidet`` and ``semantickitti``: every printed metric
+  within 1e-6 of the JAX CLI's.
   Both packages run from a working directory holding the fixed split
   files they read (``data_prepare/...``) over the synthetic roots.
 
@@ -334,17 +336,17 @@ def runs(tmp_path_factory):
                                      cfgs["kitti", "port"], *kflags),
             ("kitti", "port_b"): _port("test_flow_kittisf",
                                        cfgs["kitti", "port_b"], *kflags,
-                                       "--scene_batch", "2"),
+                                       "--scene_batch", "2", "--dp", "2"),
             ("kitti", "odo"): _port("test_flow_kittisf", cfgs["kitti", "odo"],
                                     *kflags, "--host_preproc"),
             ("waymo", "port"): _port("test_flow_waymo", cfgs["waymo", "port"],
                                      *wflags),
             ("waymo", "port_b"): _port("test_flow_waymo",
                                        cfgs["waymo", "port_b"], *wflags,
-                                       "--scene_batch", "2"),
+                                       "--scene_batch", "2", "--dp", "2"),
             ("seg", "port"): _port("test_seg_waymo", cfgs["seg_waymo", "port"],
                                    "--split", "val", "--test_batch_size",
-                                   "2", cwd=cwd),
+                                   "2", "--dp", "2", cwd=cwd),
             ("det", "port"): _port("test_seg", cfgs["seg_kittidet", "port"],
                                    "--split", "val", "--test_batch_size",
                                    "2", cwd=cwd),
@@ -524,8 +526,10 @@ def test_seg_metrics_match_jax(runs, key):
 
 def test_waymo_train_clis_run_an_epoch(runs, tmp_path):
     """The port's train_seg_waymo and train_seg_waymo_sup CLIs: one epoch
-    on CPU (B=2), checkpoints written, --dp / --remat refused where the
-    port has no such mode."""
+    on CPU (B=2), checkpoints written, --remat refused (the port has no
+    such mode; --dp, once refused by the evaluating CLIs, runs: the
+    ``--scene_batch 2 --dp 2`` flow runs and ``test_seg_waymo --dp 2``
+    above)."""
     tmp = runs["tmp"]
     root = osp.join(tmp, "waymo_ds")
     sel2, sel1 = str(tmp_path / "two.json"), str(tmp_path / "one.json")

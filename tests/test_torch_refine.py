@@ -397,36 +397,32 @@ def test_vote_cli_matches_jax(setup):
                                       ("oa_icp", ["--approx_knn"]),
                                       ("vote", ["--approx_knn"])])
 def test_unported_options_are_refused(setup, cli, flag):
-    """--dp other than 1 (A.12) raises rather than run something else.
-    --approx_knn, which the port refused when this test was named, now runs
-    the approximate mode (nested FPS; these 64-point clouds are below the
-    block-min gate) and matches the JAX CLI under the same flag: flow
-    reports or voted metrics within 1e-3."""
+    """Options the port refused when this test was named, which now run and
+    match the JAX CLI under the same flag: flow reports or voted metrics
+    within 1e-3.  --dp 2 (the JAX CLI on 2 virtual CPU devices, the port on
+    2 CPU replicas) shards each batch of 6 frame pairs 3 a shard;
+    --approx_knn runs the approximate mode (nested FPS; these 64-point
+    clouds are below the block-min gate)."""
     cfg_path = osp.join(osp.dirname(setup["root"]), "sapien.yaml")
     args = [cfg_path, *flag] + {
         "oa_icp": ["--split", "train", "--round", "1",
                    "--test_batch_size", "6"],
         "vote": ["--split", "test", "--round", "1", "--use_gt_flow",
                  "--test_batch_size", "4"]}[cli]
-    approx = flag == ["--approx_knn"]
     jax_run = subprocess.Popen(
         [sys.executable, f"{cli}.py", *args], cwd=REPO,
-        env=dict(os.environ, OGC_PLATFORM="cpu"), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) if approx else None
+        env=dict(os.environ, OGC_PLATFORM="cpu", **(
+            {"XLA_FLAGS": "--xla_force_host_platform_device_count=2"}
+            if "--dp" in flag else {})),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         r = subprocess.run(
             [sys.executable, "-m", f"ogc_tpu_torch.{cli}", *args,
              "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
             timeout=300)
-        jax_out, jax_err = jax_run.communicate(timeout=600) if approx \
-            else (None, None)
+        jax_out, jax_err = jax_run.communicate(timeout=600)
     finally:
-        if jax_run is not None:
-            jax_run.kill()
-    if not approx:
-        assert r.returncode != 0
-        assert "NotImplementedError" in r.stderr
-        return
+        jax_run.kill()
     assert jax_run.returncode == 0, jax_err[-3000:]
     assert r.returncode == 0, r.stderr[-3000:]
     if cli == "vote":

@@ -55,22 +55,39 @@ def run_torch(cases: List[Tuple[str, str, str]], timeout: float = 300.0,
     """Run (case, in.npz, out.npz) triples in ONE torch subprocess and load
     the outputs.  ``exact=False`` runs it with no ``OGC_EXACT_NEIGHBORS``
     (the port's default: approximate)."""
+    return start_torch(cases, timeout, exact)()
+
+
+def start_torch(cases: List[Tuple[str, str, str]], timeout: float = 300.0,
+                exact: bool = True):
+    """``run_torch`` started in the background: returns a function that
+    waits for the subprocess and returns the outputs (the caller computes
+    its JAX side meanwhile)."""
     argv = [a for c in cases for a in c]
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env.pop("OGC_EXACT_NEIGHBORS", None)
     if exact:
         env["OGC_EXACT_NEIGHBORS"] = "1"
-    r = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "tests.torch_port_helper", *argv],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
-    if r.returncode != 0:
-        raise RuntimeError(f"torch helper failed:\n{r.stdout[-2000:]}\n"
-                           f"{r.stderr[-4000:]}")
-    out = []
-    for _, _, out_path in cases:
-        with np.load(out_path) as z:
-            out.append({k: z[k] for k in z.files})
-    return out
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def finish() -> List[Dict[str, np.ndarray]]:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise RuntimeError(f"torch helper failed:\n{stdout[-2000:]}\n"
+                               f"{stderr[-4000:]}")
+        out = []
+        for _, _, out_path in cases:
+            with np.load(out_path) as z:
+                out.append({k: z[k] for k in z.files})
+        return out
+
+    return finish
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1175,282 @@ def _case_waymo_train(x, cfg, state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: a case spawns ``cfg["world"]`` gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _case_dp_mesh(x, cfg, state):
+    """parallel/mesh.py without a process group: pad_batch and every
+    rank's shard_padded block and true rows of ``x["rows"]`` over
+    ``cfg["size"]`` ranks; dp_eval_fwd of a tree-valued function over
+    ``cfg["size"]`` CPU shards and over one; eval_devices on the CPU, and
+    its error for ``--dp 2`` on a machine of one card."""
+    import torch
+
+    from ogc_tpu_torch.parallel import mesh
+
+    rows, size = x["rows"], cfg["size"]
+    out = {"padded": mesh.pad_batch([rows], mesh.padded_size(len(rows),
+                                                             size))[0]}
+    for r in range(size):
+        (block,), b = mesh.shard_padded([rows], r, size)
+        out[f"block{r}"] = block
+        out[f"true{r}"] = np.array([b, mesh.true_rows(len(rows), r, size)])
+
+    def fn(_, a, c):
+        return {"a": a * 2.0, "b": [a + c, a.sum(-1)]}
+
+    for name, n in (("dp", size), ("dp1", 1)):
+        devices = mesh.eval_devices(n, "cpu")
+        got = mesh.dp_eval_fwd(fn, devices)(x["a"], torch.from_numpy(x["c"]))
+        out[f"{name}/a"], (out[f"{name}/b0"], out[f"{name}/b1"]) = \
+            got["a"], got["b"]
+        out[f"{name}/n_devices"] = np.array(len(devices))
+    # --dp 2 on a machine with one card.
+    real = torch.cuda.device_count
+    torch.cuda.device_count = lambda: 1
+    try:
+        mesh.eval_devices(2, "cuda")
+    except ValueError as e:
+        out["raises"] = np.array(str(e))
+    finally:
+        torch.cuda.device_count = real
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+_CURRENT = {}
+
+
+def _case_dp(x, cfg, state):
+    """Spawn ``cfg["world"]`` gloo ranks on the CPU (launcher environment
+    set by hand, as torchrun sets it), each running ``_DP_RUNS[cfg["run"]]``
+    on the same inputs; rank r's outputs under ``r<r>/``."""
+    import torch.multiprocessing as mp
+
+    world, port = cfg["world"], _free_port()
+    mp.spawn(_dp_worker, args=(world, port, _CURRENT["in"],
+                               _CURRENT["out"]), nprocs=world)
+    out = {}
+    for r in range(world):
+        path = f"{_CURRENT['out']}.rank{r}.npz"
+        with np.load(path) as z:
+            out.update({f"r{r}/{k}": z[k] for k in z.files})
+        os.remove(path)
+    return out
+
+
+def _dp_worker(rank, world, port, in_path, out_path):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from ogc_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    device = mesh.init_data_parallel("cpu")
+    assert device == torch.device("cpu") and mesh.world() == (rank, world)
+    x, cfg, state = _load(in_path)
+    out = _DP_RUNS[cfg["run"]](x, cfg, state)
+    out["launches"] = _launches()
+    np.savez(f"{out_path}.rank{rank}.npz", **out)
+    mesh.shutdown()
+
+
+class _Items:
+    """An in-memory dataset: item i is ``tuple(a[i] for a in arrays)``."""
+
+    def __init__(self, *arrays):
+        self.arrays = arrays
+
+    def __len__(self):
+        return len(self.arrays[0])
+
+    def __getitem__(self, i):
+        return tuple(a[i] for a in self.arrays)
+
+
+def _loader(arrays, batch_size, dtype=None):
+    """The port's DataLoader (sharded over the process group's ranks) over
+    the items of ``arrays``, cast to ``dtype``."""
+    from ogc_tpu_torch.data.base import DataLoader
+
+    if dtype is not None:
+        arrays = [a.astype(dtype) if a.dtype.kind == "f" else a
+                  for a in arrays]
+    return DataLoader(_Items(*arrays), batch_size=batch_size, shuffle=False,
+                      num_workers=1)
+
+
+def _state_out(prefix, model):
+    """A copy of ``model``'s state (not a view the next step moves)."""
+    return {f"{prefix}/s/{k}": v.detach().numpy().copy()
+            for k, v in model.state_dict().items()
+            if "num_batches" not in k}
+
+
+def _dp_resume_check(prefix, trainer, make, batches, it):
+    """Rank 0 alone writes the checkpoint (counted per rank), every rank
+    finds it after ``save`` returns, and a fresh trainer resumed from it
+    takes step ``it`` as the continuing trainer does: both steps' terms
+    and parameters under ``<prefix>/``."""
+    from ogc_tpu_torch.utils import checkpoint
+
+    writes = []
+    real = checkpoint.save_train_state
+    checkpoint.save_train_state = lambda *a: writes.append(1) or real(*a)
+    try:
+        trainer.save(True, 1)
+    finally:
+        checkpoint.save_train_state = real
+    path = trainer.checkpoint_name + checkpoint.SUFFIX
+    out = {f"{prefix}/writes": np.array(len(writes)),
+           f"{prefix}/found": np.array(os.path.exists(path))}
+    resumed = make()
+    out[f"{prefix}/epoch"] = np.array(resumed.resume(path))
+    for tag, tr in (("cont", trainer), ("resumed", resumed)):
+        ld = _dp_step(tr, it, batches[it])
+        out[f"{prefix}/{tag}/ld"] = np.array([ld[k] for k in sorted(ld)])
+        out.update(_state_out(f"{prefix}/{tag}", tr.model))
+    return out
+
+
+def _dp_sync_check(prefix, trainer):
+    """Rank 1 moves its weights and Adam moments away from rank 0's, then
+    ``sync_replicas``: the state every rank then starts from, under
+    ``<prefix>/start/``."""
+    import torch
+
+    from ogc_tpu_torch.parallel import mesh
+
+    if mesh.world()[0] == 1:
+        with torch.no_grad():
+            for p in trainer.model.parameters():
+                p.add_(1.0)
+            for m in trainer.optimizer.mu.values():
+                m.add_(1.0)
+    trainer.sync_replicas()
+    out = _state_out(f"{prefix}/start", trainer.model)
+    out[f"{prefix}/start/mu"] = np.concatenate(
+        [m.detach().numpy().ravel() for m in trainer.optimizer.mu.values()])
+    return out
+
+
+def _dp_step(trainer, it, batch):
+    ld = trainer.train_it(it, batch, **getattr(trainer, "_step_kw", {}))
+    return ld[0] if isinstance(ld, tuple) else ld
+
+
+def _dp_run_trainers(x, cfg, state):
+    """``_dp_run_trainer`` for each trainer of ``cfg["trainers"]``, on the
+    inputs ``<trainer>/*`` and weights ``<trainer>.*``; its outputs under
+    ``<trainer>/``."""
+    out = {}
+    for kind in cfg["trainers"]:
+        sub = {k[len(kind) + 1:]: v for k, v in x.items()
+               if k.startswith(kind + "/")}
+        weights = {k[len(kind) + 1:]: v for k, v in state.items()
+                   if k.startswith(kind + ".")}
+        res = _dp_run_trainer(sub, {**cfg, **cfg[kind], "trainer": kind},
+                              weights)
+        out.update({f"{kind}/{k}": v for k, v in res.items()})
+    return out
+
+
+def _dp_run_trainer(x, cfg, state):
+    """``cfg["trainer"]`` (seg, sup, flow_local, flow_global): in float32
+    one step, in float64 ``cfg["steps"]``, on this rank's blocks of the
+    global batches of ``cfg["batch"]`` (terms; in float64 every parameter
+    and running statistic after the steps), with ``cfg["eval"]`` an eval
+    pass in float64 over ``ev_*`` (a global batch padded to a multiple of
+    the ranks: its loss and terms), and in float64 the checkpoint check of
+    ``_dp_resume_check`` at step ``steps``."""
+    import torch
+
+    from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
+
+    kind = cfg["trainer"]
+    keys = ("pcs", "segms", "flows", "valids")
+    out = {}
+    for dt, dtype, dtype_np, n_steps in (
+            ("f32", torch.float32, np.float32, 1),
+            ("f64", torch.float64, np.float64, cfg["steps"])):
+        def make():
+            if kind.startswith("flow"):
+                from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
+                from ogc_tpu_torch.train.flow import (FlowTrainer,
+                                                      make_bn_schedule)
+
+                m = _flow_model(cfg, state).to(dtype)
+                opt = Adam(dict(m.named_parameters()),
+                           make_lr_schedule(**cfg["lr"]))
+                return FlowTrainer(
+                    m, cfg["iters"], FlowLossConfig.from_dict(cfg["loss"]),
+                    opt, exp_base=cfg["exp_base"] + dt,
+                    device=torch.device("cpu"),
+                    bn_schedule=make_bn_schedule(**cfg["bn"]),
+                    bn_sync=kind[len("flow_"):])
+            m = _segnet(cfg, state).to(dtype)
+            opt = Adam(dict(m.named_parameters()),
+                       make_lr_schedule(**cfg["lr"]))
+            if kind == "sup":
+                from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+                from ogc_tpu_torch.train.seg_sup import SupSegTrainer
+
+                return SupSegTrainer(
+                    m, SupLossConfig(weights=tuple(cfg["weights"])), opt,
+                    ignore_npoint_thresh=0, exp_base=cfg["exp_base"] + dt,
+                    device=torch.device("cpu"))
+            from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
+            from ogc_tpu_torch.train.seg import SegTrainer
+
+            tr = SegTrainer(m, OGCLossConfig.from_dict(cfg["loss"]), opt,
+                            aug_transform_epoch=0, ignore_npoint_thresh=0,
+                            exp_base=cfg["exp_base"] + dt,
+                            device=torch.device("cpu"))
+            tr._step_kw = {"aug_transform": True}
+            return tr
+
+        trainer = make()
+        if dt == "f64":
+            out.update(_dp_sync_check(dt, trainer))
+        batches = list(_loader([x[k] for k in keys], cfg["batch"],
+                               dtype_np))
+        steps = []
+        for it in range(n_steps):
+            ld = _dp_step(trainer, it, batches[it])
+            steps.append([ld[k] for k in sorted(ld)])
+        out[f"{dt}/keys"] = np.array(sorted(ld))
+        out[f"{dt}/steps"] = np.array(steps)
+        if dt == "f32":
+            continue
+        out.update(_state_out(dt, trainer.model))
+        if cfg["eval"]:
+            ev = list(_loader([x["ev_" + k] for k in keys],
+                              len(x["ev_pcs"]), dtype_np))
+            out[f"{dt}/ev_true_b"] = np.array([ev[0].true_b,
+                                               ev[0].global_b])
+            loss, ld = trainer._validate(ev)[:2]
+            out[f"{dt}/ev_loss"] = np.array(loss)
+            out[f"{dt}/ev_ld"] = np.array([ld[k] for k in sorted(ld)])
+        out.update(_dp_resume_check(dt, trainer, make, batches,
+                                    cfg["steps"]))
+    return out
+
+
+_DP_RUNS = {"trainers": _dp_run_trainers}
+
+
 CASES = {
     "kernels": _case_kernels,
     "core": _case_core,
@@ -1199,6 +1492,8 @@ CASES = {
     "seg_sup_train": _case_seg_sup_train,
     "outdoor_utils": _case_outdoor_utils,
     "waymo_train": _case_waymo_train,
+    "dp_mesh": _case_dp_mesh,
+    "dp": _case_dp,
 }
 
 
@@ -1215,34 +1510,47 @@ def main(argv: List[str]) -> None:
         from ogc_tpu_torch.utils.config import apply_compute_dtype
 
         apply_compute_dtype({"compute_dtype": cfg.pop("compute_dtype", None)})
+        _CURRENT.update({"in": in_path, "out": out_path})
         out = CASES[case](x, cfg, state)
-        from ogc_tpu_torch.ops.ball import ball_query_exact
-        from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
-                                                   scatter_add_blocksparse)
-        from ogc_tpu_torch.ops.fps import fps
-        from ogc_tpu_torch.ops.knn_cand import knn_cand
-        from ogc_tpu_torch.ops.knn import knn_exact
-        from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
-                                                    knn_blockmin)
-        from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
-        from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
-                                              scatter_add_rows_onehot)
-        from ogc_tpu_torch.ops.pool import rowgroup_pool
-        from ogc_tpu_torch.ops.scatter import scatter_add_rows
-
-        out["launches"] = np.array([fps.launches, knn_exact.launches,
-                                    ball_query_exact.launches,
-                                    scatter_add_rows.launches])
-        out["launches_onehot"] = np.array([gather_rows_onehot.launches,
-                                           scatter_add_rows_onehot.launches])
-        out["launches_blockmin"] = np.array([knn_blockmin.launches,
-                                             ball_query_blockmin.launches])
-        out["launches_flow"] = np.array([rowgroup_pool.launches,
-                                         knn_exact_pruned.launches])
-        out["launches_cand"] = np.array([gather_blocksparse.launches,
-                                         scatter_add_blocksparse.launches,
-                                         knn_cand.launches])
+        out.update(_launch_counts())
         np.savez(out_path, **out)
+
+
+def _launches() -> np.ndarray:
+    """FPS, exact KNN, ball query and scatter-add launches."""
+    return _launch_counts()["launches"]
+
+
+def _launch_counts() -> Dict[str, np.ndarray]:
+    """Every wrapper's launch counter, under the keys the module docstring
+    names."""
+    from ogc_tpu_torch.ops.ball import ball_query_exact
+    from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
+                                               scatter_add_blocksparse)
+    from ogc_tpu_torch.ops.fps import fps
+    from ogc_tpu_torch.ops.knn_cand import knn_cand
+    from ogc_tpu_torch.ops.knn import knn_exact
+    from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
+                                                knn_blockmin)
+    from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
+    from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
+                                          scatter_add_rows_onehot)
+    from ogc_tpu_torch.ops.pool import rowgroup_pool
+    from ogc_tpu_torch.ops.scatter import scatter_add_rows
+
+    return {
+        "launches": np.array([fps.launches, knn_exact.launches,
+                              ball_query_exact.launches,
+                              scatter_add_rows.launches]),
+        "launches_onehot": np.array([gather_rows_onehot.launches,
+                                     scatter_add_rows_onehot.launches]),
+        "launches_blockmin": np.array([knn_blockmin.launches,
+                                       ball_query_blockmin.launches]),
+        "launches_flow": np.array([rowgroup_pool.launches,
+                                   knn_exact_pruned.launches]),
+        "launches_cand": np.array([gather_blocksparse.launches,
+                                   scatter_add_blocksparse.launches,
+                                   knn_cand.launches])}
 
 
 if __name__ == "__main__":
