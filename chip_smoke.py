@@ -160,7 +160,26 @@
    (2 steps of B=16 x 8192) with step times, peak memory and a profile of
    3 Waymo steps; test_seg_waymo and test_seg on KITTI-Det and
    SemanticKITTI (8192 points, 10 slots) with the first one's weights.
-18. Data parallelism (run_dp; ogc_tpu_torch/parallel/mesh.py): NCCL at
+18. The last bring-up slice's modes (run_port_modes).  bench's fast
+   surface: phase 10's KITTI-SF flow forward (B=8 x 8192, 5 iterations,
+   approximate) in float32 and in bf16, each with the gates off and on,
+   launches against FLOW_APPROX (plus the #12 pools), #12 bit-equal to its
+   plain version on every pool of a bf16 forward (their own bf16 inputs),
+   the bf16 flows moved from the float32 ones but iteration 0 within
+   BF16_FLOW_GAP, the four forwards' median times in turns and a profile;
+   #7 on bf16 rows (OGC-DR's flow_conv2 fold shape) bit-equal to indexing;
+   test_flow --save in bf16 on phase 11's root (its launches, the saved
+   flows equal to the same forward); one bf16 SAPIEN flow-train step
+   against the float32 one (BF16_FT_LOSS_RTOL, BF16_FT_FLOW_RTOL,
+   BF16_MIN_MOVE); --remat: one SAPIEN full seg step under off / full /
+   dots and one SAPIEN flow step also under scan, each bit-equal to off,
+   with its step ms and peak MiB; the smooth-loss options on one KITTI-SF
+   parity step's masks (lean and remat within REF_BWD_RTOL of autodiff,
+   scatter_kernel and monitor_terms false the same bits, the mutual
+   graph's scalar test against its gather test within MUTUAL_AB_SHARE);
+   test_seg --visualize on the SAPIEN R2 weights; an InstanceNorm
+   FlowStep3D forward card against CPU.
+19. Data parallelism (run_dp; ogc_tpu_torch/parallel/mesh.py): NCCL at
    world size 1 (the launcher's variables set here, one rank on cuda:0):
    3 SAPIEN full SegTrainer steps (B=32 x 512, pinned exact) and 3 SAPIEN
    FlowTrainer steps (B=32 x 512, 4 iterations) bit-equal to the same
@@ -396,16 +415,19 @@ SAP_SCENES, SAP_TEST_SCENES = 120, 24
 #                 input cloud, needs no gradient): 4 or 8.
 # A val batch (2 frames, no backward), a test_seg or vote forward, and an
 # OA-ICP batch (two forwards plus the k=1 KNN of the mask interpolation,
-# whose 512 rows per cloud are below the #7 gate).
+# whose 512 rows per cloud are below the #7 gate).  In eval SA0 takes the
+# source-projected fold: one gather of its scales' projections (C > 16),
+# indexing as the JAX package's gate routes it, so #7 groups only the
+# smooth terms there.
 SAP_WOINV_STEP = launch_counts(fps=2, knn_exact=6, ball_query=2,
                                scatter_add=3, gather_onehot=6,
                                scatter_onehot=4)
 SAP_FULL_STEP = launch_counts(fps=2, knn_exact=8, ball_query=4,
                               scatter_add=3, gather_onehot=10,
                               scatter_onehot=8)
-SAP_VAL = launch_counts(fps=2, knn_exact=6, ball_query=2, gather_onehot=6)
-SAP_FWD = launch_counts(fps=2, knn_exact=4, gather_onehot=2)
-SAP_ICP = launch_counts(fps=4, knn_exact=9, gather_onehot=4)
+SAP_VAL = launch_counts(fps=2, knn_exact=6, ball_query=2, gather_onehot=4)
+SAP_FWD = launch_counts(fps=2, knn_exact=4)
+SAP_ICP = launch_counts(fps=4, knn_exact=9)
 SAP_ICP_BATCH, SAP_VOTE_BATCH = 48, 12
 # Card against CPU for OA-ICP flows and voted masks, and each device's
 # float32 voting against a float64 one on the CPU from the same masks:
@@ -3123,7 +3145,7 @@ def make_model(cfg, device):
         generator=torch.Generator().manual_seed(SEED)).to(device)
 
 
-def make_trainer(cfg, model, device, exp_base):
+def make_trainer(cfg, model, device, exp_base, remat=None):
     from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
     from ogc_tpu_torch.train.seg import Adam, SegTrainer, make_lr_schedule
 
@@ -3132,7 +3154,7 @@ def make_trainer(cfg, model, device, exp_base):
                                 cfg["decay_step"], cfg["batch_size"]))
     return SegTrainer(model, OGCLossConfig.from_dict(cfg["loss"]), opt,
                       aug_transform_epoch=0, ignore_npoint_thresh=0,
-                      exp_base=exp_base, device=device)
+                      exp_base=exp_base, device=device, remat=remat)
 
 
 def fixed_batch(cfg, n_items):
@@ -3520,7 +3542,7 @@ def setup_sapien(tmp):
 
     from ogc_tpu_torch.tools import protocol_sapien as proto
 
-    args = types.SimpleNamespace(seed=SEED, mode="parity",
+    args = types.SimpleNamespace(seed=SEED, mode="parity", graph="reference",
                                  n_scenes=SAP_SCENES,
                                  n_test_scenes=SAP_TEST_SCENES,
                                  ref_scenes=2000, epochs=1)
@@ -4018,10 +4040,11 @@ DR_FT_STEP = launch_counts(fps=2, knn_exact=12, knn_blockmin=22,
 DR_FT_VAL = launch_counts(fps=1, knn_exact=10, knn_blockmin=14,
                           ball_blockmin=4, gather_onehot=7)
 # Supervised (sapien_sup.yaml: B=128 x 512, 8 slots, 2 layers; frame 0,
-# approximate): SA0's FPS, its KNN and two #7 groups, SA1's and the two FP
+# approximate): SA0's FPS, its KNN and two #7 groups (in training; the
+# eval fold gathers its projections by indexing), SA1's and the two FP
 # searches, #11 at SA1 and the FP groups.
 SUP_STEP = launch_counts(fps=1, knn_exact=4, gather_onehot=2, scatter_add=3)
-SUP_VAL = launch_counts(fps=1, knn_exact=4, gather_onehot=2)
+SUP_VAL = launch_counts(fps=1, knn_exact=4)
 SUP_B, SUP_EPOCHS = 128, 2
 # The chained pipeline's synthetic SAPIEN root (tools/synth.py; no flow
 # predictions until test_flow --save writes them): 60 scenes (48 train,
@@ -4098,7 +4121,8 @@ def flow_batch(cfg, n_items, seed=SEED):
     return tuple(np.stack(f, 0) for f in zip(*items))
 
 
-def make_flow_trainer(cfg, device, exp_base, iters=None, bn_sync="local"):
+def make_flow_trainer(cfg, device, exp_base, iters=None, bn_sync="local",
+                      remat=None):
     """train_flow.py's model (seeded weights), Adam and FlowTrainer for
     ``cfg`` on ``device``."""
     from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
@@ -4122,7 +4146,7 @@ def make_flow_trainer(cfg, device, exp_base, iters=None, bn_sync="local"):
                        bn_schedule=make_bn_schedule(
                            cfg["bn_momentum"], cfg["bn_decay"],
                            cfg["decay_step"], cfg["batch_size"]),
-                       bn_sync=bn_sync)
+                       bn_sync=bn_sync, remat=remat)
 
 
 def log_steps(what, trainer, clouds, wall):
@@ -4819,6 +4843,524 @@ def run_outdoor(tmp):
     return launches, times
 
 # ---------------------------------------------------------------------------
+# The last bring-up slice's modes (run_port_modes)
+# ---------------------------------------------------------------------------
+
+# bf16 FlowStep3D on bench's fast surface (phase 10's KITTI-SF forward,
+# approximate neighbours): iteration 0's relative RMS gap to the float32
+# flows of the same weights must lie in (0, BF16_FLOW_GAP]: 10x the JAX
+# package's own bf16-vs-float32 gap on the eval flows of
+# tests/test_torch_flow_bf16.py (2.8e-3).  Later iterations are logged: the
+# recurrence amplifies any rounding.
+BF16_FLOW_GAP = 2.8e-2
+# One bf16 SAPIEN flow-train step (B=32 x 512, 4 iterations) against the
+# float32 step from the same weights and batch: the loss sum within
+# BF16_FT_LOSS_RTOL and iteration 0's flows within BF16_FT_FLOW_RTOL
+# (relative RMS); the largest term move, the flows and the gradients each
+# moved by at least BF16_MIN_MOVE.  The JAX package's own train-step
+# gradients move by 1.35 in relative Frobenius norm from float32 to bf16 on
+# tests/test_torch_flow_bf16.py's input: train-mode BatchNorm on random
+# weights amplifies rounding (ROADMAP §C), so the gradients are held finite
+# and moved, not close.
+BF16_FT_LOSS_RTOL, BF16_FT_FLOW_RTOL = 5e-2, 1e-1
+# The mutual graph's scalar membership test against its gather test (the
+# JAX package's scalar_mutual_ab) on one KITTI-SF parity step's clouds: the
+# share of slots whose keep differs, at most.
+MUTUAL_AB_SHARE = 1e-5
+# The lean and remat smooth backwards against autodiff: relative Frobenius.
+REF_BWD_RTOL = 1e-6
+# InstanceNorm flow forward: SAPIEN arch, INORM_B x 512, 2 iterations,
+# exact, card against CPU (see check_inorm_flow).
+INORM_B = 4
+
+
+@contextlib.contextmanager
+def recorded_pools(calls):
+    """Within the block every rowgroup_pool call also appends its
+    arguments to ``calls``."""
+    from ogc_tpu_torch.ops import pool
+
+    launch = pool.rowgroup_pool
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return launch(*args, **kw)
+
+    # the wrapper counts as the module's rowgroup_pool while installed
+    record.launches = launch.launches
+    pool.rowgroup_pool = record
+    try:
+        yield
+    finally:
+        pool.rowgroup_pool = launch
+        launch.launches = record.launches
+
+
+def rel_rms(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_bf16_gather(gen):
+    """ops.group on bf16 rows where the small-source route takes them (the
+    OGC-DR flow forward's flow_conv2 fold: 512 sources, 2048 rows, C 16):
+    #7 launched on the rows as float32 words (an odd C widened), bit-equal
+    to advanced indexing."""
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.ops.onehot import gather_rows_onehot
+
+    for c in (16, 15):
+        x = torch.randn((DR_FT_B, 512, c), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        idx = torch.randint(0, 512, (DR_FT_B, 512, 4), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        before = gather_rows_onehot.launches
+        got = ops.group(x, idx)
+        rows = torch.arange(DR_FT_B, device=DEVICE)[:, None, None]
+        if gather_rows_onehot.launches != before + 1:
+            raise AssertionError(f"bf16 group C {c}: #7 not launched")
+        if not bits_equal(got, x[rows, idx.long()]):
+            raise AssertionError(f"bf16 group C {c}: #7 != indexing")
+    log(f"#7 on bf16 rows ({DR_FT_B} x 512 sources, 2048 rows, C 16 as "
+        f"float32 words and C 15 widened): bit-equal to indexing")
+
+
+def run_flow_bf16():
+    """bench's fast surface: the KITTI-SF flow forward (B=8 x 8192, 5
+    iterations, approximate) in float32 and bf16, each with the gates off
+    and on, its launches against the derived ones; #12 held bit-equal to
+    its plain version on every pool of a gates-on bf16 forward (its own
+    inputs); the bf16 flows against the float32 ones; the forwards' median
+    times in turns.  Returns the bf16 gates-on launches."""
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.nn.layers import set_compute_dtype
+    from ogc_tpu_torch.ops.pool import rowgroup_pool, rowgroup_pool_plain
+
+    model = make_flownet(FLOW_KW, DEVICE)
+    pc1, pc2 = flow_scenes(FLOW_B, SEED)
+    ops.set_exact_neighbors(False)
+    n_pool = pool_launches(flow_pool_sites(
+        "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"]))
+    dtypes = {"f32": None, "bf16": torch.bfloat16}
+    flows, bf16_launches = {}, None
+    for dt, setting in [(d, s) for d in dtypes for s in ("off", "on")]:
+        set_compute_dtype(dtypes[dt])
+        set_flow_gates(setting)
+        want = dict(FLOW_APPROX, pool=n_pool if setting == "on" else 0)
+        reset_counts()
+        flows[dt, setting] = flow_forward(model, pc1, pc2, FLOW_ITERS)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        log(f"flow forward approximate {dt} gates {setting}: launches "
+            f"{launches}")
+        if launches != want:
+            raise AssertionError(f"flow {dt} gates {setting}: launches "
+                                 f"{launches}, derived {want}")
+        if (dt, setting) == ("bf16", "on"):
+            bf16_launches = launches
+        check_finite(f"flow {dt} gates {setting}", {
+            f"iteration {i}": f.abs().max().item()
+            for i, f in enumerate(flows[dt, setting])})
+    calls = []
+    set_compute_dtype(torch.bfloat16)
+    with recorded_pools(calls):
+        flow_forward(model, pc1, pc2, FLOW_ITERS)
+    for args, kw in calls:
+        if not bits_equal(rowgroup_pool(*args, **kw),
+                          rowgroup_pool_plain(*args, **kw)):
+            raise AssertionError(f"#12 bf16 pool {tuple(args[0].shape)}: "
+                                 f"kernel != plain")
+    shapes = sorted({(tuple(a[0].shape), a[3]) for a, _ in calls})
+    log(f"#12 on the {len(calls)} pools of a bf16 flow forward (their own "
+        f"bf16 inputs; {len(shapes)} shapes (rows, C), S: {shapes}): "
+        f"bit-equal to rowgroup_pool_plain")
+    if not calls or any(a[0].dtype != torch.bfloat16 for a, _ in calls):
+        raise AssertionError("the bf16 forward's pools were not bf16")
+    for setting in ("off", "on"):
+        gaps = [rel_rms(a, b) for a, b in zip(flows["bf16", setting],
+                                               flows["f32", setting])]
+        log(f"flow bf16 vs float32 gates {setting}: relative RMS gap per "
+            f"iteration {gaps} (iteration 0 bound {BF16_FLOW_GAP})")
+        if not 0 < gaps[0] <= BF16_FLOW_GAP:
+            raise AssertionError(f"bf16 flows gates {setting}: iteration 0 "
+                                 f"gap {gaps[0]}")
+    times = {k: [] for k in flows}
+    for r in range(FLOW_REPS):
+        for dt, setting in (list(times) if r % 2 == 0 else list(times)[::-1]):
+            set_compute_dtype(dtypes[dt])
+            set_flow_gates(setting)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flow_forward(model, pc1, pc2, FLOW_ITERS)
+            torch.cuda.synchronize()
+            times[dt, setting].append((time.perf_counter() - t0) * 1e3)
+    for (dt, setting), ms in times.items():
+        med = float(np.median(ms))
+        log(f"flow forward approximate {dt} gates {setting} (B={FLOW_B} x "
+            f"{N_POINT}, {FLOW_ITERS} iterations, host clock around a "
+            f"synchronised forward, {FLOW_REPS} calls in turns): median "
+            f"{med:.4f} ms, min {min(ms):.4f}, max {max(ms):.4f}; "
+            f"{FLOW_B * 1e3 / med:.4f} scene pairs/s")
+    set_compute_dtype(torch.bfloat16)
+    set_flow_gates("on")
+    profile_steps(f"flow forwards approximate bf16 gates on (B={FLOW_B} x "
+                  f"{N_POINT}, {FLOW_ITERS} iterations)",
+                  lambda i: flow_forward(model, pc1, pc2, FLOW_ITERS))
+    set_compute_dtype(None)
+    set_flow_gates("off")
+    return bf16_launches
+
+
+def run_test_flow_bf16(tmp):
+    """test_flow --save on phase 11's SAPIEN root and weights in bf16
+    (OGC_COMPUTE_DTYPE=bf16, as a config's compute_dtype), pool gate on:
+    launches per batch as phase 11's, finite metrics, the saved flows
+    equal to the same bf16 forward on the first batch.  Returns the
+    launches."""
+    import yaml
+
+    from ogc_tpu_torch import ops, test_flow
+    from ogc_tpu_torch.data.sapien import SapienDataset
+    from ogc_tpu_torch.nn.layers import set_compute_dtype
+    from ogc_tpu_torch.utils.checkpoint import load_model_state
+
+    cfg_path = osp.join(tmp, "flow_sapien.yaml")
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    fn = cfg["flownet"]
+    kw = dict(npoint=SAP_N, arch="sapien", loc_flow_nn=fn["loc_flow_nn"],
+              loc_flow_rad=fn["loc_flow_rad"], k_decay_fact=0.5)
+    per_batch = dict(SAP_FLOW, pool=pool_launches(flow_pool_sites(
+        "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, kw["loc_flow_nn"])))
+    ops.set_pool_mode("on")
+    os.environ["OGC_COMPUTE_DTYPE"] = "bf16"
+    t0 = time.perf_counter()
+    res, launches = run_stage(
+        "test_flow SAPIEN bf16", test_flow.main,
+        [cfg_path, "--split", "test", "--test_batch_size", str(SAP_FLOW_B),
+         "--test_model_iters", str(SAP_FLOW_ITERS), "--save", "--device",
+         DEVICE], (per_batch,), lambda r: (len(r["forward_s"]),))
+    wall = time.perf_counter() - t0
+    del os.environ["OGC_COMPUTE_DTYPE"]
+    metrics = {k: res[k] for k in ("EPE", "AccS", "AccR", "Outlier")}
+    check_finite("test_flow bf16", metrics)
+    root = cfg["data"]["root"]
+    ds = SapienDataset(osp.join(root, "mbs-sapien"), split="test",
+                       view_sels=test_flow.VIEW_SELS,
+                       predflow_path="flowstep3d")
+    fwd = np.array(res["forward_s"]) * 1e3
+    log(f"test_flow SAPIEN bf16: {metrics}; {len(ds)} pairs, wall "
+        f"{wall:.4f} s ({len(ds) / wall:.4f} pairs/s); forward per batch "
+        f"median {np.median(fwd[1:]):.4f} ms")
+    model = make_flownet(kw, DEVICE)
+    model.load_state_dict(load_model_state(osp.join(cfg["save_path"],
+                                                    "best")))
+    items = [ds[i] for i in range(min(SAP_FLOW_B, len(ds)))]
+    pcs = torch.from_numpy(np.stack([it[0] for it in items])).to(DEVICE)
+    saved = torch.from_numpy(np.stack([it[2][0] for it in items]))
+    set_compute_dtype(torch.bfloat16)
+    again = flow_forward(model, pcs[:, 0], pcs[:, 1], SAP_FLOW_ITERS)[-1]
+    set_compute_dtype(None)
+    ops.set_pool_mode("off")
+    diff = (again.cpu() - saved).abs().max().item()
+    log(f"test_flow bf16 saved flows vs the same forward on the first "
+        f"batch: max abs diff {diff:.3e} (expected 0)")
+    if diff != 0:
+        raise AssertionError(f"bf16 saved flows differ by {diff}")
+    return launches
+
+
+def flow_step_outputs(trainer, batch):
+    """One FlowTrainer forward and backward (train mode, the schedule's
+    momentum at step 0) without the optimizer: terms, flattened
+    gradients, flows, host ms around the synchronised step."""
+    from ogc_tpu_torch.losses.flow_unsup import flowstep3d_loss
+    from ogc_tpu_torch.nn.flowstep3d import set_bn_momentum
+
+    model = trainer.model.train()
+    set_bn_momentum(model, trainer.bn_schedule(0))
+    pc1, pc2, _ = trainer._inputs(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flows = model(pc1, pc2, pc1, pc2, trainer.model_iters)
+    loss, ld = flowstep3d_loss(pc1, pc2, flows, trainer.loss_cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = torch.cat([p.grad.detach().double().flatten()
+                       for p in model.parameters()])
+    return ({k: float(v.detach()) for k, v in ld.items()}, grads,
+            [f.detach() for f in flows], ms)
+
+
+def check_flow_bf16_step(fcfg, batch, tmp):
+    """One bf16 SAPIEN flow-train step (B=32 x 512, 4 iterations,
+    approximate: train_flow's defaults) against the float32 step from the
+    same weights and batch (BF16_FT_LOSS_RTOL, BF16_FT_FLOW_RTOL,
+    BF16_MIN_MOVE)."""
+    out = {}
+    for dt in ("f32", "bf16"):
+        set_modes({"compute_dtype": dt}, False)
+        out[dt] = flow_step_outputs(
+            make_flow_trainer(fcfg, DEVICE, osp.join(tmp, f"ft16_{dt}")),
+            batch)
+    set_modes({})
+    (t32, g32, f32, ms32), (t16, g16, f16, ms16) = out["f32"], out["bf16"]
+    loss_gap = abs(t16["sum"] - t32["sum"]) / abs(t32["sum"])
+    moved = max(abs(t16[k] - v) / max(abs(v), 1e-12) for k, v in t32.items())
+    flow_gap = rel_rms(f16[0], f32[0])
+    grad_gap = float((g16 - g32).norm() / g32.norm())
+    log(f"bf16 SAPIEN flow-train step (B={SAP_FT_B} x {SAP_N}) vs float32: "
+        f"terms {t16} vs {t32}; loss sum relative gap {loss_gap:.4e} "
+        f"(bound {BF16_FT_LOSS_RTOL}), largest term move {moved:.4e}, "
+        f"iteration 0 flows {flow_gap:.4e} "
+        f"(bound {BF16_FT_FLOW_RTOL}), gradients {grad_gap:.4e}; step "
+        f"(forward and backward, host clock) bf16 {ms16:.4f} ms, float32 "
+        f"{ms32:.4f} ms")
+    check_finite("bf16 flow step", t16)
+    if not torch.isfinite(g16).all():
+        raise AssertionError("bf16 flow step: gradients not finite")
+    if loss_gap > BF16_FT_LOSS_RTOL or flow_gap > BF16_FT_FLOW_RTOL:
+        raise AssertionError("bf16 flow step off the float32 step")
+    if min(moved, flow_gap, grad_gap) < BF16_MIN_MOVE:
+        raise AssertionError("bf16 flow step did not move from float32")
+
+
+def remat_arms(what, modes, step):
+    """``step(mode)`` -> (terms, state) for each mode after one warm-up
+    step: every arm's terms and state bit-equal to off's; step ms (host
+    clock, synchronised) and peak device memory per arm."""
+    step("off")
+    ref = None
+    for mode in modes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        terms, state = step(mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        if ref is None:
+            ref = terms, state
+        else:
+            bad = [k for k in state if not torch.equal(state[k], ref[1][k])]
+            if terms != ref[0] or bad:
+                raise AssertionError(f"{what} --remat {mode}: differs from "
+                                     f"off in {bad[:5]} or the terms")
+        log(f"{what} --remat {mode}: step {ms:.4f} ms, peak device memory "
+            f"{peak:.1f} MiB{'' if mode == 'off' else '; bit-equal to off'} "
+            f"({len(state)} tensors, terms {terms})")
+
+
+def check_remat(scfg, fcfg, fbatch, tmp):
+    """--remat on the card: one SAPIEN full seg step (B=32 x 512, pinned
+    exact) under off / full / dots and one SAPIEN flow step (B=32 x 512, 4
+    iterations, approximate) also under scan: the terms, the weights after
+    Adam and the running statistics bit-equal to off's."""
+    set_modes(scfg, True)
+    sbatch = fixed_batch(scfg, SAP_B)
+    it = max(scfg["loss"]["start_steps"])
+
+    def seg_step(mode):
+        model = make_model(scfg, DEVICE)
+        trainer = make_trainer(scfg, model, torch.device(DEVICE),
+                               osp.join(tmp, f"remat_seg_{mode}"), mode)
+        pcs, flows = trainer._to_device(sbatch[0], sbatch[2])
+        terms, _ = trainer.train_step(pcs, flows, it, True)
+        return terms, {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}
+
+    remat_arms(f"SAPIEN seg step (B={SAP_B} x {SAP_N})",
+               ("off", "full", "dots"), seg_step)
+    set_modes({}, False)
+
+    def flow_step(mode):
+        trainer = make_flow_trainer(fcfg, DEVICE,
+                                    osp.join(tmp, f"remat_flow_{mode}"),
+                                    remat="off" if mode == "scan" else mode)
+        trainer.model.remat_refine = mode == "scan"
+        terms = trainer.train_step(0, *trainer._inputs(fbatch))
+        return ({k: float(v) for k, v in terms.items()},
+                {k: v.detach().clone()
+                 for k, v in trainer.model.state_dict().items()})
+
+    remat_arms(f"SAPIEN flow step (B={SAP_FT_B} x {SAP_N})",
+               ("off", "full", "dots", "scan"), flow_step)
+
+
+def check_loss_options(cfg):
+    """The smooth-loss options on one KITTI-SF parity step (B=4 items x 4
+    frames x 8192, pinned exact): the masks of one train-mode forward, then
+    ogc_loss's gradient in them under each option: lean and remat within
+    REF_BWD_RTOL of autodiff, scatter_kernel and monitor_terms false the
+    same bits; the mutual graph's scalar test against its gather test on
+    each frame's KNN and ball tables (MUTUAL_AB_SHARE), and its loss with
+    each test."""
+    from ogc_tpu_torch.losses.seg_unsup import (OGCLossConfig, mutual_keeps,
+                                                ogc_loss)
+
+    set_modes(cfg, True)
+    batch = fixed_batch(cfg, TRAIN_B)
+    model = make_model(cfg, DEVICE).train()
+    pcs, flows = (torch.from_numpy(batch[i]).to(DEVICE) for i in (0, 2))
+    T = pcs.shape[1]
+    with torch.no_grad():
+        flat = pcs.reshape(-1, N_POINT, 3)
+        masks = model(flat, flat).reshape(TRAIN_B, T, N_POINT, -1)
+    it = max(cfg["loss"]["start_steps"])
+    base = cfg["loss"]
+    smooth = base["smooth_loss_params"]
+    variants = {"autodiff": base, "monitor_off": {**base,
+                                                  "monitor_terms": False}}
+    for key, val in (("ref_bwd", "lean"), ("ref_bwd", "remat"),
+                     ("scatter_kernel", True), ("graph", "mutual")):
+        variants[val if key != "scatter_kernel" else key] = {
+            **base, "smooth_loss_params": {**smooth, key: val}}
+    out = {}
+    for name, block in variants.items():
+        m = masks.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, ld = ogc_loss([pcs[:, t] for t in range(T)],
+                            [m[:, t] for t in range(T)],
+                            [flows[:, t] for t in range(T)],
+                            OGCLossConfig.from_dict(block), step_w=True,
+                            it=it, aug_transform=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = ({k: float(v) for k, v in ld.items()}, m.grad,
+                     (time.perf_counter() - t0) * 1e3)
+        log(f"KITTI-SF parity loss {name}: terms {out[name][0]}; loss "
+            f"forward and backward {out[name][2]:.4f} ms")
+    terms, grad, _ = out["autodiff"]
+    for name in ("lean", "remat"):
+        rel = float((out[name][1] - grad).norm() / grad.norm())
+        log(f"ref_bwd {name} vs autodiff: gradient relative Frobenius "
+            f"{rel:.3e} (bound {REF_BWD_RTOL})")
+        if out[name][0] != terms or rel > REF_BWD_RTOL:
+            raise AssertionError(f"ref_bwd {name} off autodiff")
+    if not (torch.equal(out["scatter_kernel"][1], grad)
+            and out["scatter_kernel"][0] == terms):
+        raise AssertionError("scatter_kernel changed the bits")
+    t_off = out["monitor_off"][0]
+    if (not torch.equal(out["monitor_off"][1], grad)
+            or t_off["entropy"] != 0 or t_off["rank"] != 0
+            or any(t_off[k] != terms[k] for k in ("dynamic", "smooth",
+                                                  "invariance", "sum"))):
+        raise AssertionError("monitor_terms false changed the gradient")
+    log("scatter_kernel true and monitor_terms false: the same gradient "
+        "bits as autodiff (entropy and rank 0 without the monitors)")
+    check_finite("mutual loss", out["mutual"][0])
+    kp, bp = smooth["knn_loss_params"], smooth["ball_q_loss_params"]
+    differ, kept, slots = 0, 0, 0
+    for t in range(T):
+        for kind, p in (("knn", kp), ("ball", bp)):
+            scalar, gathered = mutual_keeps(pcs[:, t], p["k"], p["radius"],
+                                            kind, exact=True)
+            differ += int((scalar != gathered).sum())
+            kept += int(gathered.sum())
+            slots += gathered.numel()
+    log(f"mutual graph, scalar vs gather test on {TRAIN_B * T} clouds x "
+        f"{N_POINT} (KNN k {kp['k']} r {kp['radius']}, ball ns {bp['k']} r "
+        f"{bp['radius']}): {differ} of {slots} slots differ ({kept} kept; "
+        f"bound {MUTUAL_AB_SHARE} of the slots)")
+    if differ > MUTUAL_AB_SHARE * slots:
+        raise AssertionError(f"scalar mutual test differs on {differ} slots")
+
+
+def run_visualize(tmp, scfg):
+    """test_seg --visualize on the SAPIEN alternation's R2 weights, from a
+    working directory of its own: the PNGs of the first 20 test scenes."""
+    import types
+
+    import yaml
+
+    from ogc_tpu_torch import test_seg
+
+    cwd = osp.join(tmp, "visualize")
+    os.makedirs(cwd)
+    path = osp.join(tmp, "visualize.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(scfg, f)
+    with contextlib.chdir(cwd):
+        t0 = time.perf_counter()
+        res = test_seg.main([path, "--split", "test", "--round", "2",
+                             "--visualize", "--device", DEVICE])
+        wall = time.perf_counter() - t0
+    files = res["vis_files"]
+    test_set, n_frame, _, _ = test_seg.build_test_dataset(
+        types.SimpleNamespace(split="test", **scfg))
+    want = 2 * n_frame * min(20, len(test_set) // n_frame)
+    sizes = [os.path.getsize(osp.join(cwd, f)) for f in files]
+    log(f"test_seg --visualize: {len(files)} PNGs in {wall:.3f} s "
+        f"({min(sizes)}-{max(sizes)} bytes)")
+    if len(files) != want or min(sizes) <= 100:
+        raise AssertionError(f"--visualize wrote {len(files)} files, want "
+                             f"{want}")
+
+
+def check_inorm_flow():
+    """One InstanceNorm FlowStep3D forward (SAPIEN arch, INORM_B x 512, 2
+    iterations, exact, gates off) on the card against the CPU: iteration
+    0 within FLOW_TOL of the flow's scale; at iteration 1, where the
+    per-sample normalisation amplifies rounding, the card no farther from
+    the CPU's float64 forward than twice the CPU's float32 plus
+    FLOW_TOL of the scale."""
+    import copy
+
+    from ogc_tpu_torch import ops
+
+    ops.set_exact_neighbors(True)
+    kw = dict(npoint=SAP_N, arch="sapien", loc_flow_nn=8, loc_flow_rad=0.1,
+              k_decay_fact=0.5, use_instance_norm=True)
+    model = make_flownet(kw, DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    pc1 = torch.rand((INORM_B, SAP_N, 3), generator=gen)
+    pc2 = pc1 + 0.02 * torch.randn((INORM_B, 1, 3), generator=gen)
+    card = flow_forward(model, pc1.to(DEVICE), pc2.to(DEVICE), 2)
+    cpu = flow_forward(copy.deepcopy(model).cpu(), pc1, pc2, 2)
+    ref = flow_forward(copy.deepcopy(model).cpu().double(), pc1.double(),
+                       pc2.double(), 2)
+    scale = max(1.0, cpu[-1].abs().max().item())
+    d0 = (card[0].cpu() - cpu[0]).abs().max().item()
+    e_card = (card[1].cpu().double() - ref[1]).abs().max().item()
+    e_cpu = (cpu[1].double() - ref[1]).abs().max().item()
+    log(f"InstanceNorm flow forward card vs CPU ({INORM_B} x {SAP_N}): "
+        f"iteration 0 max abs diff {d0:.3e} (tolerance {FLOW_TOL} x scale "
+        f"{scale:.4f}); iteration 1 from the CPU's float64: card "
+        f"{e_card:.3e}, CPU float32 {e_cpu:.3e}")
+    if d0 > FLOW_TOL * scale or e_card > 2 * e_cpu + FLOW_TOL * scale:
+        raise AssertionError("InstanceNorm flows: card off the CPU")
+
+
+def run_port_modes(tmp, cfgs, sap_cfgs):
+    """The last bring-up slice's modes (the phase's docstring item): the
+    bf16 FlowStep3D (bench's fast surface, test_flow --save, a flow-train
+    step), --remat, the loss options, test_seg --visualize and an
+    InstanceNorm forward.  Returns the bf16 flow forward's launches."""
+    from ogc_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    prev = ops.exact_neighbors()
+    check_bf16_gather(torch.Generator(device=DEVICE).manual_seed(SEED))
+    launches = run_flow_bf16()
+    run_test_flow_bf16(tmp)
+    fcfg, _ = write_cfg(tmp, "config/flow/sapien/sapien_unsup.yaml",
+                        "modes_flow", data={"root": osp.join(tmp,
+                                                             "PIPE_SAPIEN")},
+                        save_path=osp.join(tmp, "ckpt", "modes_flow"))
+    fbatch = flow_batch(fcfg, SAP_FT_B)
+    check_flow_bf16_step(fcfg, fbatch, tmp)
+    check_remat(sap_cfgs["full"], fcfg, fbatch, tmp)
+    check_loss_options(cfgs["parity"][0])
+    run_visualize(tmp, sap_cfgs["full"])
+    check_inorm_flow()
+    ops.set_exact_neighbors(prev)
+    set_modes({})
+    log(f"port modes phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Data parallelism (ogc_tpu_torch/parallel/mesh.py)
 # ---------------------------------------------------------------------------
 
@@ -5495,6 +6037,9 @@ def main():
             f"{time.perf_counter() - t_start:.1f} s")
         out_launches, _ = run_outdoor(tmp)
         log(f"outdoor phase done at {time.perf_counter() - t_start:.1f} s")
+        bf16_launches = run_port_modes(tmp, cfgs, sap_cfgs)
+        log(f"port modes phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
         run_dp(tmp, full, *cfgs["parity"], smi.stdout.strip())
         log(f"data-parallel phase done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -5505,6 +6050,8 @@ def main():
                 if not dr_launches[k]]
     missing += [k for k in ("fps", "knn_exact", "gather_onehot",
                             "scatter_add") if not sup_launches[k]]
+    missing += [k for k in ("fps", "knn_exact", "knn_blockmin", "pool")
+                if not bf16_launches[k]]
     if missing:
         raise AssertionError(f"the training paths launched no {missing}")
     log(f"launches: SAPIEN train_flow {ft_launches}; OGC-DR train_flow "

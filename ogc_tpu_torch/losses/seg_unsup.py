@@ -12,11 +12,19 @@ their backward is the scatter-free symmetric-graph formula instead.  The
 ``mxu`` edge engine (``smooth_loss_params.edge_engine``) sorts the cloud by
 Morton code and groups both edge tables in one block-sparse call
 (``_smooth_mxu``, kernels #9/#10).  The Hungarian matching runs on the host
-(utils/lap.py, the JAX package's solver step for step).  Options of the JAX
-package that no shipped config of the port's paths uses -- the mutual graph,
-lean/remat smooth backwards, the opt-in scatter routing flag and
-``monitor_terms: false`` -- are not ported (ROADMAP A.13): asking for them
-raises.
+(utils/lap.py, the JAX package's solver step for step).
+
+The JAX package's opt-in smooth-loss options (``smooth_loss_params``):
+``graph: mutual`` keeps only the mutual edges of each graph, whose exact
+gradient is scatter-free (``_MutualDiscrepancy``; on exact tables the
+membership is the scalar test of ``_MutualScalar``, one gather;
+``mutual_gather``, the gather test, is its oracle); ``ref_bwd: lean``
+saves only (mask, idx) and recomputes the gather in the backward
+(``_RefGraphLean``), ``remat`` checkpoints the term; ``scatter_kernel``
+sent the JAX backward to its Pallas scatter-add, which the port's group
+backward always is (#11 / #8), so it changes nothing here.  The loss
+block's ``monitor_terms: false`` skips the zero-weight terms and the
+entropy / rank monitors (reported as 0).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.ops.blocksparse import group_blocksparse
@@ -144,36 +153,242 @@ class _SymGradDiscrepancy(torch.autograd.Function):
             return (2.0 * g / (B * N * S)) * d.sum(2), None, None
 
 
+def _edge_grad(diff: torch.Tensor, loss_norm: int) -> torch.Tensor:
+    """d||diff|| / d diff per edge: sign (L1, 0 at 0) or the unit vector
+    with the 1e-24 guard (L2)."""
+    if loss_norm == 1:
+        return torch.sign(diff)
+    return diff / torch.sqrt(torch.clamp((diff * diff).sum(-1, keepdim=True),
+                                         min=1e-24))
+
+
+class _RefGraphLean(torch.autograd.Function):
+    """The reference-graph discrepancy with a lean exact backward
+    (ogc_tpu/losses/seg_unsup.py::_ref_graph_discrepancy, ``ref_bwd:
+    lean``): the forward is the autodiff path's, and only (mask, idx) are
+    saved.  The backward gathers again and takes ``ops.group``'s own
+    backward (the deterministic scatter-add, #11 or #8):
+    grad = g / (B N S) (sum_s phi'(diff) - scatter(phi'(diff)))."""
+
+    @staticmethod
+    def forward(ctx, mask, idx, loss_norm):
+        ctx.save_for_backward(mask, idx)
+        ctx.loss_norm = loss_norm
+        return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, idx = ctx.saved_tensors
+        with torch.enable_grad():
+            m = mask.detach().requires_grad_(True)
+            nn_mask = ops.group(m, idx)
+        d = _edge_grad(mask[:, :, None, :] - nn_mask.detach(), ctx.loss_norm)
+        (pull,) = torch.autograd.grad(nn_mask, m, d)
+        B, N, S, _ = d.shape
+        grad = (g / (B * N * S)) * (d.sum(2) - pull)
+        return grad.to(mask.dtype), None, None
+
+
+def mutual_keep_mask(idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, S) bool of a self-neighbour table (B, N, S): slot (i, s) is
+    kept iff it is the first occurrence of j = idx[i, s] in row i and i
+    appears in row j (ogc_tpu/losses/seg_unsup.py::mutual_keep_mask).  The
+    kept directed edges form a symmetric multiset."""
+    B, N, S = idx.shape
+    rows = torch.arange(B, device=idx.device)[:, None, None]
+    nbr_rows = idx[rows, idx.long()]  # (B, N, S, S): row of each neighbour
+    i_ids = torch.arange(N, dtype=idx.dtype, device=idx.device)
+    mutual = (nbr_rows == i_ids[None, :, None, None]).any(-1)
+    return _first_occurrence(idx) & mutual
+
+
+def _first_occurrence(idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, S) bool: slot s holds the first occurrence of its value in
+    its row."""
+    S = idx.shape[-1]
+    eq = idx[..., :, None] == idx[..., None, :]
+    lower = torch.ones(S, S, dtype=torch.bool, device=idx.device).tril(-1)
+    return ~(eq & lower).any(-1)
+
+
+def _mutual_grad(diff, keep, loss_norm, g):
+    """2 g / (B N S) sum_{s kept} phi'(diff): the exact gradient over a
+    symmetric kept multiset, with no scatter."""
+    d = torch.where(keep[..., None], _edge_grad(diff, loss_norm), 0.0)
+    B, N, S, _ = diff.shape
+    return (2.0 * g / (B * N * S)) * d.sum(2)
+
+
+class _MutualDiscrepancy(torch.autograd.Function):
+    """mean over the kept slots of ||m_i - m_j|| (0 elsewhere) with its
+    exact scatter-free gradient (ogc_tpu/losses/seg_unsup.py::
+    _mutual_discrepancy); saves (diff, keep)."""
+
+    @staticmethod
+    def forward(ctx, mask, idx, keep, loss_norm):
+        diff = mask[:, :, None, :] - ops.group(mask, idx)
+        ctx.save_for_backward(diff, keep)
+        ctx.loss_norm = loss_norm
+        return torch.where(keep, _edge_phi(diff, loss_norm), 0.0).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        diff, keep = ctx.saved_tensors
+        grad = _mutual_grad(diff, keep, ctx.loss_norm, g)
+        return grad.to(diff.dtype), None, None, None
+
+
+class _MutualScalar(torch.autograd.Function):
+    """The mutual discrepancy with the scalar membership test on exact
+    tables (ogc_tpu/losses/seg_unsup.py::_mutual_discrepancy_scalar): the
+    mask, the points and per-point scalars ride one gather, and
+    "i in row(j)" is decided from them:
+
+    * knn: (d2(i, j), i) <=lex (theta_d2_j, theta_i_j), j's k-th raw
+      neighbour, with sqrt(d2) <= radius; or i is j's nearest and j clamped
+      a slot (aux [theta_d2, theta_i, nearest, any_clamp]);
+    * ball: d2(i, j) < r^2 and i <= max(row(j)) (aux [max]).
+
+    d2 is the direct form (dx^2 + dy^2) + dz^2, on which the port's exact
+    kernels select.  Saves (diff, keep); the backward is the mutual one."""
+
+    @staticmethod
+    def forward(ctx, mask, aux, idx, pc, loss_norm, kind, radius):
+        K = mask.shape[-1]
+        G = ops.group(torch.cat([mask.float(), pc.float(), aux], -1), idx)
+        diff = mask[:, :, None, :].float() - G[..., :K]
+        keep = _scalar_keep(pc.float(), G[..., K:K + 3], G[..., K + 3:], idx,
+                            kind, radius)
+        ctx.save_for_backward(diff, keep)
+        ctx.loss_norm, ctx.dtype = loss_norm, mask.dtype
+        return torch.where(keep, _edge_phi(diff, loss_norm), 0.0).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        diff, keep = ctx.saved_tensors
+        grad = _mutual_grad(diff, keep, ctx.loss_norm, g)
+        return grad.to(ctx.dtype), None, None, None, None, None, None
+
+
+def _scalar_keep(pc, g_xyz, g_aux, idx, kind, radius):
+    """The scalar test's keep mask from the gathered points and scalars of
+    each slot (see _MutualScalar)."""
+    d = pc[:, :, None, :] - g_xyz
+    d2 = d[..., 0] ** 2 + d[..., 1] ** 2 + d[..., 2] ** 2
+    i_ids = torch.arange(pc.shape[1], dtype=torch.float32,
+                         device=pc.device)[None, :, None]
+    a = g_aux
+    if kind == "knn":
+        in_raw = (d2 < a[..., 0]) | ((d2 == a[..., 0]) & (i_ids <= a[..., 1]))
+        mutual = ((in_raw & (torch.sqrt(d2) <= radius))
+                  | ((i_ids == a[..., 2]) & (a[..., 3] > 0)))
+    else:
+        mutual = (d2 < radius * radius) & (i_ids <= a[..., 0])
+    return _first_occurrence(idx) & mutual
+
+
+@torch.no_grad()
+def mutual_keeps(pc: torch.Tensor, k: int, radius: float, kind: str,
+                 exact: Optional[bool] = None):
+    """Both forms of the mutual keep mask of ``pc``'s KNN (radius-clamped)
+    or ball table, for comparing them (the JAX package's scalar-vs-gather
+    A/B): (scalar test, gather test), each (B, N, k) bool."""
+    if kind == "knn":
+        dist, idx_raw = ops.knn(k, pc, pc, exact=exact)
+        idx = torch.where(dist > radius, idx_raw[..., :1], idx_raw)
+        aux = _knn_mutual_aux(pc.float(), dist, idx_raw, radius)
+    else:
+        idx = ops.ball_query(radius, k, pc, pc, exact=exact)
+        aux = idx.amax(-1).float()[..., None]
+    G = ops.group(torch.cat([pc.float(), aux], -1), idx)
+    scalar = _scalar_keep(pc.float(), G[..., :3], G[..., 3:], idx, kind,
+                          float(radius))
+    return scalar, mutual_keep_mask(idx)
+
+
+def _knn_mutual_aux(pc, dist, idx_raw, radius):
+    """Per-point scalars of the knn scalar test (float32; indices below
+    2^24 are exact): the direct-form d2 to the k-th raw neighbour and its
+    index, the nearest's index, whether a slot was clamped."""
+    kth = idx_raw[..., -1]
+    kth_xyz = torch.gather(pc, 1, kth.long()[..., None].expand(-1, -1, 3))
+    dd = pc - kth_xyz
+    th_d2 = dd[..., 0] ** 2 + dd[..., 1] ** 2 + dd[..., 2] ** 2
+    return torch.stack([th_d2, kth.float(), idx_raw[..., 0].float(),
+                        (dist > radius).any(-1).float()], -1)
+
+
+def _scalar_mutual_ok(exact: Optional[bool]) -> bool:
+    """The scalar test needs exact tables (their lexicographic-prefix
+    property); approximate ones keep the gather test."""
+    return ops.exact_neighbors() if exact is None else bool(exact)
+
+
 def _smooth_term(mask: torch.Tensor, idx: torch.Tensor, loss_norm: int,
-                 symmetric_grad: bool) -> torch.Tensor:
+                 symmetric_grad: bool, graph: str, ref_bwd: str,
+                 scalar=None) -> torch.Tensor:
+    """The discrepancy over a neighbour table in the configured form
+    (ogc_tpu/losses/seg_unsup.py:593-685).  ``scalar``: (aux, pc, kind,
+    radius) of the scalar mutual test, or None for the gather test."""
+    if graph == "mutual" and scalar is not None:
+        aux, pc, kind, radius = scalar
+        return _MutualScalar.apply(mask, aux, idx, pc, loss_norm, kind,
+                                   radius)
+    if graph in ("mutual", "mutual_gather"):
+        return _MutualDiscrepancy.apply(mask, idx, mutual_keep_mask(idx),
+                                        loss_norm)
     if symmetric_grad:
         return _SymGradDiscrepancy.apply(mask, idx, loss_norm)
+    if ref_bwd == "lean":
+        return _RefGraphLean.apply(mask, idx, loss_norm)
+    if ref_bwd == "remat":
+        return torch.utils.checkpoint.checkpoint(
+            lambda m: _neighbor_discrepancy(m, ops.group(m, idx), loss_norm),
+            mask, use_reentrant=False)
     return _neighbor_discrepancy(mask, ops.group(mask, idx), loss_norm)
 
 
 def knn_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
                     radius: float, loss_norm: int = 1,
                     symmetric_grad: bool = False,
-                    exact: Optional[bool] = None) -> torch.Tensor:
+                    exact: Optional[bool] = None, graph: str = "reference",
+                    ref_bwd: str = "autodiff") -> torch.Tensor:
     """KNN smoothness with the radius clamp (reference KnnLoss,
     losses/seg_loss_unsup.py:101-129): neighbours farther than ``radius``
     are replaced by the nearest one.  ``exact``: the search's neighbour
-    mode (None: the global one)."""
+    mode (None: the global one).  ``graph``: ``reference``, ``mutual``
+    (the scalar test on exact tables) or ``mutual_gather`` (the gather
+    test); ``ref_bwd``: ``autodiff``, ``lean`` or ``remat``."""
     with torch.no_grad():
-        dist, idx = ops.knn(k, pc, pc, exact=exact)
-        idx = torch.where(dist > radius, idx[..., :1], idx)
-    return _smooth_term(mask, idx, loss_norm, symmetric_grad)
+        dist, idx_raw = ops.knn(k, pc, pc, exact=exact)
+        idx = torch.where(dist > radius, idx_raw[..., :1], idx_raw)
+        scalar = None
+        if graph == "mutual" and _scalar_mutual_ok(exact):
+            scalar = (_knn_mutual_aux(pc.float(), dist, idx_raw, radius),
+                      pc, "knn", float(radius))
+    return _smooth_term(mask, idx, loss_norm, symmetric_grad, graph,
+                        ref_bwd, scalar)
 
 
 def ball_q_smooth_loss(pc: torch.Tensor, mask: torch.Tensor, k: int,
                        radius: float, loss_norm: int = 1,
                        symmetric_grad: bool = False,
-                       exact: Optional[bool] = None) -> torch.Tensor:
+                       exact: Optional[bool] = None, graph: str = "reference",
+                       ref_bwd: str = "autodiff") -> torch.Tensor:
     """Ball-query smoothness (reference BallQLoss,
-    losses/seg_loss_unsup.py:132-158)."""
+    losses/seg_loss_unsup.py:132-158); ``graph`` and ``ref_bwd`` as in
+    knn_smooth_loss (the mutual graph also drops an empty ball's edges to
+    point 0 unless point 0 reciprocates)."""
     with torch.no_grad():
         idx = ops.ball_query(radius, k, pc, pc, exact=exact)
-    return _smooth_term(mask, idx, loss_norm, symmetric_grad)
+        scalar = None
+        if graph == "mutual" and _scalar_mutual_ok(exact):
+            # The row max is the last selected member: selection is the
+            # ascending in-radius prefix, and fill slots repeat the first.
+            scalar = (idx.amax(-1).float()[..., None], pc, "ball",
+                      float(radius))
+    return _smooth_term(mask, idx, loss_norm, symmetric_grad, graph,
+                        ref_bwd, scalar)
 
 
 # The MXU edge engine (ogc_tpu/losses/seg_unsup.py:450-571).  The cloud and
@@ -379,12 +594,18 @@ class OGCLossConfig:
     # "mxu" is _smooth_mxu (Morton order, kernels #9/#10), taken only
     # without symmetric_smooth_grad, as in the JAX package.
     smooth_edge_engine: str = "gather"
-
-    # Keys of the JAX package's extensions, with the only value the port
-    # implements: smooth_loss_params keys, and the loss block's
-    # monitor_terms (the port always computes the entropy/rank monitors).
-    _UNPORTED = {"graph": "reference", "ref_bwd": "autodiff",
-                 "scatter_kernel": False}
+    # Smooth-loss graph: "reference" (the reference's raw graphs) or
+    # "mutual" (the mutual edges, scatter-free exact gradient).
+    smooth_graph: str = "reference"
+    # Reference-graph backward: "autodiff", "lean" (_RefGraphLean) or
+    # "remat" (the term checkpointed); the same gradient.
+    smooth_ref_bwd: str = "autodiff"
+    # The JAX package's Pallas routing of the smooth backward; the port's
+    # group backward is its scatter-add kernel either way.
+    smooth_scatter_kernel: bool = False
+    # False: skip the zero-weight terms and the entropy / rank monitors
+    # (reported as 0).
+    monitor_terms: bool = True
 
     @classmethod
     def from_dict(cls, loss_cfg: dict) -> "OGCLossConfig":
@@ -392,19 +613,16 @@ class OGCLossConfig:
         d = loss_cfg.get("dynamic_loss_params", {})
         s = loss_cfg.get("smooth_loss_params", {})
         i = loss_cfg.get("invariance_loss_params", {})
-        unported = [(f"smooth_loss_params.{k}", s.get(k, want), want)
-                    for k, want in cls._UNPORTED.items()]
-        unported.append(("monitor_terms", loss_cfg.get("monitor_terms", True),
-                         True))
-        for key, got, want in unported:
-            if got != want:
-                raise NotImplementedError(
-                    f"{key}={got!r} is not ported: the port runs "
-                    f"{want!r} only (ROADMAP.md A.13)")
-        engine = s.get("edge_engine", "gather")
-        if engine not in ("gather", "mxu"):
-            raise ValueError(f"smooth_loss_params.edge_engine must be "
-                             f"'gather' or 'mxu', got {engine!r}")
+        for key, got, allowed in (
+                ("edge_engine", s.get("edge_engine", "gather"),
+                 ("gather", "mxu")),
+                ("graph", s.get("graph", "reference"),
+                 ("reference", "mutual")),
+                ("ref_bwd", s.get("ref_bwd", "autodiff"),
+                 ("autodiff", "lean", "remat"))):
+            if got not in allowed:
+                raise ValueError(f"smooth_loss_params.{key} must be one of "
+                                 f"{allowed}, got {got!r}")
         kp = s.get("knn_loss_params", {})
         bp = s.get("ball_q_loss_params", {})
         return cls(
@@ -421,7 +639,11 @@ class OGCLossConfig:
             ball_q_loss_norm=bp.get("loss_norm", 1),
             invariance_loss_norm=i.get("loss_norm", 2),
             symmetric_smooth_grad=s.get("symmetric_grad", False),
-            smooth_edge_engine=engine,
+            smooth_edge_engine=s.get("edge_engine", "gather"),
+            smooth_graph=s.get("graph", "reference"),
+            smooth_ref_bwd=s.get("ref_bwd", "autodiff"),
+            smooth_scatter_kernel=bool(s.get("scatter_kernel", False)),
+            monitor_terms=bool(loss_cfg.get("monitor_terms", True)),
         )
 
 
@@ -429,14 +651,17 @@ def smooth_loss(pc: torch.Tensor, mask: torch.Tensor,
                 cfg: OGCLossConfig) -> torch.Tensor:
     """w_knn * KnnLoss + w_ball_q * BallQLoss (reference SmoothLoss,
     losses/seg_loss_unsup.py:161-180)."""
-    if cfg.smooth_edge_engine == "mxu" and not cfg.symmetric_smooth_grad:
+    if (cfg.smooth_edge_engine == "mxu" and cfg.smooth_graph == "reference"
+            and not cfg.symmetric_smooth_grad):
         return _smooth_mxu(pc, mask, cfg)
+    kw = dict(exact=cfg.smooth_exact, graph=cfg.smooth_graph,
+              ref_bwd=cfg.smooth_ref_bwd)
     l_knn = knn_smooth_loss(pc, mask, cfg.knn_k, cfg.knn_radius,
                             cfg.knn_loss_norm, cfg.symmetric_smooth_grad,
-                            cfg.smooth_exact)
+                            **kw)
     l_bq = ball_q_smooth_loss(pc, mask, cfg.ball_q_k, cfg.ball_q_radius,
                               cfg.ball_q_loss_norm, cfg.symmetric_smooth_grad,
-                              cfg.smooth_exact)
+                              **kw)
     return cfg.smooth_w_knn * l_knn + cfg.smooth_w_ball_q * l_bq
 
 
@@ -459,28 +684,41 @@ def ogc_loss(pcs: List[torch.Tensor], masks: List[torch.Tensor],
         return 0.0 if step_w and it < start_step else weight
 
     half = 0.5 if aug_transform else 1.0
+    zero = masks[0].new_zeros((), dtype=torch.float32)
+    # monitor_terms off: a term whose weight is exactly 0 is skipped.
+    skip = [not cfg.monitor_terms and w == 0.0 for w in cfg.weights]
     loss_dict: Dict[str, torch.Tensor] = {}
-    l_dyn = half * sum(dynamic_loss(pcs[f], masks[f], flows[f],
-                                    cfg.dynamic_loss_norm)
-                       for f in range(n_frames))
-    l_smooth = half * sum(smooth_loss(pcs[f], masks[f], cfg)
-                          for f in range(n_frames))
-    loss_dict["dynamic"] = l_dyn
-    loss_dict["smooth"] = l_smooth
-    total = (gate(cfg.weights[0], cfg.start_steps[0]) * l_dyn
-             + gate(cfg.weights[1], cfg.start_steps[1]) * l_smooth)
-    if aug_transform:
+    total = zero
+    if skip[0]:
+        loss_dict["dynamic"] = zero
+    else:
+        l_dyn = half * sum(dynamic_loss(pcs[f], masks[f], flows[f],
+                                        cfg.dynamic_loss_norm)
+                           for f in range(n_frames))
+        loss_dict["dynamic"] = l_dyn
+        total = total + gate(cfg.weights[0], cfg.start_steps[0]) * l_dyn
+    if skip[1]:
+        loss_dict["smooth"] = zero
+    else:
+        l_smooth = half * sum(smooth_loss(pcs[f], masks[f], cfg)
+                              for f in range(n_frames))
+        loss_dict["smooth"] = l_smooth
+        total = total + gate(cfg.weights[1], cfg.start_steps[1]) * l_smooth
+    if aug_transform and not skip[2]:
         pairs = n_frames // 2
         l_inv = sum(invariance_loss(masks[i], masks[i + pairs],
                                     cfg.invariance_loss_norm)
                     for i in range(pairs))
         total = total + gate(cfg.weights[2], cfg.start_steps[2]) * l_inv
     else:
-        l_inv = torch.zeros((), device=l_dyn.device)
+        l_inv = zero
     loss_dict["invariance"] = l_inv
 
     with torch.no_grad():
-        loss_dict["entropy"] = half * sum(entropy_loss(m) for m in masks)
-        loss_dict["rank"] = half * sum(rank_loss(m) for m in masks)
+        if cfg.monitor_terms:
+            loss_dict["entropy"] = half * sum(entropy_loss(m) for m in masks)
+            loss_dict["rank"] = half * sum(rank_loss(m) for m in masks)
+        else:
+            loss_dict["entropy"] = loss_dict["rank"] = zero
     loss_dict["sum"] = total
     return total, loss_dict

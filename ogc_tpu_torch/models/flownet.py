@@ -21,7 +21,8 @@ statistics from) one cloud at a time in the JAX package's order
 and the gradient stops where the JAX package's does: at flow0 and flow0_lr
 where they warp the clouds (:452-455) and at the carried clouds each
 iteration starts from (:462-463).  The JAX package's ``nn.scan`` over the
-refinement is a Python loop here.
+refinement is a Python loop here; ``remat_refine`` checkpoints each
+iteration of it in training (its ``nn.remat``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from torch import nn
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.nn.flowstep3d import (FlowEmbedding, FlowFPModule,
                                          FlowSAModule)
+from ogc_tpu_torch.nn.layers import compute_dtype, raw_split_inputs
+from ogc_tpu_torch.ops import remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +234,9 @@ class FlowStep3D(nn.Module):
             n: sa(gate, a.hidden_dim + x_dim, use_act=False)
             for n in ("convz", "convr", "convq")})
         self.flow_up_sample = FlowFPModule()
+        #: checkpoint each refinement iteration in training (``--remat
+        #: scan``, the JAX package's ``remat_refine``)
+        self.remat_refine = False
         if generator is not None:
             init_parameters(self, generator)
 
@@ -260,8 +266,20 @@ class FlowStep3D(nn.Module):
     def _gru(self, h, x, pc, lr_idx):
         g = self.gru
         hx = torch.cat([h, x], -1)
-        z = torch.sigmoid(g["convz"](pc, hx, group_idx=lr_idx)[1])
-        r = torch.sigmoid(g["convr"](pc, hx, group_idx=lr_idx)[1])
+        # bf16 training: convz and convr group the same (pc, hx) rows with
+        # the same indices, so one raw gather serves both
+        # (ogc_tpu/models/flownet.py:319-340).
+        split = None
+        if compute_dtype() is not None and self.training:
+            if g["convz"].nsample != g["convr"].nsample:
+                raise ValueError("convz / convr nsample differ: a shared "
+                                 "gather would pool the wrong neighbours")
+            split = raw_split_inputs(pc, pc, hx,
+                                     lr_idx[..., :g["convz"].nsample])
+        z = torch.sigmoid(g["convz"](pc, hx, group_idx=lr_idx,
+                                     split=split)[1])
+        r = torch.sigmoid(g["convr"](pc, hx, group_idx=lr_idx,
+                                     split=split)[1])
         q = torch.tanh(g["convq"](pc, torch.cat([r * h, x], -1),
                                   group_idx=lr_idx)[1])
         return (1 - z) * h + z * q
@@ -314,7 +332,9 @@ class FlowStep3D(nn.Module):
         pc1_new = pc1 + flow0.detach()
         pc1_new_lr = pc1_lr + flow0_lr.detach()
         reg = self.flow_regressor
-        for it in range(iters - 1):
+
+        def refine(it, h, pc1_new, pc1_new_lr):
+            """One GRU refinement iteration (flownet_kitti.py:231-250)."""
             pc1_new, pc1_new_lr = pc1_new.detach(), pc1_new_lr.detach()
             flow_lr = pc1_new_lr - pc1_lr
             pc1_new_l, feats1_new, _, _ = self._encode_loc(
@@ -331,5 +351,13 @@ class FlowStep3D(nn.Module):
             pc1_new_lr = pc1_new_lr + delta_lr
             pc1_new = pc1_new + self.flow_up_sample(pc1, pc1_lr, delta_lr,
                                                     cached=up)
+            return h, pc1_new, pc1_new_lr
+
+        # remat_refine (train_flow --remat scan): each iteration under a
+        # checkpoint of its own, its selections pinned (ops/remat.py).
+        step = remat.checkpoint(refine, "full" if self.remat_refine
+                                and self.training else None)
+        for it in range(iters - 1):
+            h, pc1_new, pc1_new_lr = step(it, h, pc1_new, pc1_new_lr)
             flows.append(pc1_new - pc1)
         return flows

@@ -1,29 +1,35 @@
 """FlowStep3D building blocks, channels-last (counterpart of
 ogc_tpu/nn/flowstep3d.py).
 
-KNN-grouped set abstraction with BatchNorm, cross-cloud FlowEmbedding
-correlation and MLP-free feature propagation (reference
+KNN-grouped set abstraction with BatchNorm or InstanceNorm, cross-cloud
+FlowEmbedding correlation and MLP-free feature propagation (reference
 utils/flowstep3d_util.py).  Parameter names and shapes follow the reference
 state_dict: ``mlp_convs.{j}.weight`` (C_out, C_in, 1, 1) and
-``mlp_bns.{j}.{weight,bias,running_mean,running_var,num_batches_tracked}``,
-so reference checkpoints load unchanged.
+``mlp_bns.{j}.{weight,bias,running_mean,running_var,num_batches_tracked}``
+(InstanceNorm: ``weight`` and ``bias``), so reference checkpoints load
+unchanged, in either compute dtype.
 
-In float32, as the JAX package computes them by default.  Eval: every
-grouped stack with xyz takes the source-projected first layer
-(ogc_tpu/nn/flowstep3d.py:179-232, on for every dtype in eval unless
-``OGC_EVAL_FOLD=off``): the first 1x1 conv is applied to the N source
-points, the eval BatchNorm affine folded into it, the projections gathered,
-and the centre's projection subtracted per group.  The last layer of a
-multi-layer stack folds its eval BatchNorm affine and ReLU into the
-neighbour pool (``_fold_bn_pool``); every eval pool is
-``ops.pool_neighbors`` (#12 behind its gate).  Train (``module.train()``):
-the reference-shaped grouped tensor (relative xyz, then features), conv,
-BatchNorm on batch statistics and ReLU per layer, and a ``torch.amax`` pool,
-whose gradient splits evenly among tied rows as ``jnp.max``'s does (the
-radius clamp duplicates rows, so ties are common).  BatchNorm takes its
-momentum from ``set_bn_momentum`` (the trainer's schedule).  The bf16
-compute mode and InstanceNorm raise: no flow config sets bf16 or
-``use_instance_norm`` (ROADMAP.md A.8, A.13).
+As the JAX package computes them.  Eval: every grouped stack with xyz takes
+the source-projected first layer (ogc_tpu/nn/flowstep3d.py:179-237, in
+every dtype unless ``OGC_EVAL_FOLD=off`` or with InstanceNorm): the first
+1x1 conv is applied to the N source points, the eval BatchNorm affine folded
+into it, the projections (cast to the compute dtype) gathered, and the
+centre's projection subtracted per group.  The last layer of a stack folds
+its eval BatchNorm affine and ReLU into the neighbour pool; every eval pool
+is ``ops.pool_neighbors`` (#12 behind its gate).  Train (``module.train()``):
+BatchNorm on batch statistics, and a ``torch.amax`` pool, whose gradient
+splits evenly among tied rows as ``jnp.max``'s does (the radius clamp
+duplicates rows, so ties are common); in float32 the first layer takes the
+reference-shaped grouped tensor (relative xyz, then features), in bf16 the
+raw-gather split (``W raw - W center``, :238-247).  BatchNorm takes its
+momentum from ``set_bn_momentum`` (the trainer's schedule).
+
+The bf16 compute mode (``nn.layers.compute_dtype``): every product that
+touches raw coordinates (the first layer's, in every form) runs in float32
+and is cast after it; later layers run in bf16, the norms normalise in bf16
+from float32 statistics, and the pools run in bf16 before the float32 cast
+(:80-121, :268-271).  InstanceNorm (``use_instance_norm``) skips the eval
+fold and the pool folds, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -36,26 +42,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from ogc_tpu_torch import ops
-from ogc_tpu_torch.nn.layers import compute_dtype
+from ogc_tpu_torch.nn.layers import (compute_dtype, form_enabled,
+                                     raw_split_inputs, to_compute)
+from ogc_tpu_torch.ops import remat
 from ogc_tpu_torch.parallel import mesh
 
 
-def _f32_only() -> None:
-    if compute_dtype() is not None:
-        raise NotImplementedError(
-            "FlowStep3D in the bf16 compute mode is not ported (no flow "
-            "config sets it; ROADMAP.md A.8)")
+def _affine(x, mean, var, eps, weight, bias):
+    """(x - mean) * rsqrt(var + eps) * weight + bias in x's dtype, each
+    operand cast to it (the JAX package's normalisation)."""
+    dt = x.dtype
+    y = (x - mean.to(dt)) * torch.rsqrt(var + eps).to(dt)
+    return y * weight.to(dt) + bias.to(dt)
 
 
 class SchedulableBatchNorm(nn.BatchNorm2d):
     """BatchNorm over every axis but the last (ogc_tpu/nn/flowstep3d.py:44)
     on the reference BatchNorm2d's parameters and running statistics,
-    applied channels-last.
+    applied channels-last, normalising in the input's dtype.
 
     Train: batch statistics in float32 (or the input's wider dtype),
     normalised with the biased variance; the running statistics move
     torch-style, ``(1 - m) * run + m * batch``, with the unbiased variance
-    (:103-107) and the momentum m the trainer set (``set_bn_momentum``).
+    (:103-107) and the momentum m the trainer set (``set_bn_momentum``),
+    except in a remat recompute (the forward moved them).
     With ``sync = "global"`` under data parallelism the statistics are the
     global batch's, in two passes (:95-113): the mean averaged over ranks,
     then the second moment centred on that mean averaged over ranks (not
@@ -66,11 +76,9 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
     sync = "local"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _f32_only()
         if not self.training:
-            y = (x - self.running_mean) * torch.rsqrt(self.running_var
-                                                      + self.eps)
-            return y * self.weight + self.bias
+            return _affine(x, self.running_mean, self.running_var, self.eps,
+                           self.weight, self.bias)
         if self.momentum is None:
             raise ValueError("SchedulableBatchNorm needs a momentum "
                              "(set_bn_momentum), not a cumulative average")
@@ -84,18 +92,19 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
             n *= ranks
         else:
             var, mean = torch.var_mean(xf, dim=0, correction=0)
-        with torch.no_grad():
-            f = (np.float64 if self.running_mean.dtype == torch.float64
-                 else np.float32)
-            m = f(self.momentum)
-            keep = float(f(1) - m)
-            self.running_mean.copy_(keep * self.running_mean
-                                    + float(m) * mean)
-            self.running_var.copy_(keep * self.running_var
-                                   + float(m) * (var * n / max(n - 1, 1)))
-            self.num_batches_tracked.add_(1)
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        if not remat.recomputing():
+            with torch.no_grad():
+                f = (np.float64 if self.running_mean.dtype == torch.float64
+                     else np.float32)
+                m = f(self.momentum)
+                keep = float(f(1) - m)
+                self.running_mean.copy_(keep * self.running_mean
+                                        + float(m) * mean)
+                self.running_var.copy_(
+                    keep * self.running_var
+                    + float(m) * (var * n / max(n - 1, 1)))
+                self.num_batches_tracked.add_(1)
+        return _affine(x, mean, var, self.eps, self.weight, self.bias)
 
     def eval_affine(self):
         """The eval affine (k, b) with BN(y) = y * k + b: k = weight *
@@ -113,24 +122,39 @@ def set_bn_momentum(model: nn.Module, momentum: float) -> None:
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d(affine=True) of the reference; no config uses it."""
+    """InstanceNorm2d(affine=True) of the reference, channels-last
+    (ogc_tpu/nn/flowstep3d.py:124-143): per sample and channel, statistics
+    in float32 over every axis but the first and the last (biased
+    variance), normalised in the input's dtype, then the affine.  The same
+    in train and eval; no running statistics."""
 
-    def __init__(self, num_features: int):
-        raise NotImplementedError(
-            "use_instance_norm: InstanceNorm is not ported (no flow config "
-            "sets it; ROADMAP.md open items)")
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, dim=tuple(range(1, x.dim() - 1)),
+                                   correction=0, keepdim=True)
+        return _affine(x, mean, var, self.eps, self.weight, self.bias)
 
 
 class _ConvStack(nn.Module):
-    """Conv(1x1, no bias) + BatchNorm + ReLU per layer, then a max pool over
-    the neighbours (flowstep3d_util.py:19-25, 84-91); ``use_act=False`` is
-    conv only (:123-128)."""
+    """Conv(1x1, no bias) + norm + ReLU per layer, then a max pool over the
+    neighbours (flowstep3d_util.py:19-25, 84-91); ``use_act=False`` is conv
+    only (:123-128)."""
+
+    #: a checkpoint of its own under ``--remat`` (ops/remat.py)
+    remat_block = True
 
     def __init__(self, in_channels: int, mlp: Sequence[int],
                  use_act: bool = True, use_instance_norm: bool = False):
         super().__init__()
         self.mlp = tuple(mlp)
         self.use_act = use_act
+        self.inorm = use_instance_norm
         chans = (in_channels,) + self.mlp
         self.mlp_convs = nn.ModuleList(
             nn.Conv2d(chans[j], chans[j + 1], 1, bias=False)
@@ -142,36 +166,55 @@ class _ConvStack(nn.Module):
     def _w(self, j: int) -> torch.Tensor:
         return self.mlp_convs[j].weight.flatten(1)
 
+    def _dense(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Layer j's product in the compute dtype (``nn.Dense(dtype=
+        compute_dtype())``)."""
+        return F.linear(to_compute(x), to_compute(self._w(j)))
+
     @staticmethod
     def _pool(x, **kw):
         return ops.pool_neighbors(x, differentiable=False, **kw)
 
-    def _layers(self, x: torch.Tensor, start: int) -> torch.Tensor:
-        """Layers ``start``.. on a grouped (B, M, S, C) tensor, then the
-        pool; in eval the last BatchNorm layer folds into it, in train the
-        pool is ``torch.amax``."""
+    def _layers(self, x: torch.Tensor, start: int,
+                product: bool = True) -> torch.Tensor:
+        """Layers ``start``.. on a grouped (B, M, S, C) tensor (layer
+        ``start``'s product already taken unless ``product``), then the
+        pool and the float32 cast; in eval with BatchNorm the last layer's
+        affine and ReLU fold into the pool, in train the pool is
+        ``torch.amax``."""
         last = len(self.mlp) - 1
         for j in range(start, len(self.mlp)):
-            x = F.linear(x, self._w(j))
+            if product or j > start:
+                x = self._dense(x, j)
             if not self.use_act:
                 continue
-            if j == last and not self.training:
+            if j == last and not self.training and not self.inorm:
                 k, b = self.mlp_bns[j].eval_affine()
-                return self._pool(x, scale=k, add=b, relu=True)
+                return ops.widen(self._pool(x, scale=k, add=b, relu=True))
             x = F.relu(self.mlp_bns[j](x))
         if self.training:
-            return torch.amax(x, 2)
-        return self._pool(x)
+            return ops.widen(torch.amax(x, 2))
+        return ops.widen(self._pool(x))
 
     def stack(self, xyz: torch.Tensor, new_xyz: torch.Tensor,
-              feat: Optional[torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+              feat: Optional[torch.Tensor], idx: torch.Tensor,
+              split=None) -> torch.Tensor:
         """(B, M, mlp[-1]) from the source points xyz (B, N, 3) with
         ``feat`` (B, N, C), the centres new_xyz (B, M, 3) and the neighbour
-        table idx (B, M, S): ``fold`` in eval; in train the reference-shaped
-        grouped tensor (ogc_tpu/nn/flowstep3d.py:291-323)."""
-        _f32_only()
-        if not self.training:
+        table idx (B, M, S), in the form FlowSAModule._grouped_inputs picks
+        (ogc_tpu/nn/flowstep3d.py:291-322): ``fold`` in eval; the raw-gather
+        split in bf16 (``split``: a caller's shared ``raw_split_inputs``);
+        else the reference-shaped grouped tensor."""
+        if split is None and not self.training and not self.inorm \
+                and form_enabled("OGC_EVAL_FOLD"):
             return self.fold(xyz, new_xyz, feat, idx)
+        if split is None and compute_dtype() is not None and feat is not None:
+            split = raw_split_inputs(xyz, new_xyz, feat, idx)
+        if split is not None:
+            raw, center_in = split
+            w0 = self._w(0)
+            x = F.linear(raw, w0) - F.linear(center_in, w0)[:, :, None, :]
+            return self._layers(to_compute(x), 0, product=False)
         grouped, _ = ops.group_with_idx(xyz, new_xyz, idx, feat)
         return self._layers(grouped, 0)
 
@@ -180,7 +223,8 @@ class _ConvStack(nn.Module):
         """The source-projected stack (ogc_tpu/nn/flowstep3d.py:179-237):
         (B, M, mlp[-1]) from the source points xyz (B, N, 3) with ``feat``
         (B, N, C), the centres new_xyz (B, M, 3) and the neighbour table
-        idx (B, M, S)."""
+        idx (B, M, S).  The projections are float32 (scene-scale xyz); the
+        gathered rows and the centre term are in the compute dtype."""
         w0 = self._w(0)
         src = xyz if feat is None else torch.cat([xyz, feat], -1)
         proj = F.linear(src, w0)
@@ -190,15 +234,15 @@ class _ConvStack(nn.Module):
         cproj = F.linear(cin, w0)
         if self.use_act:
             k, b = self.mlp_bns[0].eval_affine()
-            g = ops.group(proj * k, idx)
-            cterm = b - cproj * k
+            g = ops.group(to_compute(proj * k), idx)
+            cterm = to_compute(b - cproj * k)
         else:
-            g = ops.group(proj, idx)
-            cterm = -cproj
+            g = ops.group(to_compute(proj), idx)
+            cterm = to_compute(-cproj)
         if len(self.mlp) == 1:
             # Single-layer stacks (GRU gates, H0Net's second conv): the
             # per-group add and the activation fold into the pool.
-            return self._pool(g, add=cterm, relu=self.use_act)
+            return ops.widen(self._pool(g, add=cterm, relu=self.use_act))
         x = g + cterm[:, :, None, :]
         if self.use_act:
             x = F.relu(x)
@@ -228,7 +272,7 @@ class FlowSAModule(_ConvStack):
                 group_idx: Optional[torch.Tensor] = None,
                 fps_nested: bool = False,
                 knn_idx: Optional[torch.Tensor] = None,
-                return_knn: bool = False):
+                return_knn: bool = False, split=None):
         """:param xyz: (B, N, 3); :param features: (B, N, C) or None.
         :param fps_idx: reusable (B, npoint) FPS indices.
         :param group_idx: a precomputed (B, N, >= nsample) KNN table of xyz
@@ -238,6 +282,9 @@ class FlowSAModule(_ConvStack):
             sample is its first npoint points (approximate mode).
         :param knn_idx: a frozen (B, M, >= nsample) neighbour table
             replacing the KNN search (radius None).
+        :param split: a ``raw_split_inputs`` of (xyz, features,
+            group_idx) shared with another module (the GRU's convz / convr
+            in bf16 training); only with group_idx.
         :return: (new_xyz (B, M, 3), new_feats (B, M, mlp[-1]), fps_idx
             [, the (B, M, nsample) neighbour table]).
         """
@@ -245,7 +292,7 @@ class FlowSAModule(_ConvStack):
             if return_knn or self.npoint not in (None, -1, xyz.shape[1]):
                 raise ValueError("group_idx needs an identity npoint")
             out = self.stack(xyz, xyz, features,
-                             group_idx[..., :self.nsample])
+                             group_idx[..., :self.nsample], split)
             return xyz, out, fps_idx
         if self.npoint not in (None, -1, xyz.shape[1]):
             if fps_idx is None and fps_nested:
@@ -301,8 +348,13 @@ class FlowEmbedding(_ConvStack):
     """Cross-cloud correlation: for each point of cloud 1, its nsample KNN
     in cloud 2 (radius-clamped), the stack over [pos_diff, feat2_grouped,
     feat1] and a max pool (reference FlowEmbedding, corr_func 'concat',
-    utils/flowstep3d_util.py:7-66; ogc_tpu/nn/flowstep3d.py:475 and the
-    float32 path of _FlowEmbedStack)."""
+    utils/flowstep3d_util.py:7-66; ogc_tpu/nn/flowstep3d.py:475 and
+    _FlowEmbedStack).  float32: the reference-shaped tensor.  bf16: the
+    first layer by column blocks of its weight, W = [W_pos | W_f2 | W_f1]
+    (:541-659): in eval with BatchNorm cloud 2's rows are projected before
+    the gather with the eval affine folded in (``fold_src``), in train (or
+    with InstanceNorm) the gathered rows are; the feat1 / pos1 terms are
+    per point.  Those products run in float32 and are cast after them."""
 
     def __init__(self, radius: float, nsample: int, mlp: Sequence[int],
                  in_channels: int, use_instance_norm: bool = False):
@@ -314,13 +366,27 @@ class FlowEmbedding(_ConvStack):
     def forward(self, pos1, pos2, feature1, feature2):
         """:param pos1, pos2: (B, N, 3); :param feature1, feature2: (B, N, C).
         :return: (pos1, (B, N, mlp[-1]))."""
-        _f32_only()
         dist, idx = ops.knn(self.nsample, pos1, pos2)
         idx = torch.where(dist > self.radius, idx[..., :1], idx)
+        w0 = self._w(0)
+        c2 = 3 + feature2.shape[-1]
+        if compute_dtype() is None:
+            g = ops.group(torch.cat([pos2, feature2], -1), idx)
+            pos_diff = g[..., :3] - pos1[:, :, None, :]
+            feat1 = feature1[:, :, None, :].expand(*g.shape[:3],
+                                                   feature1.shape[-1])
+            x = F.linear(torch.cat([pos_diff, g[..., 3:], feat1], -1), w0)
+            x = F.relu(self.mlp_bns[0](x))
+            return pos1, self._layers(x, 1)
+        point = (F.linear(feature1, w0[:, c2:])
+                 - F.linear(pos1, w0[:, :3]))
+        if not self.training and not self.inorm:
+            proj2 = F.linear(torch.cat([pos2, feature2], -1), w0[:, :c2])
+            k, b = self.mlp_bns[0].eval_affine()
+            gp = ops.group(to_compute(proj2 * k), idx)
+            x = F.relu(gp + to_compute(point * k + b)[:, :, None, :])
+            return pos1, self._layers(x, 1)
         g = ops.group(torch.cat([pos2, feature2], -1), idx)
-        pos_diff = g[..., :3] - pos1[:, :, None, :]
-        feat1 = feature1[:, :, None, :].expand(*g.shape[:3],
-                                               feature1.shape[-1])
-        x = F.linear(torch.cat([pos_diff, g[..., 3:], feat1], -1), self._w(0))
+        x = to_compute(F.linear(g, w0[:, :c2]) + point[:, :, None, :])
         x = F.relu(self.mlp_bns[0](x))
         return pos1, self._layers(x, 1)

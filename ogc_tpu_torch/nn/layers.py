@@ -16,6 +16,7 @@ normalises in bf16 (the JAX package's GroupStatsNorm, same parameters).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -34,6 +35,18 @@ def set_compute_dtype(dtype: Optional[torch.dtype]) -> None:
 
 def compute_dtype() -> Optional[torch.dtype]:
     return _COMPUTE_DTYPE
+
+
+def to_compute(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the compute dtype (float32 mode: as it is)."""
+    return x if _COMPUTE_DTYPE is None else x.to(_COMPUTE_DTYPE)
+
+
+def form_enabled(var: str) -> bool:
+    """The JAX package's switches of the first layer's forms,
+    ``OGC_EVAL_FOLD`` and ``OGC_TRAIN_SPLIT``: on unless set to ``off``
+    (read at each call)."""
+    return os.environ.get(var, "on") != "off"
 
 
 class GroupNorm(nn.Module):
@@ -153,3 +166,20 @@ def MLP(in_dim: int, hidden_dim: int, out_dim: int) -> nn.Sequential:
     """Linear -> ReLU -> Linear (utils/transformer_util.py:24-28, 79-83)."""
     return nn.Sequential(nn.Linear(in_dim, hidden_dim), nn.ReLU(),
                          nn.Linear(hidden_dim, out_dim))
+
+
+def raw_split_inputs(xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     features: torch.Tensor, idx: torch.Tensor):
+    """(raw, center_in) of the raw-gather split first layer
+    (ogc_tpu/nn/layers.py::raw_split_inputs): one gather of the
+    [xyz || features] rows and the per-centre correction input
+    [center || zeros], so that a first product with no bias is
+    ``W raw - W center_in``.  Shared by FlowSAModule and the GRU's
+    convz / convr."""
+    from ogc_tpu_torch import ops
+
+    raw = ops.group(torch.cat([xyz, features], -1), idx)
+    center_in = torch.cat(
+        [new_xyz, new_xyz.new_zeros(new_xyz.shape[:2] + features.shape[-1:])],
+        -1)
+    return raw, center_in

@@ -4,18 +4,26 @@
 SA = FPS -> KNN grouping with a per-scale radius clamp -> SharedMLP -> max
 over the neighbourhood (ops.pool_neighbors, #12 behind its gate); FP =
 three_nn inverse-distance interpolation + SharedMLP (reference
-utils/pointnet2_util.py:9-121).  In float32 this is the reference-shaped
-chain, i.e. what the JAX package computes with OGC_EVAL_FOLD=off; the JAX
-package's source-projected eval fold differs from it by matmul
-reassociation only (~1e-6).
+utils/pointnet2_util.py:9-121).
 
-In the bf16 compute mode the first layer of each grouped stack keeps
-float32 on the raw coordinates, as the JAX package places it
-(ogc_tpu/nn/pointnet2.py:257-406): in training its product runs in float32
-on the centred group and is cast to bf16 after the centre correction (the
-split form); in eval the first layer projects the SOURCE points in float32,
-the projections are cast to bf16 and gathered, and the centre's projection,
-also cast, is subtracted from the gathered rows (the source-projected fold).
+The first layer of a grouped stack with features and a norm takes the JAX
+package's forms in every compute dtype (ogc_tpu/nn/pointnet2.py:225-406),
+its products in float32 on the coordinates: in eval the source-projected
+fold (every scale's first layer projects the SOURCE points, the projections,
+cast to the compute dtype, are gathered once, and the centre's projection
+is subtracted from the gathered rows), which differs from the
+reference-shaped chain by the order of float32 sums only (~1e-6); in
+training the split: the first product in float32, cast to the compute dtype
+after it.  The port's split takes the product of the centred rows, where
+the JAX package's takes W raw - W centre: that form's gradient in the xyz
+columns is a difference of two sums of raw coordinates, and it moved the
+validation terms of tests/test_torch_dp.py's two-rank train_seg epoch
+6.3e-3 from the JAX CLI's (the smooth term), against 1e-4 for the centred
+rows.  In float32 the split is therefore the reference-shaped product; in
+bf16 it keeps the float32 product that the reference shape
+(``OGC_TRAIN_SPLIT=off``: SharedMLP on the centred rows in the compute
+dtype) gives up.  ``OGC_EVAL_FOLD=off`` restores the reference-shaped eval
+chain.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ogc_tpu_torch import ops
-from ogc_tpu_torch.nn.layers import SharedMLP, compute_dtype
+from ogc_tpu_torch.nn.layers import SharedMLP, form_enabled, to_compute
 
 
 class SAModuleMSG(nn.Module):
@@ -36,6 +44,9 @@ class SAModuleMSG(nn.Module):
     :param in_channels: feature channels C of the input (without xyz).
     :param mlps: output channels per layer, one tuple per scale.
     """
+
+    #: a checkpoint of its own under ``--remat`` (ops/remat.py)
+    remat_block = True
 
     def __init__(self, npoint: int, radii: Sequence[Optional[float]],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
@@ -69,12 +80,13 @@ class SAModuleMSG(nn.Module):
         # One KNN serves every scale: the scales share nsample and differ only
         # in the clamp radius, and a smaller nsample is a sorted prefix.
         dist, idx = ops.knn(max(self.nsamples), new_xyz, xyz)
-        # The bf16 forms need a norm after the first product (no bias),
-        # as the JAX package's split and fold do.
-        dt = compute_dtype() if self.num_groups is not None else None
-        if dt is not None and not self.training and features is not None \
-                and self.use_xyz:
-            return new_xyz, self._fold(xyz, new_xyz, features, dist, idx, dt)
+        # The fold and the split need a norm after the first product (no
+        # bias), as the JAX package's do.
+        forms = (features is not None and self.use_xyz
+                 and self.num_groups is not None)
+        if forms and not self.training and form_enabled("OGC_EVAL_FOLD"):
+            return new_xyz, self._fold(xyz, new_xyz, features, dist, idx)
+        split = forms and self.training and form_enabled("OGC_TRAIN_SPLIT")
         outs = []
         for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
             i = idx[..., :nsample]
@@ -82,23 +94,26 @@ class SAModuleMSG(nn.Module):
                 i = torch.where(dist[..., :nsample] > radius, i[..., :1], i)
             grouped, _ = ops.group_with_idx(xyz, new_xyz, i, features,
                                             self.use_xyz)
-            # The split form: the first product in float32, cast to the
-            # compute dtype after it.
-            h = F.linear(ops.widen(grouped),
-                         mlp.layer0.conv.weight.flatten(1),
-                         mlp.layer0.conv.bias)
-            h = mlp.rest(mlp.layer0.post(h if dt is None else h.to(dt)))
+            if split:
+                # The first product in float32 on the centred rows, cast
+                # to the compute dtype after it.
+                h = F.linear(ops.widen(grouped),
+                             mlp.layer0.conv.weight.flatten(1))
+                h = mlp.rest(mlp.layer0.post(to_compute(h)))
+            else:
+                h = mlp(grouped)
             outs.append(ops.pool_neighbors(h, differentiable=self.training))
         return new_xyz, torch.cat(outs, -1)
 
-    def _fold(self, xyz, new_xyz, features, dist, idx, dt):
-        """The bf16 eval path: every scale's first product applied to the
-        source points in float32, one gather of the bf16 projections, the
-        radius clamp as a row select, the centre term subtracted in bf16."""
+    def _fold(self, xyz, new_xyz, features, dist, idx):
+        """The eval fold: every scale's first product applied to the source
+        points in float32, one gather of the projections (in the compute
+        dtype), the radius clamp as a row select, the centre term
+        subtracted in the compute dtype."""
         w = torch.cat([m.layer0.conv.weight.flatten(1) for m in self.mlps])
-        proj = F.linear(torch.cat([xyz, features], -1).float(), w)
-        cproj = F.linear(new_xyz.float(), w[:, :3]).to(dt)
-        g = ops.group(proj.to(dt), idx)  # (B, M, k_max, sum c0)
+        proj = F.linear(ops.widen(torch.cat([xyz, features], -1)), w)
+        cproj = to_compute(F.linear(ops.widen(new_xyz), w[:, :3]))
+        g = ops.group(to_compute(proj), idx)  # (B, M, k_max, sum c0)
         outs, off = [], 0
         for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
             c0 = mlp.layer0.conv.weight.shape[0]
@@ -127,6 +142,8 @@ class FPModule(nn.Module):
 
     :param in_channels: known_feats channels + unknown_feats channels.
     """
+
+    remat_block = True
 
     def __init__(self, in_channels: int, mlp: Sequence[int],
                  num_groups: Optional[int] = None):

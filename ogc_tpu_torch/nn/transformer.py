@@ -84,6 +84,9 @@ class MaskFormerHead(nn.Module):
     """K learned queries refined by decoder layers
     (utils/transformer_util.py:62-121)."""
 
+    #: a checkpoint of its own under ``--remat`` (ops/remat.py)
+    remat_block = True
+
     def __init__(self, n_slot: int, input_dim: int = 256,
                  n_transformer_layer: int = 2, transformer_embed_dim: int = 256,
                  transformer_n_head: int = 8, transformer_hidden_dim: int = 256,

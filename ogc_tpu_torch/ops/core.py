@@ -38,6 +38,9 @@ SA0's k 64 lists 6 of 8192 before the radius clamp (0 after the 0.1 clamp,
 3 after the 0.2 one), and none at SA1, the two FP three_nn, the smooth KNN
 and ball, and OA-ICP's k = 1 interpolation.
 
+FPS, KNN and ball query are ``ops.remat.pinned``: under a remat checkpoint
+the recompute takes the forward's selections instead of searching again.
+
 ``pool_neighbors`` (ops/pool.py, #12) reduces grouped features over the
 neighbour axis behind the JAX package's ``OGC_PALLAS_POOL`` gate.
 
@@ -66,6 +69,7 @@ from ogc_tpu_torch.ops.knn_pruned import knn_exact_pruned
 from ogc_tpu_torch.ops.onehot import (gather_rows_onehot,
                                       onehot_path_applicable,
                                       scatter_add_rows_onehot)
+from ogc_tpu_torch.ops.remat import pinned
 from ogc_tpu_torch.ops.scatter import scatter_add_rows
 
 
@@ -104,6 +108,7 @@ def widen(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+@pinned
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """:param xyz: (B, N, 3).  :return: (B, npoint) int32 indices."""
     return fps(widen(xyz), npoint)
@@ -123,6 +128,14 @@ class _Gather(torch.autograd.Function):
         ctx.n_dest = points.shape[1]
         ctx.onehot = onehot
         if onehot:
+            if points.element_size() == 2:
+                # bf16 rows: a gather copies bits, so the kernel (float32
+                # only) moves them as float32 words, two channels a word.
+                if points.shape[-1] % 2:
+                    return gather_rows_onehot(points.float(),
+                                              idx).to(points.dtype)
+                words = points.contiguous().view(torch.float32)
+                return gather_rows_onehot(words, idx).view(points.dtype)
             return gather_rows_onehot(points, idx)
         rows = torch.arange(points.shape[0], device=points.device)[:, None]
         return points[rows, idx.long()]
@@ -151,6 +164,7 @@ def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, M, S, C)
 
 
+@pinned
 def knn(k: int, query: torch.Tensor, points: torch.Tensor,
         exact: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of ``query`` (B, N, 3) in ``points`` (B, M, 3).
@@ -207,6 +221,7 @@ def upsample_feat(pc: torch.Tensor, pc_sub: torch.Tensor,
     return three_interpolate(feat_sub, idx, weight)
 
 
+@pinned
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor,
                exact: Optional[bool] = None) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Evaluate the object segmentation network (AP@50, PQ/F1/Pre/Rec, mIoU, RI)
 with the PyTorch port.
 
-Usage (the flags of the repo's test_seg.py, minus --visualize):
+Usage (the flags of the repo's test_seg.py):
     python -m ogc_tpu_torch.test_seg <config.yaml> --split val --round R \
-        [--test_batch_size 8] [--dp N] [--device cuda] [--save]
+        [--test_batch_size 8] [--dp N] [--device cuda] [--save] [--visualize]
 
 Weights are read from ``<save_path>[_R<round>]/best.pth.tar`` as
 ``{"model_state": state_dict}``.  Neighbour search is exact unless
@@ -11,6 +11,10 @@ Weights are read from ``<save_path>[_R<round>]/best.pth.tar`` as
 FPS), as in the JAX package's test_seg.py.  ``--dp N`` shards each batch
 over N local cards (0: all; more than the machine has raises), or N
 replicas with ``--device cpu`` (parallel/mesh.py::dp_eval_fwd).
+``--visualize`` evaluates nothing: it writes ``vis_seg/{i:04d}_{t}_{gt,pred}
+.png`` (the ground truth and the predicted segments of every frame of the
+first 20 scenes, utils/visual.py) into the working directory, as the JAX
+CLI does.
 """
 
 from __future__ import annotations
@@ -167,6 +171,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--split", type=str, default="test", help="Dataset split")
     parser.add_argument("--round", type=int, default=0,
                         help="Trained segmentation model of which round")
+    parser.add_argument("--visualize", default=False, action="store_true",
+                        help="Write GT / prediction PNGs of the first 20 "
+                             "scenes to vis_seg/ and stop")
     parser.add_argument("--test_batch_size", type=int, default=64)
     parser.add_argument("--curate_by_object", type=int, default=0,
                         help="Only evaluate scenes with more objects than this")
@@ -189,6 +196,31 @@ def segnet_forward(args):
     return mesh.dp_eval_fwd(lambda m, x: m(x, x), devices, segnet)
 
 
+def visualize(forward, test_set, n_frame: int,
+              vis_dir: str = "vis_seg") -> Dict[str, object]:
+    """The JAX CLI's headless qualitative mode (test_seg.py:153-175): for
+    each of the first 20 scenes, the ground truth and the argmax
+    prediction of every frame as PNGs in ``vis_dir``."""
+    from ogc_tpu_torch.utils.visual import scatter_segm_png
+
+    os.makedirs(vis_dir, exist_ok=True)
+    loader = DataLoader(test_set, batch_size=n_frame, shuffle=False,
+                        num_workers=2)
+    files = []
+    for i, batch in enumerate(loader):
+        if i >= 20:
+            break
+        pcs, segms, _, _ = batch
+        pc, segm = pcs[:, 0], segms[:, 0]
+        pred = forward(pc).argmax(2)
+        for t in range(pc.shape[0]):
+            for tag, seg in (("gt", segm[t]), ("pred", pred[t])):
+                files.append(osp.join(vis_dir, f"{i:04d}_{t}_{tag}.png"))
+                scatter_segm_png(pc[t], seg, files[-1])
+    print("Saved qualitative results to", vis_dir)
+    return {"vis_files": files}
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Run the evaluation; print the reference's report and return the
     metrics plus the per-batch forward times (seconds)."""
@@ -202,6 +234,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         batch_size = n_frame
     if batch_size % n_frame:
         raise ValueError("Frames of one scene should be in the same batch!")
+    if args.visualize:
+        return visualize(forward, test_set, n_frame)
 
     if args.save:
         save_dir = osp.join(data_root, "segm_preds/OGC" + "_R%d" % args.round)

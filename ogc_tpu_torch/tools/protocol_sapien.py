@@ -5,7 +5,8 @@ Modes, as the JAX runner's: ``default`` trains with the training defaults
 (float32, approximate neighbours); ``fast`` with bf16 and approximate
 neighbours; ``parity`` with float32 and exact neighbours
 (``OGC_EXACT_NEIGHBORS=1`` in the train processes).  The evaluating CLIs
-keep their exact default in every mode.
+keep their exact default in every mode.  ``--graph mutual`` trains the
+smooth loss on the mutual graph (the JAX runner's arm).
 
 The reference's R-round recipe (reference README.md:215-222):
 
@@ -23,7 +24,8 @@ ref_scenes so each fires at the same fraction of training.  Round-1
 "flowstep3d" predictions are the ground-truth flows.
 
     python -m ogc_tpu_torch.tools.protocol_sapien --seed 0 \
-        [--mode default|fast|parity] [--device cuda]
+        [--mode default|fast|parity] [--graph reference|mutual] \
+        [--device cuda]
 
 Writes <out>/summary.json: final metrics of test_seg and vote, the OA-ICP
 flow reports, per-epoch trajectories and stage wall times.
@@ -87,7 +89,7 @@ def build_cfg(args, root, save_root, woinv: bool):
             "start_steps": [0, smooth_start, 0],
             "dynamic_loss_params": {"loss_norm": 2},
             "smooth_loss_params": {
-                "graph": "reference", "ref_bwd": "autodiff",
+                "graph": args.graph, "ref_bwd": "autodiff",
                 "w_knn": 3.0, "w_ball_q": 1.0,
                 "knn_loss_params": {"k": 8, "radius": 0.1, "loss_norm": 1},
                 "ball_q_loss_params": {"k": 16, "radius": 0.2,
@@ -161,6 +163,10 @@ def main(argv=None):
                     default="default",
                     help="default: approx+f32 (training defaults); fast: "
                          "bf16+approx; parity: f32+exact neighbours")
+    ap.add_argument("--graph", choices=("reference", "mutual"),
+                    default="reference",
+                    help="the smooth loss's graph (smooth_loss_params."
+                         "graph)")
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--n_scenes", type=int, default=120)
@@ -171,7 +177,7 @@ def main(argv=None):
     ap.add_argument("--keep_data", action="store_true")
     args = ap.parse_args(argv)
 
-    tag = f"s{args.seed}_{args.mode}_reference"
+    tag = f"s{args.seed}_{args.mode}_{args.graph}"
     out = args.out or osp.join(tempfile.gettempdir(),
                                f"ogc_torch_protocol_{tag}")
     os.makedirs(out, exist_ok=True)

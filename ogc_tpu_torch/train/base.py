@@ -12,6 +12,10 @@ global batch weighted by its true global size (ogc_tpu/train/seg.py:
 336-341), the same on every rank, so every rank reaches the same ``best``;
 PQ/F1 come from every rank's true rows; rank 0 prints, logs and writes the
 checkpoints.
+
+``remat`` (the CLIs' ``--remat``, ops/remat.py) checkpoints the model
+forward of a train step: ``full`` or ``dots``, gradients and running
+statistics bit-equal to none.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ogc_tpu_torch.metrics.seg import accumulate_eval_results, calculate_PQ_F1
+from ogc_tpu_torch.ops import remat as remat_mod
 from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.utils.checkpoint import resume_trainer, save_trainer
 from ogc_tpu_torch.utils.meters import AverageMeter
@@ -89,8 +94,12 @@ class EpochTrainer:
     ignore_npoint_thresh = 0
 
     def __init__(self, model: torch.nn.Module, optimizer, exp_base: str,
-                 device: torch.device, writer=None):
+                 device: torch.device, writer=None,
+                 remat: Optional[str] = None):
         self.model = model
+        #: the model forward's rematerialisation under grad (ops/remat.py:
+        #: None, "full" or "dots"; None reads OGC_REMAT)
+        self.remat = remat_mod.resolve(remat)
         self.optimizer = optimizer
         self.exp_base = exp_base
         self.device = device
@@ -101,6 +110,11 @@ class EpochTrainer:
         #: host seconds of each train_it (ends synchronised) and eval_epoch
         self.step_seconds: List[float] = []
         self.val_seconds: List[float] = []
+
+    def _remat(self, fn):
+        """``fn`` under the trainer's remat mode where grad is on."""
+        return remat_mod.checkpoint(
+            fn, self.remat if torch.is_grad_enabled() else None)
 
     def _scalar_dtype(self) -> torch.dtype:
         """The step scalars' dtype: the parameters' (float32, or float64

@@ -70,8 +70,9 @@ class FlowTrainer(EpochTrainer):
                  loss_cfg: FlowLossConfig, optimizer: Adam, exp_base: str,
                  device: torch.device,
                  bn_schedule: Optional[Callable[[int], float]] = None,
-                 writer=None, bn_sync: str = "local"):
-        super().__init__(model, optimizer, exp_base, device, writer)
+                 writer=None, bn_sync: str = "local",
+                 remat: Optional[str] = None):
+        super().__init__(model, optimizer, exp_base, device, writer, remat)
         if bn_sync not in ("local", "global"):
             raise ValueError(f"bn_sync must be local or global: {bn_sync!r}")
         self.model_iters = model_iters
@@ -96,7 +97,8 @@ class FlowTrainer(EpochTrainer):
         set_bn_momentum(self.model, self.bn_schedule(it))
         for p in self.model.parameters():
             p.grad = None
-        flow_preds = self.model(pc1, pc2, pc1, pc2, self.model_iters)
+        flow_preds = self._remat(self.model)(pc1, pc2, pc1, pc2,
+                                             self.model_iters)
         loss, ld = flowstep3d_loss(pc1, pc2, flow_preds, self.loss_cfg)
         loss.backward()
         with torch.no_grad():

@@ -15,7 +15,7 @@ rank), and the start-steps gate counts global samples.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,8 +119,9 @@ class SegTrainer(EpochTrainer):
     def __init__(self, model: torch.nn.Module, loss_cfg: OGCLossConfig,
                  optimizer: Adam, aug_transform_epoch: int,
                  ignore_npoint_thresh: int, exp_base: str,
-                 device: torch.device, writer=None, frame_stride: int = 1):
-        super().__init__(model, optimizer, exp_base, device, writer)
+                 device: torch.device, writer=None, frame_stride: int = 1,
+                 remat: Optional[str] = None):
+        super().__init__(model, optimizer, exp_base, device, writer, remat)
         self.frame_stride = frame_stride
         self.loss_cfg = loss_cfg
         self.aug_transform_epoch = aug_transform_epoch
@@ -133,7 +134,7 @@ class SegTrainer(EpochTrainer):
         """(B, T, N, 3) -> (B, T, N, K): every cloud in one forward."""
         B, T, N, _ = pcs.shape
         flat = pcs.reshape(B * T, N, 3)
-        return self.model(flat, flat).reshape(B, T, N, -1)
+        return self._remat(self.model)(flat, flat).reshape(B, T, N, -1)
 
     def _loss(self, pcs, flows, it_samples: int, step_w: bool, aug: bool
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:

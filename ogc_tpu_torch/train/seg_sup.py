@@ -14,7 +14,7 @@ as in train/seg.py.
 from __future__ import annotations
 
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +33,9 @@ class SupSegTrainer(EpochTrainer):
 
     def __init__(self, model: torch.nn.Module, loss_cfg: SupLossConfig,
                  optimizer: Adam, ignore_npoint_thresh: int, exp_base: str,
-                 device: torch.device, writer=None):
-        super().__init__(model, optimizer, exp_base, device, writer)
+                 device: torch.device, writer=None,
+                 remat: Optional[str] = None):
+        super().__init__(model, optimizer, exp_base, device, writer, remat)
         self.loss_cfg = loss_cfg
         self.ignore_npoint_thresh = ignore_npoint_thresh
 
@@ -44,7 +45,7 @@ class SupSegTrainer(EpochTrainer):
                 for a in (pcs[:, 0], segms[:, 0], valids[:, 0])]
 
     def _loss(self, pc, gt_mask, valid):
-        mask = self.model(pc, pc)
+        mask = self._remat(self.model)(pc, pc)
         loss, ld = supervised_mask_loss(mask, gt_mask, valid, self.loss_cfg)
         return loss, ld, mask
 

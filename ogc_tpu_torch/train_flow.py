@@ -18,8 +18,9 @@ Under ``torchrun`` it trains data parallel, one rank a card (gloo with
 ``--device cpu``; parallel/mesh.py), ``batch_size`` being the global batch;
 ``--bn_sync`` picks each rank's (``local``, the default) or the global
 batch's (``global``) BatchNorm statistics, the same computation on one
-rank.  ``--remat`` other than ``off`` raises: it is a memory option of the
-JAX package, and no config sets it.
+rank.  ``--remat full|dots`` recomputes the whole model forward in the
+backward, ``scan`` each refinement iteration (ops/remat.py), with the same
+gradients and running statistics.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from ogc_tpu_torch.data.base import DataLoader
 from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
 from ogc_tpu_torch.models.flownet import FlowStep3D
+from ogc_tpu_torch.ops import remat
 from ogc_tpu_torch.parallel import mesh
 from ogc_tpu_torch.train.flow import FlowTrainer, make_bn_schedule
 from ogc_tpu_torch.train.seg import Adam, make_lr_schedule
@@ -52,8 +54,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "state)")
     parser.add_argument("--remat", type=str, default=None,
                         choices=["off", "full", "dots", "scan"],
-                        help="TPU rematerialization mode (only off is "
-                             "ported)")
+                        help="Rematerialize the forward in the backward: "
+                             "full/dots the whole model, scan each "
+                             "refinement iteration (ops/remat.py; default "
+                             "$OGC_REMAT or off)")
     parser.add_argument("--bn_sync", type=str, default="local",
                         choices=["local", "global"],
                         help="BatchNorm statistics under data parallelism: "
@@ -88,14 +92,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Train; returns the best validation loss and the trainer (whose
     ``step_seconds``/``val_seconds`` hold the host-clock times)."""
     args = parse_args(argv)
-    if args.remat not in (None, "off"):
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
     load_config_into_args(args)
     set_deterministic(torch.device(args.device))
     device = mesh.init_data_parallel(args.device)
 
+    mode = remat.resolve(args.remat, ("full", "dots", "scan"))
     np.random.seed(args.random_seed)
     fn = args.flownet
     model = FlowStep3D(
@@ -105,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         k_decay_fact=fn["k_decay_fact"],
         generator=torch.Generator().manual_seed(args.random_seed)
     ).to(device)
+    model.remat_refine = mode == "scan"
     train_set, val_set = build_datasets(args)
     train_loader = DataLoader(train_set, batch_size=args.batch_size,
                               shuffle=True, seed=args.random_seed,
@@ -121,7 +123,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         bn_schedule=make_bn_schedule(args.bn_momentum, args.bn_decay,
                                      args.decay_step, args.batch_size),
         writer=JsonlWriter(osp.join(args.save_path, "log")),
-        bn_sync=args.bn_sync)
+        bn_sync=args.bn_sync, remat="off" if mode == "scan" else mode)
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(args.save_path, "current")) + 1

@@ -13,7 +13,8 @@ Writes ``<save_path>_R<round>/{current,best}.pth.tar`` (full train state;
 ``OGC_COMPUTE_DTYPE``) picks float32 or bf16.  On CUDA it turns on
 ``torch.use_deterministic_algorithms`` (with the cuBLAS workspace setting
 that mode requires) and turns TF32 off, so two runs from one seed give the
-same bits.
+same bits.  ``--remat full|dots`` (or ``OGC_REMAT``) recomputes the model
+forward in the backward (ops/remat.py), with the same gradients.
 
 Data parallel: launched by ``torchrun`` (``python -m torch.distributed.run
 --nproc_per_node N -m ogc_tpu_torch.train_seg ...``) it runs one rank a
@@ -107,7 +108,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--resume", default=False, action="store_true",
                         help="Resume from <save_path>_R<round>/current")
     parser.add_argument("--remat", type=str, default=None,
-                        help="TPU rematerialization mode (not ported)")
+                        choices=["off", "full", "dots"],
+                        help="Rematerialize the model forward in the "
+                             "backward (ops/remat.py; default $OGC_REMAT "
+                             "or off)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model trains on")
     return parser.parse_args(argv)
@@ -149,7 +153,7 @@ def run(args, model: MaskFormer3D, train_set, val_set,
         aug_transform_epoch=args.aug_transform_epoch,
         ignore_npoint_thresh=args.ignore_npoint_thresh, exp_base=exp_base,
         device=device, writer=JsonlWriter(osp.join(exp_base, "log")),
-        frame_stride=frame_stride)
+        frame_stride=frame_stride, remat=args.remat)
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(exp_base, "current")) + 1
@@ -163,10 +167,6 @@ def run(args, model: MaskFormer3D, train_set, val_set,
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Train; returns what ``run`` returns."""
     args = parse_args(argv)
-    if args.remat is not None:
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
     load_config_into_args(args)
     set_deterministic(torch.device(args.device))
 

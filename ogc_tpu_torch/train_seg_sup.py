@@ -10,8 +10,7 @@ Writes ``<save_path>/{current,best}.pth.tar`` (full train state;
 ``model_state`` is what ``ogc_tpu_torch.test_seg`` reads) and
 ``<save_path>/log/scalars.jsonl``.  Neighbour search follows
 ``OGC_EXACT_NEIGHBORS`` (approximate by default), as in train_seg.  On CUDA
-it runs deterministic, with TF32 off.  ``--remat`` other than ``off``
-raises, as in train_seg.  Under ``torchrun`` it trains data parallel, one
+it runs deterministic, with TF32 off.  ``--remat`` as in train_seg.  Under ``torchrun`` it trains data parallel, one
 rank a card (gloo with ``--device cpu``), as train_seg does.
 """
 
@@ -42,8 +41,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "state)")
     parser.add_argument("--remat", type=str, default=None,
                         choices=["off", "full", "dots"],
-                        help="TPU rematerialization mode (only off is "
-                             "ported)")
+                        help="Rematerialize the model forward in the "
+                             "backward (ops/remat.py; default $OGC_REMAT "
+                             "or off)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model trains on")
     return parser.parse_args(argv)
@@ -100,7 +100,8 @@ def run(args, model, train_set, val_set,
         model, loss_cfg, optimizer,
         ignore_npoint_thresh=args.ignore_npoint_thresh,
         exp_base=args.save_path, device=device,
-        writer=JsonlWriter(osp.join(args.save_path, "log")))
+        writer=JsonlWriter(osp.join(args.save_path, "log")),
+        remat=args.remat)
     start_epoch = 1
     if args.resume:
         start_epoch = trainer.resume(osp.join(args.save_path, "current")) + 1
@@ -114,10 +115,6 @@ def run(args, model, train_set, val_set,
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Train; returns what ``run`` returns."""
     args = parse_args(argv)
-    if args.remat not in (None, "off"):
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
     load_config_into_args(args)
     set_deterministic(torch.device(args.device))
 

@@ -12,7 +12,7 @@ deterministic on CUDA), on ``WaymoOpenDataset`` with the ``waymo`` (KITTI)
 segnet, taking every second frame of an item (the reference's
 pcs[:, ::2]).  The flows are ``<root>/flow_preds/<predflow_path>`` (with
 ``_R<round - 1>`` from round 2), or the dataset's own with
-``predflow_path: None``.  ``--remat`` other than ``off`` raises.  Under
+``predflow_path: None``.  ``--remat`` as in train_seg.  Under
 ``torchrun`` it trains data parallel, as train_seg.
 """
 
@@ -37,8 +37,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Resume from <save_path>_R<round>/current")
     parser.add_argument("--remat", type=str, default=None,
                         choices=["off", "full", "dots"],
-                        help="TPU rematerialization mode (only off is "
-                             "ported)")
+                        help="Rematerialize the model forward in the "
+                             "backward (ops/remat.py; default $OGC_REMAT "
+                             "or off)")
     parser.add_argument("--round", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model trains on")
@@ -48,10 +49,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Train; returns the best validation loss and the trainer."""
     args = parse_args(argv)
-    if args.remat not in (None, "off"):
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
     load_config_into_args(args)
     set_deterministic(torch.device(args.device))
 

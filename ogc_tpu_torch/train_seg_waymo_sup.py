@@ -12,7 +12,7 @@ neighbours unless ``OGC_EXACT_NEIGHBORS=1``; deterministic on CUDA) on
 classes 2 and 3 and objects under ``ignore_npoint_thresh`` points ignored,
 and the ``waymo`` (KITTI) segnet.  The items' two frames (the frame and,
 with ``aug_transform``, its augmented view) get zero flows, as the JAX
-CLI's ``_FlowPad``.  ``--remat`` other than ``off`` raises.  Under
+CLI's ``_FlowPad``.  ``--remat`` as in train_seg.  Under
 ``torchrun`` it trains data parallel, as train_seg_sup.
 """
 
@@ -54,8 +54,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "state)")
     parser.add_argument("--remat", type=str, default=None,
                         choices=["off", "full", "dots"],
-                        help="TPU rematerialization mode (only off is "
-                             "ported)")
+                        help="Rematerialize the model forward in the "
+                             "backward (ops/remat.py; default $OGC_REMAT "
+                             "or off)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model trains on")
     return parser.parse_args(argv)
@@ -82,10 +83,6 @@ def build_datasets(args):
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Train; returns the best validation loss and the trainer."""
     args = parse_args(argv)
-    if args.remat not in (None, "off"):
-        raise NotImplementedError(
-            "--remat is a TPU memory option of the JAX package; the port "
-            "does not rematerialize")
     load_config_into_args(args)
     set_deterministic(torch.device(args.device))
 

@@ -166,8 +166,10 @@ FLOW_FC_MAP = [("flow0_regressor.fc", "flow0_fc"),
 def flownet_state_dict_from_jax(variables: Mapping[str, Any]) -> State:
     """FlowStep3D flax variables ({'params', 'batch_stats'}) -> the
     reference state_dict as numpy arrays (conv weights (C_out, C_in, 1, 1),
-    BatchNorm2d entries with ``num_batches_tracked`` 0)."""
-    p, bs = variables["params"], variables["batch_stats"]
+    BatchNorm2d entries with ``num_batches_tracked`` 0, InstanceNorm2d's
+    ``weight`` and ``bias`` from ``InstanceNorm_{j}``'s scale and bias,
+    ogc_tpu/utils/torch_interop.py:251-256)."""
+    p, bs = variables["params"], variables.get("batch_stats", {})
     out: State = {}
     for prefix, name, has_norm in FLOW_SA_MAP:
         if name not in p:
@@ -179,6 +181,10 @@ def flownet_state_dict_from_jax(variables: Mapping[str, Any]) -> State:
             if not has_norm:
                 continue
             bn = f"{prefix}.mlp_bns.{j}"
+            if f"InstanceNorm_{j}" in stack:  # affine only
+                out[f"{bn}.weight"] = _a(stack[f"InstanceNorm_{j}"]["scale"])
+                out[f"{bn}.bias"] = _a(stack[f"InstanceNorm_{j}"]["bias"])
+                continue
             norm = f"SchedulableBatchNorm_{j}"
             stats = bs[name]["_NormedConvStack_0"][norm]
             out[f"{bn}.weight"] = _a(stack[norm]["scale"])

@@ -45,15 +45,18 @@ RUNS = {"exact": ("n256", dict(SMOOTH, smooth_exact=True)),
         "symgrad": ("n256", dict(SMOOTH, smooth_exact=True,
                                  symmetric_smooth_grad=True)),
         "gather": ("n256", dict(SMOOTH, smooth_exact=True,
-                                smooth_edge_engine="gather"))}
-# smooth_loss_params blocks -> what from_dict makes of them.
+                                smooth_edge_engine="gather")),
+        "mutual": ("n256", dict(SMOOTH, smooth_exact=True,
+                                smooth_graph="mutual"))}
+# smooth_loss_params blocks -> what from_dict makes of them (the engine
+# it records; the keys the port once refused are accepted now, and
+# smooth_loss takes mxu only on the reference graph, the "mutual" run).
 FROM_DICT = [({"edge_engine": "mxu"}, "mxu"), ({}, "gather"),
              ({"edge_engine": "gather", "symmetric_grad": True}, "gather"),
-             ({"graph": "mutual"}, "NotImplementedError"),
-             ({"ref_bwd": "lean"}, "NotImplementedError"),
-             ({"scatter_kernel": True}, "NotImplementedError"),
-             ({"edge_engine": "mxu", "graph": "mutual"},
-              "NotImplementedError"),
+             ({"graph": "mutual"}, "gather"),
+             ({"ref_bwd": "lean"}, "gather"),
+             ({"scatter_kernel": True}, "gather"),
+             ({"edge_engine": "mxu", "graph": "mutual"}, "mxu"),
              ({"edge_engine": "typo"}, "ValueError")]
 TRAIN_STEPS = 3
 N_TRAIN = SEGNET["n_point"]
@@ -153,11 +156,11 @@ def test_smooth_mxu_matches_jax(port, run):
     np.testing.assert_array_equal(out["launches_cand"], [0, 0, 0])
 
 
-@pytest.mark.parametrize("run", ["symgrad", "gather"])
+@pytest.mark.parametrize("run", ["symgrad", "gather", "mutual"])
 def test_smooth_mxu_engine_routing_gates(port, run):
-    """mxu routes only without symmetric_grad (the JAX gate without the
-    graph and cross-entropy options the port does not have); the other
-    combinations keep the gather engine, in both packages."""
+    """mxu routes only on the reference graph without symmetric_grad (the
+    JAX gate without cross-entropy, which the port does not have); the
+    other combinations keep the gather engine, in both packages."""
     out = port["out"]
     assert not bool(out[run + "/mxu"])
     loss, grad = _jax_smooth(port["x"], run)

@@ -1,7 +1,7 @@
 """``python -m ogc_tpu_torch.train_seg --device cpu`` end to end on a tiny
 synthetic SAPIEN set: one epoch with the augmented views phased in at once
 (4 frames per item), a checkpoint that ``python -m ogc_tpu_torch.test_seg``
-evaluates, a resumed second epoch, and the options the port refuses."""
+evaluates, a resumed second epoch, ``--remat`` and the mutual graph."""
 
 import os
 import os.path as osp
@@ -85,15 +85,27 @@ def test_resume_continues_from_the_saved_epoch(trained):
 
 
 def test_remat_and_unported_loss_options_are_refused(trained):
+    """--remat off (the JAX CLI's default) and full, which the port refused
+    when this test was named, and the mutual smooth graph now train an
+    epoch; --remat full's terms equal off's (the same bits,
+    tests/test_torch_remat.py)."""
     tmp, cfg, _, _ = trained
-    r = _port("train_seg", cfg, "--remat", "full", timeout=120)
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+    outs = {}
+    for remat in ("off", "full"):
+        path = _config(tmp, f"remat_{remat}.yaml", aug_transform_epoch=1,
+                       save_path=str(tmp / "ckpt" / f"remat_{remat}"))
+        r = _port("train_seg", path, "--round", "1", "--remat", remat)
+        assert r.returncode == 0, r.stderr[-3000:]
+        outs[remat] = re.search(r"\[epoch   1\] train: .*", r.stdout).group(0)
+    assert outs["full"] == outs["off"]
     with open(cfg) as f:
         mutual = yaml.safe_load(f)
     mutual["loss"]["smooth_loss_params"]["graph"] = "mutual"
+    mutual["save_path"] = str(tmp / "ckpt" / "mutual")
     path = str(tmp / "mutual.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(mutual, f)
-    r = _port("train_seg", path, timeout=120)
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "A.13" in r.stderr
+    r = _port("train_seg", path, "--round", "1")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert re.search(r"\[epoch   1\] train: dynamic=\S+, smooth=\S+",
+                     r.stdout), r.stdout

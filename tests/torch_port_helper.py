@@ -868,6 +868,49 @@ def _case_smooth_mxu(x, cfg, state):
     return out
 
 
+def _case_mutual_keep(x, cfg, state):
+    """The exact radius-clamped KNN and ball tables of ``pc`` and their
+    ``mutual_keep_mask``s."""
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.losses.seg_unsup import mutual_keep_mask
+
+    pc = torch.from_numpy(x["pc"])
+    dist, idx = ops.knn(cfg["knn_k"], pc, pc, exact=True)
+    knn = torch.where(dist > cfg["knn_radius"], idx[..., :1], idx)
+    ball = ops.ball_query(cfg["ball_radius"], cfg["ball_k"], pc, pc,
+                          exact=True)
+    return {"knn": knn.numpy(), "ball": ball.numpy(),
+            "knn_keep": mutual_keep_mask(knn).numpy(),
+            "ball_keep": mutual_keep_mask(ball).numpy()}
+
+
+def _case_ogc_terms(x, cfg, state):
+    """ogc_loss on given clouds, masks and flows (frames on axis 1) for each
+    loss block of ``cfg["losses"]``: the terms and d(sum)/d(masks)."""
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, ogc_loss
+
+    out = {}
+    T = x["pcs"].shape[1]
+    for name, block in cfg["losses"].items():
+        masks = torch.from_numpy(x["masks"]).requires_grad_(True)
+        loss, ld = ogc_loss([torch.from_numpy(x["pcs"][:, t])
+                             for t in range(T)],
+                            [masks[:, t] for t in range(T)],
+                            [torch.from_numpy(x["flows"][:, t])
+                             for t in range(T)],
+                            OGCLossConfig.from_dict(block),
+                            aug_transform=cfg["aug"])
+        loss.backward()
+        out.update({f"{name}/ld/{k}": v.detach().numpy()
+                    for k, v in ld.items()})
+        out[f"{name}/grad"] = masks.grad.numpy()
+    return out
+
+
 def _case_knn_cand(x, cfg, state):
     """#6's plain version through ``knn_cand`` for each named case, whether
     it routed to #3, and ``resolve`` on each (M, k, n_cand, blk) of
@@ -930,6 +973,130 @@ def _case_flownet(x, cfg, state):
     ops.set_pool_mode("off")
     return out
 
+
+
+def _case_flow_modes(x, cfg, state):
+    """FlowStep3D on the carried weights in the case's compute dtype (and
+    ``OGC_EVAL_FOLD`` of ``cfg["eval_fold"]``; in float64 with
+    ``cfg["float64"]``), exact neighbours: the eval flows, and unless
+    ``cfg["train"]`` is false one train-mode forward and backward of
+    sum_i iters_w[i] * mean(flow_i ** 2) (its flows, parameter gradients and
+    the running statistics after it)."""
+    import torch
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.nn.flowstep3d import set_bn_momentum
+
+    os.environ["OGC_EVAL_FOLD"] = cfg.get("eval_fold", "on")
+    ops.set_exact_neighbors(True)
+    dt = torch.float64 if cfg.get("float64") else torch.float32
+    pc1, pc2 = (torch.from_numpy(x[k]).to(dt) for k in ("pc1", "pc2"))
+    m = _flow_model(cfg, state).to(dt).eval()
+    with torch.no_grad():
+        out = {"eval": torch.stack(m(pc1, pc2, pc1, pc2,
+                                     cfg["iters"])).numpy()}
+    if cfg.get("train", True):
+        m = _flow_model(cfg, state).to(dt).train()
+        set_bn_momentum(m, cfg["bn_momentum"])
+        flows = m(pc1, pc2, pc1, pc2, cfg["iters"])
+        loss = sum(w * (f * f).mean() for w, f in zip(cfg["iters_w"], flows))
+        loss.backward()
+        out["train/flows"] = torch.stack(flows).detach().numpy()
+        out.update({"train/g/" + k: q.grad.numpy()
+                    for k, q in m.named_parameters()})
+        out.update({"train/s/" + k: v.numpy()
+                    for k, v in m.state_dict().items() if "running_" in k})
+    os.environ.pop("OGC_EVAL_FOLD")
+    return out
+
+
+def _case_remat(x, cfg, state):
+    """One step of SegTrainer (MaskFormer3D from ``cfg["segnet"]``, seeded
+    weights), SupSegTrainer and FlowTrainer (FlowStep3D from
+    ``cfg["flow"]``) under each remat mode: the loss terms, the parameters
+    after the Adam step and the running statistics; and, of the step's
+    backward, the BatchNorm forwards (the recompute) and the neighbour
+    searches (0: the selections are pinned)."""
+    import torch
+
+    from ogc_tpu_torch.losses.flow_unsup import FlowLossConfig
+    from ogc_tpu_torch.losses.seg_sup import SupLossConfig
+    from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig
+    from ogc_tpu_torch.models.flownet import FlowStep3D
+    from ogc_tpu_torch.models.segnet import MaskFormer3D
+    from ogc_tpu_torch.nn import flowstep3d, layers
+    from ogc_tpu_torch.ops import core
+    from ogc_tpu_torch.train.flow import FlowTrainer
+    from ogc_tpu_torch.train.seg import Adam, SegTrainer, make_lr_schedule
+    from ogc_tpu_torch.train.seg_sup import SupSegTrainer
+
+    counts = {"norm": 0, "search": 0}
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    flowstep3d.SchedulableBatchNorm.forward = count(
+        "norm", flowstep3d.SchedulableBatchNorm.forward)
+    layers.GroupNorm.forward = count("norm", layers.GroupNorm.forward)
+    for name in ("knn_exact", "fps", "ball_query_exact"):
+        setattr(core, name, count("search", getattr(core, name)))
+    backward = torch.Tensor.backward
+
+    def counted_backward(self, *a, **kw):
+        before = dict(counts)
+        backward(self, *a, **kw)
+        counted_backward.seen = {k: counts[k] - before[k] for k in counts}
+
+    torch.Tensor.backward = counted_backward
+    pcs, flows = torch.from_numpy(x["pcs"]), torch.from_numpy(x["flows"])
+    out = {}
+    for mode in ["off"] + cfg["modes"]:
+        for kind in ("seg", "sup", "flow"):
+            if mode == "scan" and kind != "flow":
+                continue
+            gen = torch.Generator().manual_seed(0)
+            opt_kw = dict(schedule=make_lr_schedule(**cfg["lr"]))
+            common = dict(exp_base=cfg["exp_base"],
+                          device=torch.device("cpu"),
+                          remat="off" if mode == "scan" else mode)
+            if kind == "flow":
+                m = FlowStep3D(generator=gen, **cfg["flow"])
+                m.remat_refine = mode == "scan"
+                trainer = FlowTrainer(
+                    m, cfg["iters"], FlowLossConfig.from_dict(cfg["loss"]),
+                    Adam(dict(m.named_parameters()), **opt_kw), **common)
+                ld = trainer.train_step(0, pcs[:, 0], pcs[:, 1],
+                                        flows[:, 0])
+            elif kind == "seg":
+                m = MaskFormer3D(generator=gen, **cfg["segnet"])
+                trainer = SegTrainer(
+                    m, OGCLossConfig(), Adam(dict(m.named_parameters()),
+                                             **opt_kw),
+                    aug_transform_epoch=0, ignore_npoint_thresh=0, **common)
+                ld, _ = trainer.train_step(pcs, flows, 0, False)
+            else:
+                m = MaskFormer3D(generator=gen, **cfg["segnet"])
+                trainer = SupSegTrainer(
+                    m, SupLossConfig(), Adam(dict(m.named_parameters()),
+                                             **opt_kw),
+                    ignore_npoint_thresh=0, **common)
+                K = cfg["segnet"]["n_slot"]
+                gt = torch.nn.functional.one_hot(
+                    torch.from_numpy(x["segms"]).long(), K).float()
+                ld, _ = trainer.train_step(pcs[:, 0], gt,
+                                           torch.ones(gt.shape[:2]))
+            p = f"{kind}/{mode}/"
+            out.update({p + "ld/" + k: torch.as_tensor(v).detach().numpy()
+                        for k, v in ld.items()})
+            out.update({p + "p/" + k: v.detach().numpy()
+                        for k, v in m.state_dict().items()})
+            out[p + "backward"] = np.array([counted_backward.seen["norm"],
+                                            counted_backward.seen["search"]])
+    torch.Tensor.backward = backward
+    return out
 
 
 def _flow_model(cfg, state):
@@ -1487,6 +1654,10 @@ CASES = {
     "smooth_mxu": _case_smooth_mxu,
     "knn_cand": _case_knn_cand,
     "flow_loss": _case_flow_loss,
+    "flow_modes": _case_flow_modes,
+    "mutual_keep": _case_mutual_keep,
+    "remat": _case_remat,
+    "ogc_terms": _case_ogc_terms,
     "flow_train": _case_flow_train,
     "seg_sup": _case_seg_sup,
     "seg_sup_train": _case_seg_sup_train,
