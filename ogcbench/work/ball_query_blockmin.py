@@ -1,0 +1,18 @@
+"""#3's ball mode (each run's lowest in-radius index, the nsample smallest
+runs): as #5, the pairs inside the cube of half-width r around each centre
+up to the ball's last member's index."""
+
+import torch
+
+from ogcbench.work._rules import D2_OPS, box_pairs, nbytes
+
+TARGET = ("ogc_tpu_torch.ops.knn_blockmin", "ball_query_blockmin")
+KERNELS = tuple(f"ball_kernel<{blk}>" for blk in (4, 8, 16, 32))
+
+
+def work(args, kwargs, out):
+    xyz, new_xyz, radius = args[0], args[1], args[2]
+    half = torch.full(new_xyz.shape[:2], float(radius),
+                      device=new_xyz.device)
+    pairs = box_pairs(new_xyz, xyz, half, out.amax(-1))
+    return D2_OPS * pairs, nbytes(xyz, new_xyz, out), "f32"
