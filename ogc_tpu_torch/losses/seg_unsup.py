@@ -40,6 +40,7 @@ import torch.utils.checkpoint
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.ops.blocksparse import group_blocksparse
 from ogc_tpu_torch.ops.knn_pruned import _argsort_rows, morton_codes
+from ogc_tpu_torch.utils import trace
 from ogc_tpu_torch.utils.lap import linear_sum_assignment
 
 
@@ -69,7 +70,9 @@ def fit_motion_svd_batch(pc1: torch.Tensor, pc2: torch.Tensor,
     valid = valid & torch.isfinite(S).all(dim=(1, 2))
     eye = torch.eye(3, dtype=S.dtype, device=S.device)
     S_safe = torch.where(valid[:, None, None], S, eye)
-    u, _, vt = torch.linalg.svd(S_safe)
+    # the CUDA solver reads its status back: the host waits for the queue
+    with trace.span("sync.kabsch_svd"):
+        u, _, vt = torch.linalg.svd(S_safe)
     v = vt.transpose(-1, -2)
     det = torch.linalg.det(v @ u.transpose(-1, -2))
     diag = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
@@ -518,21 +521,25 @@ def match_mask_by_iou(mask1: torch.Tensor, mask2: torch.Tensor) -> np.ndarray:
         slots (reference losses/seg_loss_unsup.py:212-240; the JAX package's
         one-hot permutation matrix is ``one_hot(col_ind)``).
     """
-    K = mask1.shape[-1]
-    seg1 = mask1.detach().argmax(-1).cpu().numpy()
-    seg2 = mask2.detach().argmax(-1).cpu().numpy()
-    eye = np.eye(K, dtype=np.float32)
-    oh1, oh2 = eye[seg1], eye[seg2]
-    inter = np.einsum("bng,bnp->bgp", oh1, oh2)
-    union = oh1.sum(1)[..., None] + oh2.sum(1)[:, None, :] - inter
-    iou = inter / np.maximum(union, np.float32(1e-10))
-    return linear_sum_assignment(iou, True).astype(np.int64)
+    with trace.span("loss.match"):
+        K = mask1.shape[-1]
+        with trace.span("sync.match_argmax"):
+            seg1 = mask1.detach().argmax(-1).cpu().numpy()
+        with trace.span("sync.match_argmax"):
+            seg2 = mask2.detach().argmax(-1).cpu().numpy()
+        eye = np.eye(K, dtype=np.float32)
+        oh1, oh2 = eye[seg1], eye[seg2]
+        inter = np.einsum("bng,bnp->bgp", oh1, oh2)
+        union = oh1.sum(1)[..., None] + oh2.sum(1)[:, None, :] - inter
+        iou = inter / np.maximum(union, np.float32(1e-10))
+        return linear_sum_assignment(iou, True).astype(np.int64)
 
 
 def _permute_slots(mask: torch.Tensor, col_ind: np.ndarray) -> torch.Tensor:
     """out[b, n, i] = mask[b, n, col_ind[b, i]]: the exact product with the
     one-hot permutation."""
-    col = torch.from_numpy(col_ind).to(mask.device)
+    with trace.span("sync.permute_cols"):
+        col = torch.from_numpy(col_ind).to(mask.device)
     return torch.gather(mask, 2, col[:, None, :].expand(-1, mask.shape[1], -1))
 
 

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ogc_tpu_torch.utils import trace
+
 #: the launcher's variables, all set or none
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -311,7 +313,9 @@ def dp_eval_fwd(fn: Callable, devices: Sequence[torch.device],
     last row, split into contiguous blocks, every block launched before
     any output is read (the cards then run together), and the outputs are
     gathered in order.  Eval forwards are per sample, so sharding is exact
-    up to the kernels' own per-batch choices."""
+    up to the kernels' own per-batch choices.  Under a profiler a call
+    records the spans ``flow.batch`` > ``flow.h2d``, ``sync.flow_out``
+    (utils/trace.py), named after ``test_flow``'s use of it."""
     devices = [_indexed(d) for d in devices]
     replicas = {}
     if module is not None:
@@ -321,25 +325,37 @@ def dp_eval_fwd(fn: Callable, devices: Sequence[torch.device],
                 replicas[d] = module if d == home else \
                     copy.deepcopy(module).to(d)
 
+    def write(a: np.ndarray, d: torch.device) -> torch.Tensor:
+        a = torch.from_numpy(a)
+        # a copy from pageable memory waits for the stream
+        with trace.span("sync.flow_in"):
+            return a.to(d)
+
+    def read(t: torch.Tensor) -> np.ndarray:
+        with trace.span("sync.flow_out"):
+            return t.cpu().numpy()
+
     @torch.no_grad()
     def fwd(*arrays):
-        arrays = [a.detach().cpu().numpy() if torch.is_tensor(a)
-                  else np.asarray(a) for a in arrays]
-        b, n = arrays[0].shape[0], len(devices)
-        padded = pad_batch(arrays, padded_size(b, n))
-        outs = []
-        for r, d in enumerate(devices):
-            block = row_block(b, r, n)
-            # The kernels launch on the current card's context: make it
-            # the shard's.
-            with _on(d):
-                outs.append(fn(replicas.get(d), *(
-                    torch.from_numpy(np.ascontiguousarray(a[block])).to(d)
-                    for a in padded)))
-        host = [_tree_map(lambda t: t.cpu().numpy(), o) for o in outs]
-        leaves = [_leaves(h) for h in host]
-        cat = iter([np.concatenate(parts, 0)[:b]
-                    for parts in zip(*leaves)])
-        return _tree_map(lambda _: next(cat), host[0])
+        with trace.span("flow.batch", step=True):
+            arrays = [a.detach().cpu().numpy() if torch.is_tensor(a)
+                      else np.asarray(a) for a in arrays]
+            b, n = arrays[0].shape[0], len(devices)
+            padded = pad_batch(arrays, padded_size(b, n))
+            outs = []
+            for r, d in enumerate(devices):
+                block = row_block(b, r, n)
+                # The kernels launch on the current card's context: make it
+                # the shard's.
+                with _on(d):
+                    with trace.span("flow.h2d"):
+                        xs = [write(np.ascontiguousarray(a[block]), d)
+                              for a in padded]
+                    outs.append(fn(replicas.get(d), *xs))
+            host = [_tree_map(read, o) for o in outs]
+            leaves = [_leaves(h) for h in host]
+            cat = iter([np.concatenate(parts, 0)[:b]
+                        for parts in zip(*leaves)])
+            return _tree_map(lambda _: next(cat), host[0])
 
     return fwd

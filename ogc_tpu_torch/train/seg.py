@@ -24,6 +24,7 @@ from ogc_tpu_torch.losses.seg_unsup import OGCLossConfig, ogc_loss
 from ogc_tpu_torch.parallel.mesh import local_values
 from ogc_tpu_torch.train.base import (EpochTrainer, add_ap, batch_counts,
                                       new_ap, step_collective)
+from ogc_tpu_torch.utils import trace
 from ogc_tpu_torch.utils.meters import AverageMeter
 
 
@@ -70,10 +71,16 @@ class Adam:
     def step(self) -> bool:
         """Apply one update from the parameters' ``.grad``; returns False
         (and changes nothing) when a gradient is not finite."""
+        with trace.span("train.optimizer"):
+            return self._step()
+
+    def _step(self) -> bool:
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in self.params.items()}
         finite = torch.stack([torch.isfinite(g).all() for g in grads.values()])
-        if not bool(finite.all()):
+        with trace.span("sync.finite_guard"):
+            finite = bool(finite.all())
+        if not finite:
             self.notfinite_count += 1
             return False
         lr = self.schedule(self.count)
@@ -160,11 +167,19 @@ class SegTrainer(EpochTrainer):
                             for v in ld.values()])
         step_collective(self.model.parameters(), vals)
         self.optimizer.step()
-        return dict(zip(ld.keys(), vals.tolist())), masks.detach()
+        with trace.span("sync.loss_terms"):
+            terms = vals.tolist()
+        return dict(zip(ld.keys(), terms)), masks.detach()
 
     def _to_device(self, *arrays: np.ndarray):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in arrays]
+        with trace.span("train.h2d"):
+            out = []
+            for a in arrays:
+                a = torch.from_numpy(np.ascontiguousarray(a))
+                # a copy from pageable memory waits for the stream
+                with trace.span("sync.to_device"):
+                    out.append(a.to(self.device))
+            return out
 
     def _frames(self, batch):
         """(pcs, segms, flows) of a batch at the trainer's frame stride."""
@@ -172,17 +187,19 @@ class SegTrainer(EpochTrainer):
         return tuple(a[:, ::s] for a in batch[:3])
 
     def train_it(self, it: int, batch, aug_transform: bool = False):
-        t0 = time.perf_counter()
-        pcs, segms, flows = self._frames(batch)
-        true_b, global_b = batch_counts(batch)
-        pcs_d, flows_d = self._to_device(pcs, flows)
-        # start_steps gate on the number of global samples seen (reference
-        # train_seg.py:101, ogc_tpu/train/seg.py:313-318).
-        ld, masks = self.train_step(pcs_d, flows_d, it * global_b,
-                                    aug_transform)
-        mask = local_values(masks[:, 0], true_b)
-        self.step_seconds.append(time.perf_counter() - t0)
-        return ld, segms[:true_b, 0], mask
+        with trace.span("train.step", step=True):
+            t0 = time.perf_counter()
+            pcs, segms, flows = self._frames(batch)
+            true_b, global_b = batch_counts(batch)
+            pcs_d, flows_d = self._to_device(pcs, flows)
+            # start_steps gate on the number of global samples seen
+            # (reference train_seg.py:101, ogc_tpu/train/seg.py:313-318).
+            ld, masks = self.train_step(pcs_d, flows_d, it * global_b,
+                                        aug_transform)
+            with trace.span("sync.masks_out"):
+                mask = local_values(masks[:, 0], true_b)
+            self.step_seconds.append(time.perf_counter() - t0)
+            return ld, segms[:true_b, 0], mask
 
     @torch.no_grad()
     def eval_epoch(self, loader):
