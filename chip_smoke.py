@@ -59,7 +59,14 @@
    the truncated one), every k from 1 to 64, blk 4 to 32, ragged M and N,
    balls full within 32 candidates and empty ones, each kernel the plan
    can take; and the crossover of #3's thread and warp kernels at every
-   path site, the flow forward's included.
+   path site, the flow forward's included.  The invariance loss's IoU
+   matching (csrc/iou_match.cu) is held to its host path (the numpy IoU
+   and utils/lap.py): col_ind equal on tied label maps at K 8-32, N 512 to
+   8192, B 1 and 8, with every point in one slot, with empty slots and on
+   the seeded MaskFormer3D's masks (B=8 x 8192, K 10), the invariance loss
+   and its gradient bit-equal between the two, K > 32 refused; timed by
+   single call and device time beside the host path
+   (``iou_match_phase()`` runs this alone).
 4. Train phase (the main path, pinned exact as every parity phase): writes
    a synthetic KITTI-SF root (the write_kittisf layout plus
    flow_preds/flowstep3d/<id>/flow{1,2}.npy), train/val mappings of 40 and
@@ -327,12 +334,15 @@ SMOOTH_K, SMOOTH_R, BALL_NS, BALL_R = 32, 1.0, 64, 2.0
 #     gradient: SA1 and SA2 (SA0 groups the input cloud, no gradient), the
 #     3 FP interpolations, and the KNN and ball smooth groups of 4 frames.
 #   gather_onehot, scatter_onehot 0: no KITTI-SF group has a source of at
-#     most 1024 points with at most 16 channels (ops/onehot.py's gate).
+#     most 1024 points with at most 16 channels (ops/onehot.py's gate);
+#   iou_match 4  the invariance term's matching: 2 augmented pairs, each
+#     matched both ways (0 in a step without augmentation, 1 an OA-ICP
+#     call).
 # And of one val batch (8 clouds forward, loss on 2 frames, no backward).
 KERNELS = ("fps", "knn_exact", "ball_query", "scatter_add", "gather_onehot",
            "scatter_onehot", "knn_blockmin", "ball_blockmin", "pool",
            "knn_exact_pruned", "gather_blocksparse", "scatter_blocksparse",
-           "knn_cand_pruned", "pruned_sort", "pruned_select")
+           "knn_cand_pruned", "pruned_sort", "pruned_select", "iou_match")
 
 
 def launch_counts(**kw):
@@ -340,7 +350,7 @@ def launch_counts(**kw):
 
 
 STEP_LAUNCHES = launch_counts(fps=3, knn_exact=10, ball_query=4,
-                              scatter_add=13)
+                              scatter_add=13, iou_match=4)
 VAL_LAUNCHES = launch_counts(fps=3, knn_exact=8, ball_query=2)
 EVAL_LAUNCHES = launch_counts(fps=3, knn_exact=6)
 N_TRAIN_IDS, N_VAL_IDS = 40, 20
@@ -360,10 +370,11 @@ BLOCKMIN_SHAPES = [(2048, 8192, 64, 0.95), (1024, 2048, 64, 0.95),
 #   knn_blockmin 9  SA0-SA2, 2 FP three_nn, 1 smooth KnnLoss per frame;
 #   ball_blockmin 4  1 smooth BallQLoss per frame;
 #   scatter_add 5  SA1, SA2 and the 3 FP groups; the smooth groups' symmetric
-#     gradient gathers and scatters nothing.
+#     gradient gathers and scatters nothing;
+#   iou_match 4  as in a parity step.
 # A fast val batch (8 clouds, loss on 2 frames) and a fast eval forward.
 FAST_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9,
-                          ball_blockmin=4, scatter_add=5)
+                          ball_blockmin=4, scatter_add=5, iou_match=4)
 FAST_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2)
 FAST_EVAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=5)
 # The mxu smooth edge engine (a main path of its own): a copy of
@@ -374,14 +385,15 @@ FAST_EVAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=5)
 # the stride-shuffled copy) and groups both in one block-sparse call: #9
 # forward, #10 backward, 4 x 8192 x 96 edges x 11 channels (10 slots and
 # the original index).  Derived launches of one step:
-#   fps 1, knn_exact 1, knn_blockmin 9, ball_blockmin 4  as in fast mode;
+#   fps 1, knn_exact 1, knn_blockmin 9, ball_blockmin 4, iou_match 4  as in
+#     fast mode;
 #   scatter_add 9  SA1, SA2, the 3 FP groups, and per frame the backward of
 #     the mask's gather into Morton order;
 #   gather_blocksparse 4, scatter_blocksparse 4  one of each per frame.
 # A val batch (2 frames, no backward): fast mode's and 2 #9.
 MXU_STEP = launch_counts(fps=1, knn_exact=1, knn_blockmin=9, ball_blockmin=4,
                          scatter_add=9, gather_blocksparse=4,
-                         scatter_blocksparse=4)
+                         scatter_blocksparse=4, iou_match=4)
 MXU_VAL = launch_counts(fps=1, knn_exact=1, knn_blockmin=7, ball_blockmin=2,
                         gather_blocksparse=2)
 MXU_C = 11
@@ -390,10 +402,10 @@ KERNEL_MAX_C = 16
 # #6's entry point (ogc_tpu_torch.tools.bench_knn_pruned, 10 timed calls
 # after one warm-up): per shape #3 once and #6 once per (n_cand, blk).
 BENCH_REPS = 10
-# KITTI-SF OA-ICP (the blockwise path at 8192): per batch two forwards and
-# the k=1 KNN of the mask interpolation.
+# KITTI-SF OA-ICP (the blockwise path at 8192): per batch two forwards, the
+# k=1 KNN of the mask interpolation and one IoU matching.
 KITTI_ICP_BATCH = 20
-KITTI_ICP_LAUNCHES = launch_counts(fps=6, knn_exact=13)
+KITTI_ICP_LAUNCHES = launch_counts(fps=6, knn_exact=13, iou_match=1)
 # SAPIEN (config/seg/sapien/sapien_unsup*.yaml, the protocol's data: 120
 # train/val scenes, 24 test scenes): B=32 items of 512 points, 8 slots;
 # SA0 (256 centres x 64, radii 0.1/0.2) groups [xyz, pc], C 6; smooth KNN
@@ -412,10 +424,12 @@ SAP_SCENES, SAP_TEST_SCENES = 120, 24
 #   gather_onehot the #7 groups: SA0's 2 scales, and the KNN and ball
 #                 smooth groups per frame: 6 or 10;
 #   scatter_onehot #8, the backward of the smooth groups (SA0's source, the
-#                 input cloud, needs no gradient): 4 or 8.
+#                 input cloud, needs no gradient): 4 or 8;
+#   iou_match     the invariance term's matching, with augmentation (4
+#                 frames) only: 0 or 4.
 # A val batch (2 frames, no backward), a test_seg or vote forward, and an
 # OA-ICP batch (two forwards plus the k=1 KNN of the mask interpolation,
-# whose 512 rows per cloud are below the #7 gate).  In eval SA0 takes the
+# whose 512 rows per cloud are below the #7 gate, and one IoU matching).  In eval SA0 takes the
 # source-projected fold: one gather of its scales' projections (C > 16),
 # indexing as the JAX package's gate routes it, so #7 groups only the
 # smooth terms there.
@@ -424,10 +438,10 @@ SAP_WOINV_STEP = launch_counts(fps=2, knn_exact=6, ball_query=2,
                                scatter_onehot=4)
 SAP_FULL_STEP = launch_counts(fps=2, knn_exact=8, ball_query=4,
                               scatter_add=3, gather_onehot=10,
-                              scatter_onehot=8)
+                              scatter_onehot=8, iou_match=4)
 SAP_VAL = launch_counts(fps=2, knn_exact=6, ball_query=2, gather_onehot=4)
 SAP_FWD = launch_counts(fps=2, knn_exact=4)
-SAP_ICP = launch_counts(fps=4, knn_exact=9)
+SAP_ICP = launch_counts(fps=4, knn_exact=9, iou_match=1)
 SAP_ICP_BATCH, SAP_VOTE_BATCH = 48, 12
 # Card against CPU for OA-ICP flows and voted masks, and each device's
 # float32 voting against a float64 one on the CPU from the same masks:
@@ -525,7 +539,8 @@ PROFILED_KERNELS = {"#1 fps": ("fps_kernel",),
                     "#4 fused selection": ("select_kernel<true>",),
                     "#4 search": ("pruned_knn_kernel",),
                     "#6 fused selection": ("select_kernel<false>",),
-                    "#6 search": ("cand_knn_kernel",)}
+                    "#6 search": ("cand_knn_kernel",),
+                    "iou_match": ("iou_match_kernel",)}
 
 
 def log(*a):
@@ -2670,6 +2685,153 @@ def check_knn_cand(report, gen):
                   lambda _: KC.knn_cand(q, p, k, bc, blk=blk))
 
 
+# The invariance loss's IoU matching (csrc/iou_match.cu, no Pallas kernel:
+# the JAX package solves in-graph): label maps at the configs' slot counts
+# (8-22) and the kernel's most (32), clouds of 512 to 8192 points, B 1 and
+# 8.  IOU_STEP calls a KITTI-SF train step: 2 invariance pairs, each matched
+# both ways.
+IOU_KS, IOU_NS, IOU_BS = (8, 10, 15, 18, 22, 32), (512, 2048, 8192), (1, 8)
+IOU_STEP = 4
+
+
+def tied_labels(rng, b, n, k):
+    """(b, n) int64 label maps each using few of the k slots (as
+    tests/test_torch_losses.py's _tied_labels), so many assignments tie."""
+    return torch.from_numpy(np.stack(
+        [rng.randint(0, rng.randint(1, k + 1), n) for _ in range(b)]))
+
+
+def seeded_masks(b, n):
+    """The seeded MaskFormer3D of kittisf_unsup.yaml (make_model's weights,
+    train mode) on b scene clouds of n points and on the same clouds turned
+    by 0.7 rad about the up axis and scaled by 1.03, as an augmented view:
+    two (b, n, K) masks on DEVICE."""
+    import yaml
+
+    with open(osp.join(REPO, "config/seg/kittisf/kittisf_unsup.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["segnet"]["n_point"] = n
+    model = make_model(cfg, DEVICE).train()
+    rng = np.random.RandomState(SEED)
+    pc = torch.from_numpy(np.stack([scene_cloud(rng, n)
+                                    for _ in range(b)])).to(DEVICE)
+    c, s = math.cos(0.7), math.sin(0.7)
+    turn = 1.03 * torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]],
+                               device=DEVICE)
+    with torch.no_grad():
+        return model(pc, pc), model(pc @ turn.T, pc @ turn.T)
+
+
+def check_iou_match(report):
+    """The IoU matching kernel against its host path (the numpy IoU and
+    utils/lap.py on labels read back): col_ind equal on tied label maps at
+    every (K, N, B) of IOU_KS x IOU_NS x IOU_BS, with every point in one
+    slot, with empty slots, and on the seeded MaskFormer3D's masks at the
+    train cells' shape (8 x 8192 x 10); the invariance loss and its
+    gradient bit-equal between the two routes on those masks; K > 32
+    raises.  Times a train step's 4 calls (B 8 x 8192, K 10): kernel by
+    single call and device time, the host path, and the bound."""
+    from ogc_tpu_torch.losses import seg_unsup
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.ops.iou_match import MAX_K, iou_match, iou_match_plain
+
+    rng = np.random.RandomState(SEED)
+    cases = [(f"tied K {k} N {n} B {b}", tied_labels(rng, b, n, k),
+              tied_labels(rng, b, n, k), k)
+             for k in IOU_KS for n in IOU_NS for b in IOU_BS]
+    zeros = torch.zeros((BATCH, N_POINT), dtype=torch.int64)
+    for k in (10, 32):
+        ends = torch.from_numpy(rng.randint(0, 2, (BATCH, N_POINT))) * (k - 1)
+        cases += [(f"all in slot 0, K {k}", zeros, zeros, k),
+                  (f"all in slot 0 against tied, K {k}", zeros,
+                   tied_labels(rng, BATCH, N_POINT, k), k),
+                  (f"slots 0 and K - 1 only, K {k}", ends,
+                   tied_labels(rng, BATCH, N_POINT, k), k),
+                  (f"all in the last slot against slots 0 and K - 1, K {k}",
+                   zeros + (k - 1), ends, k)]
+    m1, m2 = seeded_masks(BATCH, N_POINT)
+    K = m1.shape[-1]
+    seg = [m.argmax(-1) for m in (m1, m2)]
+    cases += [("MaskFormer3D masks, view 1 to 2", seg[0].cpu(), seg[1].cpu(),
+               K),
+              ("MaskFormer3D masks, view 2 to 1", seg[1].cpu(), seg[0].cpu(),
+               K)]
+    for name, s1, s2, k in cases:
+        got = iou_match(s1.cuda(), s2.cuda(), k)
+        torch.cuda.synchronize()
+        want = iou_match_plain(s1, s2, k)
+        if not (got.dtype == torch.int64 and torch.equal(got.cpu(), want)):
+            raise AssertionError(f"iou_match {name}: {got.cpu().tolist()} "
+                                 f"!= host {want.tolist()}")
+    used = [len(torch.unique(x)) for x in seg[0]]
+    log(f"iou_match: col_ind equal to the host solver on {len(cases)} "
+        f"cases (MaskFormer3D masks use {used} of {K} slots a cloud)")
+
+    def host(seg1, seg2, k):
+        return iou_match_plain(seg1.cpu(), seg2.cpu(), k)
+
+    outs = []
+    for route in (None, host):
+        a, b = (m.clone().requires_grad_() for m in (m1, m2))
+        if route is not None:
+            real, seg_unsup.iou_match = seg_unsup.iou_match, route
+        try:
+            loss = seg_unsup.invariance_loss(a, b)
+        finally:
+            if route is not None:
+                seg_unsup.iou_match = real
+        loss.backward()
+        outs.append((loss.detach(), a.grad, b.grad))
+    if not all(bits_equal(x, y) for x, y in zip(*outs)):
+        raise AssertionError(f"invariance loss or gradient: kernel route "
+                             f"{outs[0][0].item()} != host route "
+                             f"{outs[1][0].item()}")
+    log(f"iou_match: invariance loss {outs[0][0].item()!r} and its gradient "
+        f"bit-equal between the kernel and the host route")
+    for k in (MAX_K + 1, 0):
+        try:
+            iou_match(seg[0], seg[1], k)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"iou_match: K = {k} did not raise")
+        out = seg[0].new_empty((BATCH, max(k, 1)))
+        err = _build.lib().ogc_iou_match(
+            seg[0].data_ptr(), seg[1].data_ptr(), BATCH, N_POINT, k,
+            out.data_ptr(), _build.raw_stream(seg[0].device.index))
+        if err == 0:
+            raise AssertionError(f"ogc_iou_match: K = {k} was launched")
+    log(f"iou_match: K = {MAX_K + 1} and 0 raise in the wrapper and are "
+        f"refused by the entry point")
+    s1, s2 = seg
+    ms = cuda_ms(lambda: iou_match(s1, s2, K), 50)
+    dev = device_ms(lambda: iou_match(s1, s2, K))
+    plain = cuda_ms(lambda: iou_match_plain(s1.cpu(), s2.cpu(), K), 10)
+    bound, by = bound_ms(2 * s1.numel() * 8 + BATCH * K * 8, 0)
+    report.add("iou_match", 0, ms, plain, bound, by, per_step=IOU_STEP,
+               device=(dev, None))
+    log(f"iou_match per call (B {BATCH} x {N_POINT}, K {K}): single "
+        f"{ms:.4f} ms, device {dev:.4f} ms, host path {plain:.4f} ms, "
+        f"bound {bound:.6f} ms ({by})")
+
+
+def iou_match_phase():
+    """check_iou_match alone on the card, with the library's ptxas report
+    for csrc/iou_match.cu: ``python3 -c 'import chip_smoke;
+    chip_smoke.iou_match_phase()'``."""
+    from ogc_tpu_torch.ops import _build
+    from ogc_tpu_torch.train_seg import set_deterministic
+
+    set_deterministic(torch.device("cuda"))
+    _build.lib()
+    log(f"{torch.cuda.get_device_name(0)}; kernels built in "
+        f"{_build.build_seconds:.3f} s")
+    ptxas_report([osp.join(_build.CSRC_DIR, "iou_match.cu")])
+    report = Report()
+    check_iou_match(report)
+    log(json.dumps({"iou_match": report.entry("iou_match")}))
+
+
 def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     eval_report, train_report = Report(), Report()
@@ -2697,11 +2859,12 @@ def check_kernels():
     knn_crossover(gen)
     check_ball(train_report, gen)
     check_scatter(train_report, gen)
+    check_iou_match(train_report)
     for rep, what, names in ((eval_report, "eval forward",
                               ("fps", "knn_exact")),
                              (train_report, "train step",
                               ("fps", "knn_exact", "ball_query",
-                               "scatter_add"))):
+                               "scatter_add", "iou_match"))):
         for name in names:
             e = rep.entry(name)
             log(f"per {what}: {name} kernel {e['ms']:.4f} ms, plain "
@@ -3045,6 +3208,7 @@ def counters():
     from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
                                                scatter_add_blocksparse)
     from ogc_tpu_torch.ops.fps import fps
+    from ogc_tpu_torch.ops.iou_match import iou_match
     from ogc_tpu_torch.ops.knn_cand import knn_cand
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
@@ -3065,7 +3229,7 @@ def counters():
             "gather_blocksparse": gather_blocksparse,
             "scatter_blocksparse": scatter_add_blocksparse,
             "knn_cand_pruned": knn_cand, "pruned_sort": sort_clouds,
-            "pruned_select": select_blocks}
+            "pruned_select": select_blocks, "iou_match": iou_match}
 
 
 def reset_counts():
@@ -5965,7 +6129,8 @@ def main():
                   for f in ("fps.cu", "knn_exact.cu", "knn_blockmin.cu",
                             "ball_query.cu", "pool.cu", "scatter_add.cu",
                             "onehot.cu", "onehot_bs.cu", "pruned_prologue.cu",
-                            "knn_exact_pruned.cu", "knn_cand_pruned.cu")])
+                            "knn_exact_pruned.cu", "knn_cand_pruned.cu",
+                            "iou_match.cu")])
     reports = check_kernels()
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
     # #6's entry point, with the counts set to 0 just before it.
@@ -6090,6 +6255,8 @@ def main():
                                 "ogc_tpu/ops/pallas_onehot.py:288"),
         "knn_cand_pruned": ("ogc_tpu_torch/csrc/knn_cand_pruned.cu",
                             "ogc_tpu/ops/pallas_knn.py:1164"),
+        "iou_match": ("ogc_tpu_torch/csrc/iou_match.cu",
+                      "ogc_tpu/utils/lap.py (in-graph, no Pallas kernel)"),
     }
     kernels = []
     for name, (src, rep) in meta.items():

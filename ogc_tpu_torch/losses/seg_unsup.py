@@ -11,8 +11,9 @@ deterministic scatter-add kernel; with ``symmetric_grad`` (the fast configs)
 their backward is the scatter-free symmetric-graph formula instead.  The
 ``mxu`` edge engine (``smooth_loss_params.edge_engine``) sorts the cloud by
 Morton code and groups both edge tables in one block-sparse call
-(``_smooth_mxu``, kernels #9/#10).  The Hungarian matching runs on the host
-(utils/lap.py, the JAX package's solver step for step).
+(``_smooth_mxu``, kernels #9/#10).  The Hungarian matching by IoU runs on
+the card in one kernel (ops/iou_match.py) and, for CPU tensors, on the host
+(utils/lap.py); both take the JAX package's solver step for step.
 
 The JAX package's opt-in smooth-loss options (``smooth_loss_params``):
 ``graph: mutual`` keeps only the mutual edges of each graph, whose exact
@@ -33,15 +34,14 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.utils.checkpoint
 
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.ops.blocksparse import group_blocksparse
+from ogc_tpu_torch.ops.iou_match import iou_match
 from ogc_tpu_torch.ops.knn_pruned import _argsort_rows, morton_codes
 from ogc_tpu_torch.utils import trace
-from ogc_tpu_torch.utils.lap import linear_sum_assignment
 
 
 @torch.no_grad()
@@ -514,33 +514,40 @@ def interpolate_mask_by_flow(pc1: torch.Tensor, pc2: torch.Tensor,
     return (weight[..., None] * nn_mask).sum(2)
 
 
-def match_mask_by_iou(mask1: torch.Tensor, mask2: torch.Tensor) -> np.ndarray:
-    """Hungarian-match the argmax object masks by IoU on the host.
+def match_mask_by_iou(mask1: torch.Tensor,
+                      mask2: torch.Tensor) -> torch.Tensor:
+    """Hungarian-match the argmax object masks by IoU.
 
-    :return: col_ind (B, K) int64: mask2's slot matched to each of mask1's
-        slots (reference losses/seg_loss_unsup.py:212-240; the JAX package's
-        one-hot permutation matrix is ``one_hot(col_ind)``).
+    On the card one kernel computes the IoU and the assignment from the
+    two label maps, and nothing waits for the device; CPU masks take the
+    host path (the labels read back, the numpy IoU, utils/lap.py).
+
+    :return: col_ind (B, K) int64 on the masks' device: mask2's slot
+        matched to each of mask1's slots (reference
+        losses/seg_loss_unsup.py:212-240; the JAX package's one-hot
+        permutation matrix is ``one_hot(col_ind)``).
     """
     with trace.span("loss.match"):
         K = mask1.shape[-1]
+        if mask1.is_cuda:
+            return iou_match(mask1.detach().argmax(-1),
+                             mask2.detach().argmax(-1), K)
         with trace.span("sync.match_argmax"):
-            seg1 = mask1.detach().argmax(-1).cpu().numpy()
+            seg1 = mask1.detach().argmax(-1).cpu()
         with trace.span("sync.match_argmax"):
-            seg2 = mask2.detach().argmax(-1).cpu().numpy()
-        eye = np.eye(K, dtype=np.float32)
-        oh1, oh2 = eye[seg1], eye[seg2]
-        inter = np.einsum("bng,bnp->bgp", oh1, oh2)
-        union = oh1.sum(1)[..., None] + oh2.sum(1)[:, None, :] - inter
-        iou = inter / np.maximum(union, np.float32(1e-10))
-        return linear_sum_assignment(iou, True).astype(np.int64)
+            seg2 = mask2.detach().argmax(-1).cpu()
+        return iou_match(seg1, seg2, K)
 
 
-def _permute_slots(mask: torch.Tensor, col_ind: np.ndarray) -> torch.Tensor:
+def _permute_slots(mask: torch.Tensor, col_ind: torch.Tensor) -> torch.Tensor:
     """out[b, n, i] = mask[b, n, col_ind[b, i]]: the exact product with the
-    one-hot permutation."""
-    with trace.span("sync.permute_cols"):
-        col = torch.from_numpy(col_ind).to(mask.device)
-    return torch.gather(mask, 2, col[:, None, :].expand(-1, mask.shape[1], -1))
+    one-hot permutation.  Host columns (the CPU path's) are moved to the
+    masks' device first."""
+    if not col_ind.is_cuda:
+        with trace.span("sync.permute_cols"):
+            col_ind = col_ind.to(mask.device)
+    return torch.gather(mask, 2,
+                        col_ind[:, None, :].expand(-1, mask.shape[1], -1))
 
 
 def invariance_loss(mask1: torch.Tensor, mask2: torch.Tensor,

@@ -72,6 +72,7 @@ _SIGNATURES = {
                        _P, _P, _P],
     "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P, _P, _P],
+    "ogc_iou_match": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _get_fill = torch._C._get_deterministic_fill_uninitialized_memory

@@ -12,8 +12,8 @@ query, scatter-add; the small-source gather and scatter as
 ``launches_onehot``; the block-min KNN and ball query as
 ``launches_blockmin``; the row-group pool and the bound-pruned KNN as
 ``launches_flow``; the block-sparse gather and scatter and the
-candidate-pruned KNN as ``launches_cand``), which must stay at 0 on CPU
-tensors.  The torch side
+candidate-pruned KNN as ``launches_cand``; the IoU matching as
+``launches_match``), which must stay at 0 on CPU tensors.  The torch side
 runs with exact neighbours (``OGC_EXACT_NEIGHBORS=1``) unless a test asks
 for the environment without it; a case's ``compute_dtype: bf16`` runs it in
 the bf16 compute mode.
@@ -301,9 +301,29 @@ def _case_refine(x, cfg, state):
 
 
 def _case_lap(x, cfg, state):
+    """``col_ind`` of every ``iou*`` input, as ``col_ind*``."""
     from ogc_tpu_torch.utils.lap import linear_sum_assignment
 
-    return {"col_ind": linear_sum_assignment(x["iou"], maximize=True)}
+    return {k.replace("iou", "col_ind", 1): linear_sum_assignment(v, True)
+            for k, v in x.items()}
+
+
+def _case_match(x, cfg, state):
+    """match_mask_by_iou on CPU masks ``mask1_<K>``, ``mask2_<K>``: the
+    columns as returned, with their dtype and device."""
+    import torch
+
+    from ogc_tpu_torch.losses.seg_unsup import match_mask_by_iou
+
+    out = {}
+    for k in x:
+        if k.startswith("mask1_"):
+            tag = k[len("mask1_"):]
+            col = match_mask_by_iou(torch.from_numpy(x[k]),
+                                    torch.from_numpy(x["mask2_" + tag]))
+            out["col_ind_" + tag] = col.numpy()
+            out["meta_" + tag] = np.array([str(col.dtype), str(col.device)])
+    return out
 
 
 def _segnet(cfg, state):
@@ -1631,6 +1651,7 @@ CASES = {
     "onehot": _case_onehot,
     "refine": _case_refine,
     "lap": _case_lap,
+    "match": _case_match,
     "ogc_loss": _case_ogc_loss,
     "train_steps": _case_train_steps,
     "adam": _case_adam,
@@ -1699,6 +1720,7 @@ def _launch_counts() -> Dict[str, np.ndarray]:
     from ogc_tpu_torch.ops.blocksparse import (gather_blocksparse,
                                                scatter_add_blocksparse)
     from ogc_tpu_torch.ops.fps import fps
+    from ogc_tpu_torch.ops.iou_match import iou_match
     from ogc_tpu_torch.ops.knn_cand import knn_cand
     from ogc_tpu_torch.ops.knn import knn_exact
     from ogc_tpu_torch.ops.knn_blockmin import (ball_query_blockmin,
@@ -1721,7 +1743,8 @@ def _launch_counts() -> Dict[str, np.ndarray]:
                                    knn_exact_pruned.launches]),
         "launches_cand": np.array([gather_blocksparse.launches,
                                    scatter_add_blocksparse.launches,
-                                   knn_cand.launches])}
+                                   knn_cand.launches]),
+        "launches_match": np.array([iou_match.launches])}
 
 
 if __name__ == "__main__":
