@@ -19,6 +19,7 @@ import torch
 
 from ogc_tpu_torch import ops
 from ogc_tpu_torch.losses.seg_unsup import _SymGradDiscrepancy
+from ogc_tpu_torch.utils import trace
 
 
 def _norm(x: torch.Tensor, ord: int) -> torch.Tensor:
@@ -134,14 +135,15 @@ def flowstep3d_loss(pc1: torch.Tensor, pc2: torch.Tensor,
     if len(flow_preds) != len(cfg.iters_w):
         raise ValueError(f"{len(flow_preds)} flow iterations vs "
                          f"{len(cfg.iters_w)} weights")
-    loss_dict: Dict[str, torch.Tensor] = {}
-    total = pc1.new_zeros(())
-    for i, flow_pred in enumerate(flow_preds):
-        l_ch = chamfer_loss(pc1, pc2, flow_pred, cfg.chamfer_loss_norm)
-        l_sm = flow_smooth_loss(pc1, flow_pred, cfg)
-        loss_dict[f"chamfer_loss_#{i}"] = l_ch
-        loss_dict[f"smooth_loss_#{i}"] = l_sm
-        total = total + cfg.iters_w[i] * (cfg.weights[0] * l_ch
-                                          + cfg.weights[1] * l_sm)
-    loss_dict["sum"] = total
-    return total, loss_dict
+    with trace.span("loss.flow"):
+        loss_dict: Dict[str, torch.Tensor] = {}
+        total = pc1.new_zeros(())
+        for i, flow_pred in enumerate(flow_preds):
+            l_ch = chamfer_loss(pc1, pc2, flow_pred, cfg.chamfer_loss_norm)
+            l_sm = flow_smooth_loss(pc1, flow_pred, cfg)
+            loss_dict[f"chamfer_loss_#{i}"] = l_ch
+            loss_dict[f"smooth_loss_#{i}"] = l_sm
+            total = total + cfg.iters_w[i] * (cfg.weights[0] * l_ch
+                                              + cfg.weights[1] * l_sm)
+        loss_dict["sum"] = total
+        return total, loss_dict

@@ -30,6 +30,7 @@ import torch
 from ogc_tpu_torch.metrics.seg import accumulate_eval_results, calculate_PQ_F1
 from ogc_tpu_torch.ops import remat as remat_mod
 from ogc_tpu_torch.parallel import mesh
+from ogc_tpu_torch.utils import trace
 from ogc_tpu_torch.utils.checkpoint import resume_trainer, save_trainer
 from ogc_tpu_torch.utils.meters import AverageMeter
 
@@ -115,6 +116,17 @@ class EpochTrainer:
         """``fn`` under the trainer's remat mode where grad is on."""
         return remat_mod.checkpoint(
             fn, self.remat if torch.is_grad_enabled() else None)
+
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host arrays copied to the trainer's device."""
+        with trace.span("train.h2d"):
+            out = []
+            for a in arrays:
+                a = torch.from_numpy(np.ascontiguousarray(a))
+                # a copy from pageable memory waits for the stream
+                with trace.span("sync.to_device"):
+                    out.append(a.to(self.device))
+            return out
 
     def _scalar_dtype(self) -> torch.dtype:
         """The step scalars' dtype: the parameters' (float32, or float64

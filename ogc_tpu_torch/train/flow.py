@@ -32,6 +32,7 @@ from ogc_tpu_torch.nn.flowstep3d import (SchedulableBatchNorm,
 from ogc_tpu_torch.train.base import (EpochTrainer, batch_counts,
                                       step_collective)
 from ogc_tpu_torch.train.seg import Adam
+from ogc_tpu_torch.utils import trace
 from ogc_tpu_torch.utils.meters import AverageMeter
 
 
@@ -83,10 +84,9 @@ class FlowTrainer(EpochTrainer):
         for m in self.bns:
             m.sync = bn_sync
 
-    def _inputs(self, batch) -> Tuple[torch.Tensor, ...]:
+    def _inputs(self, batch) -> List[torch.Tensor]:
         pcs, _, flows, _ = batch
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (pcs[:, 0], pcs[:, 1], flows[:, 0]))
+        return self._to_device(pcs[:, 0], pcs[:, 1], flows[:, 0])
 
     def train_step(self, it: int, pc1: torch.Tensor, pc2: torch.Tensor,
                    gt_flow: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -97,8 +97,9 @@ class FlowTrainer(EpochTrainer):
         set_bn_momentum(self.model, self.bn_schedule(it))
         for p in self.model.parameters():
             p.grad = None
-        flow_preds = self._remat(self.model)(pc1, pc2, pc1, pc2,
-                                             self.model_iters)
+        with trace.span("flow.unroll"):
+            flow_preds = self._remat(self.model)(pc1, pc2, pc1, pc2,
+                                                 self.model_iters)
         loss, ld = flowstep3d_loss(pc1, pc2, flow_preds, self.loss_cfg)
         loss.backward()
         with torch.no_grad():
@@ -115,11 +116,14 @@ class FlowTrainer(EpochTrainer):
         return dict(zip(ld.keys(), vals))
 
     def train_it(self, it: int, batch) -> Dict[str, float]:
-        t0 = time.perf_counter()
-        ld = self.train_step(it, *self._inputs(batch))
-        vals = torch.stack([v.double() for v in ld.values()]).tolist()
-        self.step_seconds.append(time.perf_counter() - t0)
-        return dict(zip(ld.keys(), vals))
+        with trace.span("train.step", step=True):
+            t0 = time.perf_counter()
+            ld = self.train_step(it, *self._inputs(batch))
+            vals = torch.stack([v.double() for v in ld.values()])
+            with trace.span("sync.loss_terms"):
+                vals = vals.tolist()
+            self.step_seconds.append(time.perf_counter() - t0)
+            return dict(zip(ld.keys(), vals))
 
     @torch.no_grad()
     def eval_epoch(self, loader) -> Tuple[float, Dict[str, float]]:

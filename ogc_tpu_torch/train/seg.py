@@ -171,16 +171,6 @@ class SegTrainer(EpochTrainer):
             terms = vals.tolist()
         return dict(zip(ld.keys(), terms)), masks.detach()
 
-    def _to_device(self, *arrays: np.ndarray):
-        with trace.span("train.h2d"):
-            out = []
-            for a in arrays:
-                a = torch.from_numpy(np.ascontiguousarray(a))
-                # a copy from pageable memory waits for the stream
-                with trace.span("sync.to_device"):
-                    out.append(a.to(self.device))
-            return out
-
     def _frames(self, batch):
         """(pcs, segms, flows) of a batch at the trainer's frame stride."""
         s = self.frame_stride
