@@ -66,7 +66,15 @@
    the seeded MaskFormer3D's masks (B=8 x 8192, K 10), the invariance loss
    and its gradient bit-equal between the two, K > 32 refused; timed by
    single call and device time beside the host path
-   (``iou_match_phase()`` runs this alone).
+   (``iou_match_phase()`` runs this alone).  FlowStep3D's eval BatchNorm +
+   ReLU pass (csrc/affine_relu.cu) is held bit-equal to the eager chains it
+   replaces at every site shape of the benchmark's KITTI-SF flow forward
+   (B=16 pairs, 4 iterations), both forms and dtypes, out of place and in
+   place, on seeded rows, on rows and operands holding NaN, +-0.0 and
+   +-inf and on -0.0 reaching the ReLU; timed by device time beside the
+   chain and the bound; then a B=2 forward with it bit-equal to one with
+   the chains patched back, its launches the derived ones
+   (``affine_relu_phase()`` runs this alone).
 4. Train phase (the main path, pinned exact as every parity phase): writes
    a synthetic KITTI-SF root (the write_kittisf layout plus
    flow_preds/flowstep3d/<id>/flow{1,2}.npy), train/val mappings of 40 and
@@ -120,7 +128,8 @@
    (block-min search, nested FPS, frozen self-KNN), each with the gates
    OGC_PALLAS_POOL and OGC_PALLAS_EXACT_PRUNE at the JAX defaults, then
    (exact only) the pool gate alone, then both at on / knn: launches
-   against the derived counts, flows bit-equal between the gate settings, the A/B of the median forward, peak memory,
+   against the derived counts (the eval BatchNorm + ReLU pass's too,
+   flow_affine_sites), flows bit-equal between the gate settings, the A/B of the median forward, peak memory,
    profiles as in phase 5, and one scene pair (2 iterations) on the card
    against the CPU within FLOW_TOL.
 11. test_flow on SAPIEN (B=48, 4 iterations, --save, pool gate on) over
@@ -1820,6 +1829,62 @@ def pool_launches(sites):
                if supported(clouds * m, s, c))
 
 
+# The eval norm + ReLU op (ops/affine_relu.py, csrc/affine_relu.cu) at the
+# benchmark's KITTI-SF flow forward (ogcbench's flow_infer cells: B=16 pairs,
+# 4 iterations).
+AFFINE_B, AFFINE_ITERS = 16, 4
+
+
+def flow_affine_sites(arch, npoint, b, iters, loc_flow_nn, bf16=False):
+    """Every ops.affine_relu call of one FlowStep3D eval forward with the
+    eval fold (nn/flowstep3d.py) as (site, clouds, M, S, C, form, calls):
+    each BatchNorm stack runs layer 0's centre term + ReLU ("rows", C =
+    mlp[0]) and the middle layers' BatchNorm + ReLU ("channel"); its last
+    layer folds into the pool, and the single-layer stacks (H0Net's second
+    conv, the GRU gates) fold wholly.  FlowEmbedding runs no fold in
+    float32 (its layer 0 is a "channel" site too) and a "rows" layer 0 in
+    bf16."""
+    from ogc_tpu_torch.models.flownet import ARCHS
+
+    a = ARCHS[arch]
+    lr, rest = npoint // 4, iters - 1
+    stacks = []
+    for i, sp in enumerate(a.enc_loc):
+        m = npoint // sp.npoint_div
+        stacks += [(f"enc_loc_sa{i + 1}", 2 * b, m, sp.nsample, sp.mlp, 1),
+                   (f"enc_loc_sa{i + 1} (refine)", b, m, sp.nsample, sp.mlp,
+                    rest)]
+    for i, sp in enumerate(a.enc_glob):
+        stacks.append((f"enc_glob_sa{i + 1}", 2 * b, npoint // sp.npoint_div,
+                       sp.nsample, sp.mlp, 1))
+    for i, sp in enumerate(a.corr_sa):
+        stacks.append((f"corr_sa{i + 1}", b, npoint // sp.npoint_div,
+                       sp.nsample, sp.mlp, 1))
+    stacks += [("flow0_sa1", b, lr, a.reg_nsample, a.reg_mlp, 1),
+               ("h0_sa1", b, lr, 4, a.h0_mlp1, 1),
+               ("flow_conv1", b, lr, a.flow_conv1.nsample,
+                a.flow_conv1.mlp, rest),
+               ("flow_conv2", b, lr, a.flow_conv2.nsample,
+                a.flow_conv2.mlp, rest),
+               ("flow_sa{1,2}", b, lr, a.reg_nsample, a.reg_mlp, 2 * rest)]
+    sites = []
+    for site, clouds, m, s, mlp, calls in stacks:
+        sites.append((site, clouds, m, s, mlp[0], "rows", calls))
+        sites += [(site, clouds, m, s, c, "channel", calls)
+                  for c in mlp[1:-1]]
+    emb = a.local_corr_mlp
+    sites.append(("local_corr", b, lr, loc_flow_nn, emb[0],
+                  "rows" if bf16 else "channel", rest))
+    sites += [("local_corr", b, lr, loc_flow_nn, c, "channel", rest)
+              for c in emb[1:-1]]
+    return sites
+
+
+def affine_launches(sites):
+    """ops.affine_relu launches of a forward on the card: one a site call."""
+    return sum(site[-1] for site in sites)
+
+
 def bits_equal(a, b):
     """Same shape, NaN at the same places, every other value the same bits
     (so -0.0 and +0.0 differ)."""
@@ -1988,6 +2053,193 @@ def check_pool_cases(gen):
     log(f"pool NaN / -0.0 rows ({g} groups x S={s}, C={c}; scale/add "
         f"{', '.join(f[0] for f in forms)}) and the runtime-S and scalar "
         f"instances: {n} cases bit-equal to plain")
+
+
+def with_edges(t, gen):
+    """t with NaN, +0.0, -0.0, +inf and -inf each at 64 seeded places."""
+    flat = t.view(-1)
+    vals = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                         -float("inf")], device=t.device).repeat(64)
+    pos = torch.randperm(flat.numel(), generator=gen,
+                         device=t.device)[:vals.numel()]
+    flat[pos] = vals.to(t.dtype)
+    return t
+
+
+def affine_bn(gen, c, edges):
+    """A SchedulableBatchNorm of c channels in eval on the card, its affine
+    and statistics drawn away from the identity; with ``edges`` some of
+    them 0.0, -0.0, +-inf or NaN, and one variance at -eps (rsqrt(0) =
+    inf)."""
+    from ogc_tpu_torch.nn.flowstep3d import SchedulableBatchNorm
+
+    bn = SchedulableBatchNorm(c).to("cuda").eval()
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.5 * torch.randn(c, generator=gen,
+                                              device="cuda"))
+        bn.bias.copy_(0.5 * torch.randn(c, generator=gen, device="cuda"))
+        bn.running_mean.copy_(0.5 * torch.randn(c, generator=gen,
+                                                device="cuda"))
+        bn.running_var.copy_(1 + torch.rand(c, generator=gen, device="cuda"))
+        if edges:
+            inf, nan = float("inf"), float("nan")
+            bn.weight[:3] = torch.tensor([0.0, -0.0, inf])
+            bn.bias[3:6] = torch.tensor([0.0, -0.0, -inf])
+            bn.running_mean[6:9] = torch.tensor([-0.0, inf, nan])
+            bn.running_var[9] = -bn.eps
+    return bn
+
+
+def check_affine_relu(gen):
+    """The eval norm + ReLU kernel (ops/affine_relu.py) at every site shape
+    of the benchmark's KITTI-SF flow forward (flow_affine_sites, B=16 pairs,
+    4 iterations), both forms, float32 and bf16: bit-equal to the eager
+    chain it replaces (F.relu(SchedulableBatchNorm(x)) in eval, F.relu(g +
+    t[:, :, None, :])) and to its plain version, out of place and in place,
+    on seeded rows and on an edge batch (NaN, +-0.0, +-inf in x, in t and
+    in the BatchNorm's operands).  Each shape timed by device time
+    (device_ms, in place as the model runs it) against the chain and the
+    bound (every element read once and written once, plus the operands,
+    over 3.35 TB/s; a tensor under L2's 50 MB stays there across the
+    replays and can beat it); per forward the sums weighted by the site's
+    calls.  Returns {dtype: per-forward sums}."""
+    import torch.nn.functional as F
+
+    from ogc_tpu_torch.ops.affine_relu import affine_relu, affine_relu_plain
+
+    kw = ("kitti", N_POINT, AFFINE_B, AFFINE_ITERS, FLOW_KW["loc_flow_nn"])
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        sites = flow_affine_sites(*kw, bf16=dt == torch.bfloat16)
+        shapes = {}
+        for site, clouds, m, s, c, form, calls in sites:
+            key = (clouds, m, s, c, form)
+            names, n = shapes.get(key, ([], 0))
+            shapes[key] = (names + [site], n + calls)
+        tot = {"kernel": 0.0, "chain": 0.0, "bound": 0.0, "calls": 0,
+               "neg_zero": 0}
+        for (clouds, m, s, c, form), (names, calls) in shapes.items():
+            for edges in (True, False):
+                x = torch.randn((clouds, m, s, c), generator=gen,
+                                device="cuda").to(dt)
+                bn = affine_bn(gen, c, edges)
+                t = torch.randn((clouds, m, c), generator=gen,
+                                device="cuda").to(dt)
+                if edges:
+                    x, t = with_edges(x, gen), with_edges(t, gen)
+                with torch.no_grad():
+                    if form == "channel":
+                        arg = {"channel": bn.eval_operands(dt)}
+                        chain = F.relu(bn(x))
+                    else:
+                        arg = {"rows": t}
+                        chain = F.relu(x + t[:, :, None, :])
+                    plain = affine_relu_plain(x, **arg)
+                    got = affine_relu(x, **arg)
+                    inplace = affine_relu(x.clone(), **arg, inplace=True)
+                for what, y in (("plain", plain), ("kernel", got),
+                                ("kernel in place", inplace)):
+                    if not bits_equal(y, chain):
+                        raise AssertionError(
+                            f"affine_relu {form} {dt} {names[0]} "
+                            f"({clouds},{m},{s},{c}) edges {edges}: {what} "
+                            f"!= the eager chain")
+                if edges:
+                    neg = negative_zeros(chain)
+                    tot["neg_zero"] += neg
+            size = x.element_size()
+            nbytes = (2 * x.numel() + (t.numel() if form == "rows"
+                                       else 4 * c)) * size
+            bnd, _ = bound_ms(nbytes, 0)
+            y = x.clone()
+            with torch.no_grad():
+                kms = device_ms(lambda: affine_relu(y, **arg, inplace=True))
+                cms = device_ms(lambda: (
+                    F.relu(bn(x)) if form == "channel"
+                    else F.relu(x + t[:, :, None, :])))
+            del y
+            tot["kernel"] += calls * kms
+            tot["chain"] += calls * cms
+            tot["bound"] += calls * bnd
+            tot["calls"] += calls
+            log(f"affine_relu {form} {str(dt)[6:]} {'/'.join(names)} "
+                f"({clouds},{m},S={s},C={c}, {nbytes / 1e6:.1f} MB) "
+                f"x{calls}/forward: bit-equal to the chain and the plain "
+                f"version (out of place and in place, seeded and edge rows; "
+                f"-0.0 in the chain's edge output: {neg}); device: kernel "
+                f"{kms:.4f} ms ({bnd / kms:.4f} of the bound, "
+                f"{nbytes / kms / 1e9:.2f} TB/s), chain {cms:.4f} ms, bound "
+                f"{bnd:.4f} ms")
+            torch.cuda.empty_cache()
+        # -0.0 reaching the ReLU: x - m and x + t of -0.0 operands.
+        z = torch.full((1, 2, 4, 16), -0.0, device="cuda", dtype=dt)
+        zc = (torch.zeros(16, device="cuda", dtype=dt),
+              torch.ones(16, device="cuda", dtype=dt),
+              torch.ones(16, device="cuda", dtype=dt),
+              torch.full((16,), -0.0, device="cuda", dtype=dt))
+        for form, arg in (("channel", {"channel": zc}),
+                          ("rows", {"rows": z[:, :, 0].contiguous()})):
+            chain = affine_relu_plain(z, **arg)
+            if not bits_equal(affine_relu(z, **arg), chain):
+                raise AssertionError(f"affine_relu {form} {dt}: -0.0 input "
+                                     f"!= the eager chain")
+            log(f"affine_relu {form} {str(dt)[6:]}: ReLU of -0.0 gives "
+                f"{'-' if negative_zeros(chain) else '+'}0.0 in the chain "
+                f"and the kernel")
+        log(f"affine_relu {str(dt)[6:]} per KITTI-SF flow forward (B="
+            f"{AFFINE_B} pairs x {N_POINT}, {AFFINE_ITERS} iterations, "
+            f"{tot['calls']} calls): device kernel {tot['kernel']:.4f} ms, "
+            f"eager chain {tot['chain']:.4f} ms, bound {tot['bound']:.4f} "
+            f"ms")
+        out[str(dt)[6:]] = tot
+    return out
+
+
+def check_affine_forward():
+    """The KITTI-SF flow forward (B=2 x 8192, FLOW_ITERS iterations, gates
+    off) with the op against the same forward with the eager chains
+    patched back into nn/flowstep3d.py: flows bit-equal, and the op's
+    launches the derived ones (flow_affine_sites), in float32 exact and in
+    bf16 approximate (the flow_infer cells' modes)."""
+    import torch.nn.functional as F
+
+    from ogc_tpu_torch import ops
+    from ogc_tpu_torch.nn.flowstep3d import _ConvStack
+    from ogc_tpu_torch.nn.layers import set_compute_dtype
+    from ogc_tpu_torch.ops.affine_relu import affine_relu
+
+    b = 2
+    model = make_flownet(FLOW_KW, DEVICE)
+    pc1, pc2 = flow_scenes(b, SEED)
+    set_flow_gates("off")
+    for dt, exact in ((None, True), (torch.bfloat16, False)):
+        set_compute_dtype(dt)
+        ops.set_exact_neighbors(exact)
+        want = affine_launches(flow_affine_sites(
+            "kitti", N_POINT, b, FLOW_ITERS, FLOW_KW["loc_flow_nn"],
+            bf16=dt is not None))
+        affine_relu.launches = 0
+        flows = flow_forward(model, pc1, pc2, FLOW_ITERS)
+        torch.cuda.synchronize()
+        got = affine_relu.launches
+        saved = (_ConvStack._norm_relu, _ConvStack.__dict__["_add_relu"])
+        _ConvStack._norm_relu = lambda s, x, j: F.relu(s.mlp_bns[j](x))
+        _ConvStack._add_relu = staticmethod(
+            lambda g, t: F.relu(g + t[:, :, None, :]))
+        try:
+            chains = flow_forward(model, pc1, pc2, FLOW_ITERS)
+        finally:
+            _ConvStack._norm_relu, _ConvStack._add_relu = saved
+        equal = all(bits_equal(f, c) for f, c in zip(flows, chains))
+        log(f"flow forward {'bf16 approximate' if dt else 'float32 exact'} "
+            f"(B={b} x {N_POINT}, {FLOW_ITERS} iterations): affine_relu "
+            f"launches {got} (derived {want}); flows bit-equal to the eager "
+            f"chains': {equal}")
+        if got != want or not equal:
+            raise AssertionError(f"affine_relu forward {dt}: launches {got} "
+                                 f"(derived {want}), bit-equal {equal}")
+    set_compute_dtype(None)
+    ops.set_exact_neighbors(True)
 
 
 def same(a, b):
@@ -2832,6 +3084,22 @@ def iou_match_phase():
     log(json.dumps({"iou_match": report.entry("iou_match")}))
 
 
+def affine_relu_phase():
+    """check_affine_relu and check_affine_forward alone on the card, with
+    the library's ptxas report for csrc/affine_relu.cu: ``python3 -c
+    'import chip_smoke; chip_smoke.affine_relu_phase()'``."""
+    from ogc_tpu_torch.ops import _build
+
+    _build.lib()
+    log(f"{torch.cuda.get_device_name(0)}; kernels built in "
+        f"{_build.build_seconds:.3f} s")
+    ptxas_report([osp.join(_build.CSRC_DIR, "affine_relu.cu")])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sums = check_affine_relu(gen)
+    check_affine_forward()
+    log(json.dumps({"affine_relu": sums}))
+
+
 def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     eval_report, train_report = Report(), Report()
@@ -2910,6 +3178,8 @@ def check_kernels():
     check_pool(Report(), gen, flow_pool_sites(
         "sapien", SAP_N, SAP_FLOW_B, SAP_FLOW_ITERS, 8), "SAPIEN")
     check_pool_cases(gen)
+    check_affine_relu(gen)
+    check_affine_forward()
     check_pruned(flow_report, gen)
     check_fps(flow_report, gen, 2 * FLOW_B, 1, FLOW_FPS_SHAPES)
     e = flow_report.entry("fps")
@@ -3993,9 +4263,13 @@ def run_flow():
     CPU at B=1.  Returns the launches of the gates-on forwards."""
     from ogc_tpu_torch import ops
 
+    from ogc_tpu_torch.ops.affine_relu import affine_relu
+
     model = make_flownet(FLOW_KW, DEVICE)
     pc1, pc2 = flow_scenes(FLOW_B, SEED)
     n_pool = pool_launches(flow_pool_sites(
+        "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"]))
+    n_affine = affine_launches(flow_affine_sites(
         "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"]))
     total = launch_counts()
     for mode, exact in (("exact", True), ("approx", False)):
@@ -4015,6 +4289,7 @@ def run_flow():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
+            affine_relu.launches = 0
             t0 = time.perf_counter()
             flows[setting] = flow_forward(model, pc1, pc2, FLOW_ITERS)
             torch.cuda.synchronize()
@@ -4023,10 +4298,13 @@ def run_flow():
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
             log(f"flow forward {mode}, gates {setting}: first call "
                 f"{first:.4f} ms, peak device memory {peak:.1f} MiB; "
-                f"launches {launches}")
-            if launches != want:
+                f"launches {launches}; affine_relu {affine_relu.launches} "
+                f"(derived {n_affine})")
+            if launches != want or affine_relu.launches != n_affine:
                 raise AssertionError(f"flow {mode} gates {setting}: launches "
-                                     f"{launches}, derived {want}")
+                                     f"{launches}, derived {want}; "
+                                     f"affine_relu {affine_relu.launches}, "
+                                     f"derived {n_affine}")
             if setting == "on":
                 for k in KERNELS:
                     total[k] += launches[k]
@@ -5097,6 +5375,7 @@ def run_flow_bf16():
     times in turns.  Returns the bf16 gates-on launches."""
     from ogc_tpu_torch import ops
     from ogc_tpu_torch.nn.layers import set_compute_dtype
+    from ogc_tpu_torch.ops.affine_relu import affine_relu
     from ogc_tpu_torch.ops.pool import rowgroup_pool, rowgroup_pool_plain
 
     model = make_flownet(FLOW_KW, DEVICE)
@@ -5110,15 +5389,22 @@ def run_flow_bf16():
         set_compute_dtype(dtypes[dt])
         set_flow_gates(setting)
         want = dict(FLOW_APPROX, pool=n_pool if setting == "on" else 0)
+        n_affine = affine_launches(flow_affine_sites(
+            "kitti", N_POINT, FLOW_B, FLOW_ITERS, FLOW_KW["loc_flow_nn"],
+            bf16=dt == "bf16"))
         reset_counts()
+        affine_relu.launches = 0
         flows[dt, setting] = flow_forward(model, pc1, pc2, FLOW_ITERS)
         torch.cuda.synchronize()
         launches = read_counts()
         log(f"flow forward approximate {dt} gates {setting}: launches "
-            f"{launches}")
-        if launches != want:
+            f"{launches}; affine_relu {affine_relu.launches} (derived "
+            f"{n_affine})")
+        if launches != want or affine_relu.launches != n_affine:
             raise AssertionError(f"flow {dt} gates {setting}: launches "
-                                 f"{launches}, derived {want}")
+                                 f"{launches}, derived {want}; affine_relu "
+                                 f"{affine_relu.launches}, derived "
+                                 f"{n_affine}")
         if (dt, setting) == ("bf16", "on"):
             bf16_launches = launches
         check_finite(f"flow {dt} gates {setting}", {

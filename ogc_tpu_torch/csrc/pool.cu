@@ -41,68 +41,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "chunks.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBatch = 8;  // row loads in flight per thread
 
-// V consecutive elements of T as floats; V * sizeof(T) is 16 bytes or one
-// element.
-template <int V>
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[V]) {
-  if constexpr (V == 1) {
-    v[0] = p[0];
-  } else {
-    static_assert(V == 4, "float chunk");
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&v)[V]) {
-  if constexpr (V == 1) {
-    v[0] = __bfloat162float(p[0]);
-  } else {
-    static_assert(V == 8, "bfloat16 chunk");
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 h;
-      *reinterpret_cast<uint32_t*>(&h) = w[i];
-      const float2 f = __bfloat1622float2(h);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_chunk(float* p, const float (&v)[V]) {
-  if constexpr (V == 1) {
-    p[0] = v[0];
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
-                                            const float (&v)[V]) {
-  if constexpr (V == 1) {
-    p[0] = __float2bfloat16_rn(v[0]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
+using ogc::load_chunk;
+using ogc::store_chunk;
 
 // The scale's V floats (float32 whatever x's type): one or two 16-byte
 // loads, or a scalar.

@@ -16,13 +16,20 @@ every dtype unless ``OGC_EVAL_FOLD=off`` or with InstanceNorm): the first
 into it, the projections (cast to the compute dtype) gathered, and the
 centre's projection subtracted per group.  The last layer of a stack folds
 its eval BatchNorm affine and ReLU into the neighbour pool; every eval pool
-is ``ops.pool_neighbors`` (#12 behind its gate).  Train (``module.train()``):
-BatchNorm on batch statistics, and a ``torch.amax`` pool, whose gradient
-splits evenly among tied rows as ``jnp.max``'s does (the radius clamp
-duplicates rows, so ties are common); in float32 the first layer takes the
-reference-shaped grouped tensor (relative xyz, then features), in bf16 the
-raw-gather split (``W raw - W center``, :238-247).  BatchNorm takes its
-momentum from ``set_bn_momentum`` (the trainer's schedule).
+is ``ops.pool_neighbors`` (#12 behind its gate).  The other eval
+BatchNorm + ReLU layers, and the first layer's centre term + ReLU, are one
+``ops.affine_relu`` pass each, in place, when no gradient is needed (the
+CUDA kernel on the card; on the CPU the eager chain it replaces).  With no
+gradient recorded, the BatchNorm's eval operands and the bf16 casts of the
+conv weights are kept between calls until an in-place update or a new
+storage changes what they are made from (``_kept``).  Train
+(``module.train()``): BatchNorm on batch statistics, and a ``torch.amax``
+pool, whose gradient splits evenly among tied rows as ``jnp.max``'s does
+(the radius clamp duplicates rows, so ties are common); in float32 the
+first layer takes the reference-shaped grouped tensor (relative xyz, then
+features), in bf16 the raw-gather split (``W raw - W center``, :238-247).
+BatchNorm takes its momentum from ``set_bn_momentum`` (the trainer's
+schedule).
 
 The bf16 compute mode (``nn.layers.compute_dtype``): every product that
 touches raw coordinates (the first layer's, in every form) runs in float32
@@ -48,12 +55,42 @@ from ogc_tpu_torch.ops import remat
 from ogc_tpu_torch.parallel import mesh
 
 
+def _grad_needed(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _kept(owner: nn.Module, key, sources: Sequence[torch.Tensor], make):
+    """``make()``, kept on ``owner`` under ``key`` while no gradient is
+    recorded through ``sources`` and each of them keeps its storage and
+    version counter (an in-place update moves the counter; one through
+    ``.data`` does not, and nothing here updates so): an eval forward would
+    otherwise rebuild these small tensors of its parameters, a launch or
+    more each, at every layer of every call."""
+    if _grad_needed(*sources):
+        return make()
+    try:
+        stamp = tuple((t.data_ptr(), t._version) for t in sources)
+    except RuntimeError:  # inference tensors keep no version counter
+        return make()
+    kept = owner.__dict__.setdefault("_kept", {})
+    hit = kept.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = kept[key] = (stamp, make())
+    return hit[1]
+
+
+def _operands(dtype, mean, var, eps, weight, bias):
+    """The normalisation's operands (mean, rsqrt(var + eps), weight, bias),
+    each cast to ``dtype``."""
+    return (mean.to(dtype), torch.rsqrt(var + eps).to(dtype),
+            weight.to(dtype), bias.to(dtype))
+
+
 def _affine(x, mean, var, eps, weight, bias):
     """(x - mean) * rsqrt(var + eps) * weight + bias in x's dtype, each
     operand cast to it (the JAX package's normalisation)."""
-    dt = x.dtype
-    y = (x - mean.to(dt)) * torch.rsqrt(var + eps).to(dt)
-    return y * weight.to(dt) + bias.to(dt)
+    m, r, w, b = _operands(x.dtype, mean, var, eps, weight, bias)
+    return (x - m) * r * w + b
 
 
 class SchedulableBatchNorm(nn.BatchNorm2d):
@@ -106,11 +143,24 @@ class SchedulableBatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return _affine(x, mean, var, self.eps, self.weight, self.bias)
 
+    def _sources(self):
+        return self.weight, self.bias, self.running_mean, self.running_var
+
     def eval_affine(self):
         """The eval affine (k, b) with BN(y) = y * k + b: k = weight *
         rsqrt(var + eps), b = bias - mean * k (``return_affine``)."""
-        k = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return k, self.bias - self.running_mean * k
+        def make():
+            k = self.weight * torch.rsqrt(self.running_var + self.eps)
+            return k, self.bias - self.running_mean * k
+        return _kept(self, ("affine", self.eps), self._sources(), make)
+
+    def eval_operands(self, dtype: torch.dtype):
+        """The eval forward's operands in ``dtype``, as ``_affine`` takes
+        them: the channel form of ``ops.affine_relu``."""
+        return _kept(self, (dtype, self.eps), self._sources(),
+                     lambda: _operands(dtype, self.running_mean,
+                                       self.running_var, self.eps,
+                                       self.weight, self.bias))
 
 
 def set_bn_momentum(model: nn.Module, momentum: float) -> None:
@@ -166,14 +216,44 @@ class _ConvStack(nn.Module):
     def _w(self, j: int) -> torch.Tensor:
         return self.mlp_convs[j].weight.flatten(1)
 
+    def _w_compute(self, j: int) -> torch.Tensor:
+        """Layer j's weight in the compute dtype (the cast kept while the
+        weight stays and no gradient is recorded)."""
+        w = self._w(j)
+        dt = compute_dtype()
+        if dt is None:
+            return w
+        return _kept(self, ("w", j, dt), (w,), lambda: w.to(dt))
+
     def _dense(self, x: torch.Tensor, j: int) -> torch.Tensor:
         """Layer j's product in the compute dtype (``nn.Dense(dtype=
         compute_dtype())``)."""
-        return F.linear(to_compute(x), to_compute(self._w(j)))
+        return F.linear(to_compute(x), self._w_compute(j))
 
     @staticmethod
     def _pool(x, **kw):
         return ops.pool_neighbors(x, differentiable=False, **kw)
+
+    def _norm_relu(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """ReLU of layer j's norm of x.  An eval BatchNorm with no gradient
+        needed is one ``ops.affine_relu`` pass, in place (x is the layer's
+        fresh product); train mode, InstanceNorm or a gradient take the
+        chain."""
+        bn = self.mlp_bns[j]
+        if (isinstance(bn, SchedulableBatchNorm) and not bn.training
+                and not _grad_needed(x, bn.weight, bn.bias)):
+            return ops.affine_relu(x, channel=bn.eval_operands(x.dtype),
+                                   inplace=True)
+        return F.relu(bn(x))
+
+    @staticmethod
+    def _add_relu(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """relu(g + t[:, :, None, :]) of the grouped rows g (B, M, S, C) and
+        a per-group term t (B, M, C): one ``ops.affine_relu`` pass over g in
+        place (a fresh gather) when no gradient is needed."""
+        if not _grad_needed(g, t):
+            return ops.affine_relu(g, rows=t, inplace=True)
+        return F.relu(g + t[:, :, None, :])
 
     def _layers(self, x: torch.Tensor, start: int,
                 product: bool = True) -> torch.Tensor:
@@ -191,7 +271,7 @@ class _ConvStack(nn.Module):
             if j == last and not self.training and not self.inorm:
                 k, b = self.mlp_bns[j].eval_affine()
                 return ops.widen(self._pool(x, scale=k, add=b, relu=True))
-            x = F.relu(self.mlp_bns[j](x))
+            x = self._norm_relu(x, j)
         if self.training:
             return ops.widen(torch.amax(x, 2))
         return ops.widen(self._pool(x))
@@ -243,9 +323,10 @@ class _ConvStack(nn.Module):
             # Single-layer stacks (GRU gates, H0Net's second conv): the
             # per-group add and the activation fold into the pool.
             return ops.widen(self._pool(g, add=cterm, relu=self.use_act))
-        x = g + cterm[:, :, None, :]
         if self.use_act:
-            x = F.relu(x)
+            x = self._add_relu(g, cterm)
+        else:
+            x = g + cterm[:, :, None, :]
         return self._layers(x, 1)
 
 
@@ -376,7 +457,7 @@ class FlowEmbedding(_ConvStack):
             feat1 = feature1[:, :, None, :].expand(*g.shape[:3],
                                                    feature1.shape[-1])
             x = F.linear(torch.cat([pos_diff, g[..., 3:], feat1], -1), w0)
-            x = F.relu(self.mlp_bns[0](x))
+            x = self._norm_relu(x, 0)
             return pos1, self._layers(x, 1)
         point = (F.linear(feature1, w0[:, c2:])
                  - F.linear(pos1, w0[:, :3]))
@@ -384,9 +465,9 @@ class FlowEmbedding(_ConvStack):
             proj2 = F.linear(torch.cat([pos2, feature2], -1), w0[:, :c2])
             k, b = self.mlp_bns[0].eval_affine()
             gp = ops.group(to_compute(proj2 * k), idx)
-            x = F.relu(gp + to_compute(point * k + b)[:, :, None, :])
+            x = self._add_relu(gp, to_compute(point * k + b))
             return pos1, self._layers(x, 1)
         g = ops.group(torch.cat([pos2, feature2], -1), idx)
         x = to_compute(F.linear(g, w0[:, :c2]) + point[:, :, None, :])
-        x = F.relu(self.mlp_bns[0](x))
+        x = self._norm_relu(x, 0)
         return pos1, self._layers(x, 1)

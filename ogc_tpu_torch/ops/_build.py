@@ -46,6 +46,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t).
 _SIGNATURES = {
     "ogc_fps": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -73,6 +74,7 @@ _SIGNATURES = {
     "ogc_knn_cand": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _P, _P, _P],
     "ogc_iou_match": [_P, _P, _I, _I, _I, _P, _P],
+    "ogc_affine_relu": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
 }
 
 _get_fill = torch._C._get_deterministic_fill_uninitialized_memory
